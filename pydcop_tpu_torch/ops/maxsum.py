@@ -8,9 +8,11 @@ and state (``tests/test_torch_maxsum_ops.py``):
   then, for each position p, ``min`` over the other axes minus ``m_p``.
   Arity 2 goes to ``ops/binary_factor.py`` — the hand-written CUDA
   kernel on the card, its plain version on the CPU;
-- variable->factor: scatter-add of incoming messages per variable
-  (``index_add_``), minus the own message, mean-normalised over valid
-  domain slots, damped;
+- variable->factor: per-variable sum of incoming messages in a fixed
+  order (``ops/segment_sum.py`` — a hand-written CUDA kernel on the
+  card, so the sums are the CPU's and the reference's bit for bit),
+  minus the own message, mean-normalised over valid domain slots,
+  damped;
 - value selection: first-index argmin of own costs + message sums over
   valid slots.
 
@@ -35,6 +37,7 @@ import torch
 from pydcop_tpu_torch.device import TorchFactorGraph
 from pydcop_tpu_torch.engine.compile import BIG
 from pydcop_tpu_torch.ops.binary_factor import binary_factor_update
+from pydcop_tpu_torch.ops.segment_sum import segment_sum
 
 Msgs = Tuple[torch.Tensor, ...]  # one [F, arity, D] tensor per bucket
 
@@ -141,23 +144,24 @@ def factor_to_var(graph: TorchFactorGraph, v2f: Msgs,
 
 def aggregate_beliefs(graph: TorchFactorGraph, f2v: Msgs
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Sum incoming factor messages per variable with one scatter-add
-    per bucket.  Returns (beliefs [V+1, D] = own costs + sums, sums).
-
-    On the card ``index_add_`` adds with atomics in no fixed order, so
-    sums may differ from the CPU's in the last bits."""
+    """Sum incoming factor messages per variable in the order the
+    reference's jitted superstep sums them: edge order within a bucket;
+    across buckets XLA folds the per-bucket segment_sums so that bucket
+    0 starts from zero, each odd bucket is summed from zero on its own
+    and added, and each even bucket is added into the running sums.
+    Returns (beliefs [V+1, D] = own costs + sums, sums).  The same bits
+    on the card and on the CPU: the card runs ``csrc/segment_sum.cu``,
+    whose order is fixed."""
     if not graph.buckets:
         # Constraint-free DCOP: no incoming messages at all.
         return graph.var_costs, torch.zeros_like(graph.var_costs)
     d = graph.var_costs.shape[1]
-    sums = torch.zeros_like(graph.var_costs)
-    for bucket, msgs in zip(graph.buckets, f2v):
-        # Every bucket scatters straight into the running sums, in
-        # bucket order: the order XLA gives the reference's jitted
-        # superstep (it folds the per-bucket segment_sums into one
-        # accumulation).
-        sums.index_add_(0, bucket.var_ids.reshape(-1), msgs.reshape(-1, d))
-    return graph.var_costs + sums, sums
+    flats = [msgs.reshape(-1, d) for msgs in f2v]
+    # One bucket is a view; several are concatenated (one copy of the
+    # messages per call).
+    flat = flats[0] if len(flats) == 1 else torch.cat(flats)
+    return segment_sum(flat, graph.agg_perm, graph.agg_offsets,
+                       graph.agg_buckets, graph.var_costs)
 
 
 def _sum_last(x: torch.Tensor) -> torch.Tensor:
