@@ -1,0 +1,163 @@
+#!/usr/bin/env python3
+"""Time the card's belief aggregation of this checkout beside another
+checkout's, on the same inputs, in turns.
+
+    python3 chip_compare.py OTHER_CHECKOUT [--rounds 2]
+
+Builds chip_smoke.py's aggregation graphs from their seeds (the 1M-
+variable scale graph, the scale-free graph of the same size, a hub of
+degree 3,000 and a four-bucket graph with sentinel padding) and random
+per-bucket messages, saves them under ``build/compare/``, then runs one
+worker process per checkout in turns (this, other, other, this, ...).
+Each worker imports the ``pydcop_tpu_torch`` of its checkout (which
+builds that checkout's kernels), checks ``ops.aggregate_beliefs`` on
+the card against the same call on the CPU bit for bit, and times it:
+``reps`` calls captured in a CUDA graph, replayed five times, median
+per call.  ``aggregate_beliefs(graph, f2v)`` is the one entry both
+sides share whatever their kernel's own signature.  The last lines
+are one JSON object of device milliseconds per shape and checkout and
+the card's name and power limit.  It needs one CUDA card and exits 1
+without one; it imports nothing of JAX and nothing of the JAX package.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+INPUTS = os.path.join(HERE, "build", "compare", "inputs.npz")
+SHAPES = ("scale", "scale_free", "hub", "multi_bucket_padded")
+
+
+def make_inputs():
+    """chip_smoke.py's aggregation graphs, as arrays, with messages."""
+    sys.path.insert(0, HERE)
+    import chip_smoke
+
+    arrays = {}
+    graphs = chip_smoke.aggregation_graphs(
+        lambda var_costs, var_valid, buckets, device: (
+            var_costs, var_valid, buckets), None)
+    for i, (label, graph) in enumerate(graphs):
+        if label not in SHAPES:
+            continue
+        var_costs, var_valid, buckets = graph
+        arrays[f"{label}/var_costs"] = var_costs
+        arrays[f"{label}/var_valid"] = var_valid
+        rng = np.random.default_rng(300 + i)
+        d = var_costs.shape[1]
+        for b, (costs, ids) in enumerate(buckets):
+            shape = ids.shape + (d,)
+            arrays[f"{label}/costs{b}"] = costs
+            arrays[f"{label}/ids{b}"] = ids
+            arrays[f"{label}/f2v{b}"] = (
+                rng.normal(size=shape)
+                * 10.0 ** rng.integers(-3, 4, size=shape)).astype(np.float32)
+    os.makedirs(os.path.dirname(INPUTS), exist_ok=True)
+    np.savez(INPUTS, **arrays)
+
+
+def graph_ms(torch, fn, reps: int) -> float:
+    """Median device milliseconds per call over five replays of ``reps``
+    calls captured in one CUDA graph."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return sorted(times)[2]
+
+
+def worker(root: str):
+    """Check and time aggregate_beliefs of the checkout at ``root``."""
+    sys.path.insert(0, root)
+    import torch
+
+    from pydcop_tpu_torch.engine.convert import graph_from_numpy
+    from pydcop_tpu_torch.ops import maxsum as ops
+
+    data = np.load(INPUTS)
+    out = {}
+    for label in SHAPES:
+        n_buckets = sum(k.startswith(f"{label}/ids") for k in data.files)
+        buckets = [(data[f"{label}/costs{b}"], data[f"{label}/ids{b}"])
+                   for b in range(n_buckets)]
+        args = (data[f"{label}/var_costs"], data[f"{label}/var_valid"],
+                buckets)
+        f2v = [data[f"{label}/f2v{b}"] for b in range(n_buckets)]
+        card = graph_from_numpy(*args, device="cuda")
+        cpu = graph_from_numpy(*args, device="cpu")
+        f2v_card = tuple(torch.tensor(m, device="cuda") for m in f2v)
+        got = ops.aggregate_beliefs(card, f2v_card)
+        want = ops.aggregate_beliefs(cpu, tuple(torch.tensor(m)
+                                                for m in f2v))
+        if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+            raise SystemExit(f"{root}: card != CPU on {label}")
+        reps = 50 if card.agg_perm.shape[0] > 1_000_000 else 200
+        out[label] = graph_ms(
+            torch, lambda: ops.aggregate_beliefs(card, f2v_card), reps)
+        del card, cpu, f2v_card
+    print(json.dumps(out), flush=True)
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("other", nargs="?")
+    parser.add_argument("--rounds", type=int, default=2)
+    parser.add_argument("--worker", metavar="ROOT")
+    opts = parser.parse_args()
+    if opts.worker:
+        worker(opts.worker)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available() or opts.other is None:
+        print("chip_compare: needs a CUDA card and OTHER_CHECKOUT",
+              file=sys.stderr)
+        return 1
+    make_inputs()
+    roots = {"this": HERE, "other": os.path.abspath(opts.other)}
+    order = []
+    for r in range(opts.rounds):
+        order += ["this", "other"] if r % 2 == 0 else ["other", "this"]
+    times = {name: {label: [] for label in SHAPES} for name in roots}
+    for name in order:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--worker",
+             roots[name]], cwd=roots[name], capture_output=True, text=True,
+            timeout=600)
+        if proc.returncode != 0:
+            print(proc.stdout, proc.stderr, file=sys.stderr)
+            return 1
+        for label, ms in json.loads(proc.stdout.splitlines()[-1]).items():
+            times[name][label].append(ms)
+        print(json.dumps({"checkout": name, "ms": {
+            k: v[-1] for k, v in times[name].items()}}), flush=True)
+    print(json.dumps({"order": order, "ms": times}), flush=True)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

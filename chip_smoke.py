@@ -200,15 +200,27 @@ def edge_messages(torch, n_edges: int, d: int, seed: int):
     return torch.tensor(msgs, device="cuda")
 
 
+def segment_args(torch, graph, msgs):
+    """segment_sum's arguments for flat messages [E, D] on ``graph``:
+    the buckets as views into ``msgs``, in bucket order."""
+    sizes = [b.var_ids.numel() for b in graph.buckets]
+    return (torch.split(msgs, sizes), graph.agg_perm, graph.agg_offsets,
+            graph.agg_buckets, graph.var_costs, graph.agg_tiles)
+
+
 def aggregation_graphs(graph_from_numpy, flagship_graph):
     """(label, graph on the card) for the segment_sum checks: the
-    flagship, the scale graph, a four-bucket (arities 1-4) graph with
-    sentinel padding rows, and a hub of degree 3,000."""
+    flagship, the scale graph, the scale-free graph of the same size, a
+    four-bucket (arities 1-4) graph with sentinel padding rows, and a
+    hub of degree 3,000 (two shared-memory passes at D = 3)."""
     rng = np.random.default_rng(11)
     yield "flagship", flagship_graph
     var_costs, var_valid, buckets = scale_arrays(SCALE_VARS)
     yield "scale", graph_from_numpy(var_costs, var_valid, buckets,
                                     device="cuda")
+    var_costs, var_valid, buckets = scalefree_arrays(SCALE_VARS)
+    yield "scale_free", graph_from_numpy(var_costs, var_valid, buckets,
+                                         device="cuda")
     n_vars, d = 500, 4
     var_costs = rng.normal(size=(n_vars + 1, d)).astype(np.float32)
     var_costs[::3, d - 1] = BIG
@@ -304,6 +316,36 @@ def scale_arrays(n_vars: int, edge_factor: float = 1.5):
         var_ids[loop, 1] = rng.integers(
             0, n_vars, size=int(loop.sum())).astype(np.int32)
         loop = var_ids[:, 0] == var_ids[:, 1]
+    return coloring_arrays(rng, n_vars, var_ids)
+
+
+def scalefree_arrays(n_vars: int, edge_factor: float = 1.5):
+    """The scale graph's sizes with scale-free degrees: both endpoints
+    of each factor drawn with weight (i + 1) ** -0.5 over a seeded
+    random relabelling of the variables (seed 13, self-loops redrawn),
+    so hubs of ~1,500 edges sit at random places and ~10 % of the
+    variables have none."""
+    rng = np.random.default_rng(13)
+    n_factors = int(n_vars * edge_factor)
+    weight = (np.arange(n_vars) + 1.0) ** -0.5
+    weight /= weight.sum()
+    relabel = rng.permutation(n_vars).astype(np.int32)
+
+    def draw(k):
+        return relabel[rng.choice(n_vars, size=k, p=weight)]
+
+    var_ids = draw(2 * n_factors).reshape(n_factors, 2)
+    loop = var_ids[:, 0] == var_ids[:, 1]
+    while loop.any():
+        var_ids[loop, 1] = draw(int(loop.sum()))
+        loop = var_ids[:, 0] == var_ids[:, 1]
+    return coloring_arrays(rng, n_vars, var_ids)
+
+
+def coloring_arrays(rng, n_vars: int, var_ids):
+    """(var_costs, var_valid, buckets) of a 3-colouring with binary
+    equality factors ``var_ids`` and small random unary costs."""
+    n_factors = var_ids.shape[0]
     eq = np.eye(N_COLORS, dtype=np.float32)
     costs = np.ascontiguousarray(
         np.broadcast_to(eq, (n_factors, N_COLORS, N_COLORS)))
@@ -338,6 +380,7 @@ def main() -> int:
         binary_factor_update_reference,
     )
     from pydcop_tpu_torch.ops.segment_sum import (
+        HEAVY_DEGREE,
         segment_sum,
         segment_sum_reference,
     )
@@ -393,16 +436,18 @@ def main() -> int:
 
     # 3b. segment_sum on the card vs its plain version on CPU copies
     # (the CPU's index_add_ is the edge-order definition): bit-equal.
-    agg = {}
+    # The kernel reads each bucket where it lies: here as views into
+    # one [E, D] tensor, which the plain version takes whole.
+    agg, graphs = {}, {}
     for idx, (label, graph) in enumerate(
             aggregation_graphs(graph_from_numpy, engine.graph)):
         n_edges = int(graph.agg_perm.shape[0])
         n_seg, d = graph.var_costs.shape
         msgs = edge_messages(torch, n_edges, d, seed=50 + idx)
-        args = (msgs, graph.agg_perm, graph.agg_offsets, graph.agg_buckets,
-                graph.var_costs)
+        args = segment_args(torch, graph, msgs)
         beliefs, sums = segment_sum(*args)
-        ref_b, ref_s = segment_sum_reference(*(t.cpu() for t in args))
+        ref_b, ref_s = segment_sum_reference(
+            msgs.cpu(), *(t.cpu() for t in args[1:5]))
         err = max(float((beliefs.cpu() - ref_b).abs().max()),
                   float((sums.cpu() - ref_s).abs().max()))
         max_err["segment_sum"] = max(max_err["segment_sum"], err)
@@ -412,9 +457,10 @@ def main() -> int:
         degree = graph.agg_offsets[1:] - graph.agg_offsets[:-1]
         agg[label] = dict(V1=n_seg, E=n_edges, D=d,
                           buckets=len(graph.buckets),
-                          max_degree=int(degree.max()))
-        if label == "scale":
-            scale_graph = graph
+                          max_degree=int(degree.max()),
+                          heavy=int((degree > HEAVY_DEGREE).sum()),
+                          tiles=int(graph.agg_tiles.shape[0]))
+        graphs[label] = graph
         del graph, msgs, args, beliefs, sums
     emit("kernel_check", kernel="segment_sum", graphs=agg,
          tolerance="exact (torch.equal, card vs CPU index_add_)",
@@ -446,20 +492,21 @@ def main() -> int:
     emit("kernel_timing", kernel="binary_factor_update",
          **timing["binary_factor_update"])
 
-    for label, graph in (("flagship", engine.graph), ("scale", scale_graph)):
+    for label in ("flagship", "scale", "scale_free", "hub"):
+        graph = graphs[label]
         n_edges = int(graph.agg_perm.shape[0])
         n_seg, d = graph.var_costs.shape
         msgs = edge_messages(torch, n_edges, d, seed=100)
-        args = (msgs, graph.agg_perm, graph.agg_offsets, graph.agg_buckets,
-                graph.var_costs)
+        args = segment_args(torch, graph, msgs)
+        flat_args = (msgs,) + args[1:5]
         seg = torch.cat([b.var_ids.reshape(-1) for b in graph.buckets])
-        reps = 200 if label == "flagship" else 50
+        reps = 50 if n_edges > 1_000_000 else 200
 
         def kernel():
             return segment_sum(*args)
 
         def plain():
-            return segment_sum_reference(*args)
+            return segment_sum_reference(*flat_args)
 
         def library():
             # The one-call form (atomics, no fixed order): yardstick only.
@@ -471,14 +518,58 @@ def main() -> int:
         k_ms, p_ms, l_ms = (graph_ms(torch, fn, reps)
                             for fn in (kernel, plain, library))
         timing["segment_sum"][label] = dict(
-            V1=n_seg, E=n_edges, D=d, ms=k_ms[2], plain_ms=p_ms[2],
+            V1=n_seg, E=n_edges, D=d, max_degree=agg[label]["max_degree"],
+            ms=k_ms[2], plain_ms=p_ms[2],
             library_ms=l_ms[2], ms_spread=[k_ms[0], k_ms[-1]],
             plain_ms_spread=[p_ms[0], p_ms[-1]],
             library_ms_spread=[l_ms[0], l_ms[-1]],
             call_ms=cuda_ms(torch, kernel, reps),
             bound_ms=bound_ms, bound_by=bound_by)
-        del msgs, args, seg
+        del msgs, args, flat_args, seg
+
+    # The whole aggregate_beliefs call on a graph of four buckets, which
+    # the kernel reads in place, beside the form that first concatenated
+    # them (one copy of the messages per call) and then ran the kernel.
+    graph = graphs["multi_bucket_padded"]
+    n_seg, d = graph.var_costs.shape
+    f2v = tuple(
+        edge_messages(torch, b.var_ids.numel(), d, seed=200 + i)
+        .reshape(tuple(b.var_ids.shape) + (d,))
+        for i, b in enumerate(graph.buckets))
+    sizes = [b.var_ids.numel() for b in graph.buckets]
+
+    def in_place():
+        return ops.aggregate_beliefs(graph, f2v)
+
+    def cat_then_kernel():
+        flat = torch.cat([m.reshape(-1, d) for m in f2v])
+        return segment_sum(torch.split(flat, sizes), *segment_args(
+            torch, graph, flat)[1:])
+
+    real_cat = torch.cat
+
+    def no_cat(*args, **kwargs):
+        raise RuntimeError("torch.cat on the card's aggregation path")
+
+    torch.cat = no_cat
+    try:
+        got = in_place()
+    finally:
+        torch.cat = real_cat
+    if not all(torch.equal(a, b) for a, b in zip(got, cat_then_kernel())):
+        fail("aggregate_beliefs in place != concatenated messages")
+    a_ms, c_ms = (graph_ms(torch, fn, 200)
+                  for fn in (in_place, cat_then_kernel))
+    bound_ms, bound_by = segment_bound(sum(sizes), n_seg, d)
+    timing["segment_sum"]["multi_bucket_padded"] = dict(
+        V1=n_seg, E=sum(sizes), D=d, buckets=len(sizes), torch_cat_calls=0,
+        aggregate_beliefs_ms=a_ms[2], cat_then_kernel_ms=c_ms[2],
+        aggregate_beliefs_ms_spread=[a_ms[0], a_ms[-1]],
+        cat_then_kernel_ms_spread=[c_ms[0], c_ms[-1]],
+        bound_ms=bound_ms, bound_by=bound_by)
     emit("kernel_timing", kernel="segment_sum", **timing["segment_sum"])
+    scale_graph = graphs["scale"]
+    del graphs, graph, f2v
 
     # 5. Main path, full size: api.solve with NO device argument.  Each
     # superstep launches each kernel once; the final value selection
@@ -659,6 +750,13 @@ def main() -> int:
             "bound_ms": flag["bound_ms"],
             "bound_by": flag["bound_by"],
             "library_ms": flag["library_ms"],
+            # The same keys at the larger shapes timed above.
+            "shapes": {
+                label: {key: row[key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+                    if key in row}
+                for label, row in timing[name].items()
+                if label != "flagship" and "ms" in row},
         })
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from pydcop_tpu_torch.engine.compile import CompiledFactorGraph
+from pydcop_tpu_torch.ops.segment_sum import aggregation_plan
 
 DeviceLike = Union[str, torch.device]
 
@@ -45,7 +46,10 @@ class TorchFactorGraph(NamedTuple):
     ``agg_perm[agg_offsets[v]:agg_offsets[v + 1]]``.  The sentinel row
     V holds the padding edges like any other row.  ``agg_buckets``
     holds the edge index at which each bucket starts, then E.  The
-    belief aggregation (``ops/segment_sum.py``) sums in this order."""
+    belief aggregation (``ops/segment_sum.py``) sums in this order.
+    ``agg_tiles`` is its kernel's plan (``aggregation_plan``): the heavy
+    variables' tiles first, then the light tiles, each row (first
+    variable, end variable, first edge, end edge)."""
 
     var_costs: torch.Tensor   # [V+1, Dmax] float32
     var_valid: torch.Tensor   # [V+1, Dmax] bool
@@ -53,6 +57,7 @@ class TorchFactorGraph(NamedTuple):
     agg_perm: torch.Tensor     # [E] int32
     agg_offsets: torch.Tensor  # [V+2] int32
     agg_buckets: torch.Tensor  # [n_buckets + 1] int32
+    agg_tiles: torch.Tensor    # [T, 4] int32
 
 
 def aggregation_arrays(buckets, n_segments: int
@@ -88,6 +93,7 @@ def to_device_graph(graph: CompiledFactorGraph,
 
     perm, offsets, starts = aggregation_arrays(
         [b.var_ids for b in graph.buckets], graph.var_costs.shape[0])
+    tiles = aggregation_plan(offsets, graph.var_costs.shape[1])
     return TorchFactorGraph(
         var_costs=put(graph.var_costs, torch.float32),
         var_valid=put(graph.var_valid, torch.bool),
@@ -98,4 +104,5 @@ def to_device_graph(graph: CompiledFactorGraph,
         agg_perm=put(perm, torch.int32),
         agg_offsets=put(offsets, torch.int32),
         agg_buckets=put(starts, torch.int32),
+        agg_tiles=put(tiles, torch.int32),
     )

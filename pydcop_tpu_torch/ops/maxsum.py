@@ -151,17 +151,13 @@ def aggregate_beliefs(graph: TorchFactorGraph, f2v: Msgs
     and added, and each even bucket is added into the running sums.
     Returns (beliefs [V+1, D] = own costs + sums, sums).  The same bits
     on the card and on the CPU: the card runs ``csrc/segment_sum.cu``,
-    whose order is fixed."""
+    whose order is fixed and which reads each bucket's messages where
+    they lie."""
     if not graph.buckets:
         # Constraint-free DCOP: no incoming messages at all.
         return graph.var_costs, torch.zeros_like(graph.var_costs)
-    d = graph.var_costs.shape[1]
-    flats = [msgs.reshape(-1, d) for msgs in f2v]
-    # One bucket is a view; several are concatenated (one copy of the
-    # messages per call).
-    flat = flats[0] if len(flats) == 1 else torch.cat(flats)
-    return segment_sum(flat, graph.agg_perm, graph.agg_offsets,
-                       graph.agg_buckets, graph.var_costs)
+    return segment_sum(f2v, graph.agg_perm, graph.agg_offsets,
+                       graph.agg_buckets, graph.var_costs, graph.agg_tiles)
 
 
 def _sum_last(x: torch.Tensor) -> torch.Tensor:

@@ -13,9 +13,15 @@ repository's root conftest imports JAX, so where JAX is missing run:
   built like bench.py's flagship, and the CPU run, give the same values
   and ``np.array_equal`` final states (``engine.convert.state_to_numpy``).
 - Both kernels equal their plain versions bit for bit at awkward shapes:
-  ``segment_sum`` on a four-bucket graph with sentinel padding and on a
-  hub, ``binary_factor_update`` at every templated D, a generic D, a
-  ragged F and an unaligned view.
+  ``segment_sum`` on a four-bucket graph with sentinel padding, on a
+  hub, and on a three-bucket power-law graph whose hub spans several
+  shared-memory passes and bucket boundaries (each bucket's messages
+  read in place), ``binary_factor_update`` at every templated D, a
+  generic D, a ragged F and an unaligned view.
+- ``aggregate_beliefs`` on the card concatenates nothing (``torch.cat``
+  is made to raise during the call) and equals the CPU's result; the
+  wrapper refuses one [E, D] tensor for several buckets and a call
+  without the placement plan.
 """
 
 import numpy as np
@@ -35,6 +41,7 @@ from pydcop_tpu_torch.ops.binary_factor import (
     binary_factor_update_reference,
 )
 from pydcop_tpu_torch.ops.segment_sum import (
+    pass_edges,
     segment_sum,
     segment_sum_reference,
 )
@@ -120,25 +127,116 @@ def _graphs():
         [(np.zeros((2_000, 3, 3), np.float32), ids)], device="cuda")
 
 
+def powerlaw_hub_graph(device, n_vars=30_000, d=3, seed=3):
+    """Buckets of arity 1, 2 and 3 with endpoints drawn with weight
+    (i + 1) ** -0.5; variable 0 sits in 1,500 / 4,000 / 2,000 factors of
+    them, so its ~7,500 edges span four passes at D = 3 and both bucket
+    boundaries fall inside passes; a tenth of each bucket's rows are
+    padding (the sentinel row is heavy too)."""
+    rng = np.random.default_rng(seed)
+    weight = (np.arange(n_vars) + 1.0) ** -0.5
+    weight /= weight.sum()
+    buckets = []
+    for arity, f_hub, f_rest in ((1, 1_500, 2_000), (2, 4_000, 20_000),
+                                 (3, 2_000, 8_000)):
+        f = f_hub + f_rest
+        ids = rng.choice(n_vars, size=(f, arity), p=weight).astype(np.int32)
+        ids[:f_hub, arity - 1] = 0
+        ids = ids[rng.permutation(f)]
+        ids[-(f // 10):] = n_vars
+        buckets.append((np.zeros((f,) + (d,) * arity, np.float32), ids))
+    var_costs = rng.normal(size=(n_vars + 1, d)).astype(np.float32)
+    return graph_from_numpy(var_costs, np.ones_like(var_costs, bool),
+                            buckets, device=device)
+
+
+def _bucket_messages(graph, seed):
+    """Per-bucket f2v tensors [F, arity, D] on the graph's device,
+    spread over seven decades, so another add order changes the bits."""
+    rng = np.random.default_rng(seed)
+    d = graph.var_costs.shape[1]
+    out = []
+    for b in graph.buckets:
+        shape = tuple(b.var_ids.shape) + (d,)
+        out.append(torch.tensor(
+            (rng.normal(size=shape)
+             * 10.0 ** rng.integers(-3, 4, size=shape)).astype(np.float32),
+            device=graph.var_costs.device))
+    return tuple(out)
+
+
+def _check_kernel(graph, f2v):
+    args = (graph.agg_perm, graph.agg_offsets, graph.agg_buckets,
+            graph.var_costs)
+    before = _build.launch_counts["segment_sum"]
+    beliefs, sums = segment_sum(f2v, *args, graph.agg_tiles)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["segment_sum"] == before + 1
+    d = graph.var_costs.shape[1]
+    flat = torch.cat([m.reshape(-1, d) for m in f2v]).cpu()
+    ref_b, ref_s = segment_sum_reference(flat, *(t.cpu() for t in args))
+    assert torch.equal(sums.cpu(), ref_s)
+    assert torch.equal(beliefs.cpu(), ref_b)
+
+
 @pytest.mark.gpu
 def test_segment_sum_kernel_equals_plain_version():
     _need_card()
-    rng = np.random.default_rng(2)
-    for graph in _graphs():
-        n_edges, d = graph.agg_perm.shape[0], graph.var_costs.shape[1]
-        msgs = torch.tensor(
-            (rng.normal(size=(n_edges, d))
-             * 10.0 ** rng.integers(-3, 4, size=(n_edges, d))
-             ).astype(np.float32), device="cuda")
-        args = (msgs, graph.agg_perm, graph.agg_offsets, graph.agg_buckets,
-                graph.var_costs)
-        before = _build.launch_counts["segment_sum"]
-        beliefs, sums = segment_sum(*args)
-        torch.cuda.synchronize()
-        assert _build.launch_counts["segment_sum"] == before + 1
-        ref_b, ref_s = segment_sum_reference(*(t.cpu() for t in args))
-        assert torch.equal(sums.cpu(), ref_s)
-        assert torch.equal(beliefs.cpu(), ref_b)
+    for i, graph in enumerate(_graphs()):
+        _check_kernel(graph, _bucket_messages(graph, 2 + i))
+
+
+@pytest.mark.gpu
+def test_segment_sum_kernel_on_power_law_hub_across_passes():
+    _need_card()
+    graph = powerlaw_hub_graph("cuda")
+    tiles = graph.agg_tiles.cpu().numpy()
+    perm = graph.agg_perm.cpu().numpy()
+    starts = graph.agg_buckets.cpu().numpy()
+    chunk = pass_edges(3)
+    # The hub and the sentinel row are heavy tiles of their own; each
+    # spans more than three passes, both bucket boundaries of its edges
+    # fall inside a pass, and its odd-bucket run crosses passes.
+    for v in (0, graph.var_costs.shape[0] - 1):
+        row = tiles[tiles[:, 0] == v][0]
+        assert row[1] == v + 1 and row[3] - row[2] > 3 * chunk
+        bkt = np.searchsorted(starts, perm[row[2]:row[3]], side="right") - 1
+        bounds = np.flatnonzero(np.diff(bkt)) + 1
+        assert len(bounds) == 2 and (bounds % chunk != 0).all()
+        assert bounds[0] // chunk != bounds[1] // chunk
+    _check_kernel(graph, _bucket_messages(graph, 9))
+
+
+@pytest.mark.gpu
+def test_aggregate_beliefs_reads_buckets_in_place(monkeypatch):
+    _need_card()
+    card, cpu = powerlaw_hub_graph("cuda"), powerlaw_hub_graph("cpu")
+    f2v = _bucket_messages(card, 10)
+    want = ops.aggregate_beliefs(cpu, tuple(m.cpu() for m in f2v))
+
+    def no_cat(*args, **kwargs):
+        raise AssertionError("torch.cat called on the card's path")
+
+    monkeypatch.setattr(torch, "cat", no_cat)
+    got = ops.aggregate_beliefs(card, f2v)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+@pytest.mark.gpu
+def test_segment_sum_on_card_refuses_flat_buckets_and_no_plan():
+    _need_card()
+    graph = powerlaw_hub_graph("cuda", n_vars=2_000)
+    f2v = _bucket_messages(graph, 11)
+    d = graph.var_costs.shape[1]
+    args = (graph.agg_perm, graph.agg_offsets, graph.agg_buckets,
+            graph.var_costs)
+    flat = torch.cat([m.reshape(-1, d) for m in f2v])
+    with pytest.raises(ValueError):
+        segment_sum(flat, *args, graph.agg_tiles)
+    with pytest.raises(ValueError):
+        segment_sum(f2v, *args)
 
 
 @pytest.mark.gpu

@@ -3,8 +3,9 @@
 Checked in a fresh interpreter (this test process already imported jax
 through the root conftest): every module of pydcop_tpu_torch is
 imported, then ``sys.modules`` must hold no ``jax*`` module and no
-``pydcop_tpu``/``pydcop_tpu.*`` module.  The sources of the package and
-of chip_smoke.py are also scanned for such imports.
+``pydcop_tpu``/``pydcop_tpu.*`` module.  The sources of the package,
+of chip_smoke.py and of chip_compare.py are also scanned for such
+imports.
 """
 
 import ast
@@ -56,7 +57,7 @@ def _imported_roots(path: Path):
 SOURCES = sorted(
     str(p.relative_to(REPO))
     for p in list((REPO / "pydcop_tpu_torch").rglob("*.py"))
-    + [REPO / "chip_smoke.py"]
+    + [REPO / "chip_smoke.py", REPO / "chip_compare.py"]
 )
 
 
