@@ -11,6 +11,11 @@ through ``pydcop_tpu_torch.api.solve`` with no ``device`` argument —
 and checks that the path went through the kernels and that its answers
 are right: the card's run equals the port's CPU run bit for bit, in
 every assignment and every final message, and repeats itself exactly.
+Then it drives the other MaxSum paths the same way, each with the
+launch counts zeroed just before it: branch-and-bound pruning and the
+cost trace on bench.py's time-to-cost instance and at 20,000
+variables, the sorted / ell / boundary aggregations, the aggregation
+autotuner (``aggregation="auto"``) and the CLI's per-cycle metrics.
 Each phase prints one JSON line; any failure raises and the
 script exits non-zero without the final line.  On success the last
 three lines are the kernel table (JSON), the card's name and power
@@ -37,7 +42,7 @@ BIG = np.float32(1e9)
 FLAGSHIP_VARS = 10_000
 N_COLORS = 3
 SCALE_VARS = 1_000_000
-SCALE_CYCLES = 50
+SCALE_CYCLES = 30
 FIXED_CYCLES = 200
 # binary_factor_update shapes (F, D): one factor, blocks short of and
 # past the kernel's 128-factor block, every templated D (1..8), two
@@ -48,6 +53,16 @@ CHECK_SHAPES = [(1, 3), (7, 3), (128, 3), (1_000, 3), (300, 5), (50, 8),
 # The same through views one factor into a larger tensor: contiguous
 # but not 16-byte aligned, so the kernel's 4-byte staging path runs.
 CHECK_VIEWS = [(129, 3), (200, 4), (100, 8)]
+# bench.py's time-to-cost instance (build_ttc_graph, bench_time_to_cost):
+# 240 variables, D = 128, seed 11, 160 fixed cycles, pruned.
+TTC_VARS = 240
+TTC_DOMAIN = 128
+TTC_SEED = 11
+TTC_CYCLES = 160
+# The same recipe at a size that fills the card with tables (1.97 GB,
+# and as much again for the pruned update's transposed copy).
+PRUNE_SCALE_VARS = 20_000
+PRUNE_SCALE_CYCLES = 40
 
 
 def emit(phase: str, **fields):
@@ -221,6 +236,22 @@ def aggregation_graphs(graph_from_numpy, flagship_graph):
     var_costs, var_valid, buckets = scalefree_arrays(SCALE_VARS)
     yield "scale_free", graph_from_numpy(var_costs, var_valid, buckets,
                                          device="cuda")
+    yield "multi_bucket_padded", graph_from_numpy(
+        *multi_bucket_arrays(rng), device="cuda")
+    n_vars, f = 2_000, 3_000
+    ids = rng.integers(1, n_vars, size=(f, 2)).astype(np.int32)
+    ids[:, 0] = 0                              # variable 0: degree 3,000
+    var_costs = rng.normal(size=(n_vars + 1, N_COLORS)).astype(np.float32)
+    yield "hub", graph_from_numpy(
+        var_costs, np.ones_like(var_costs, bool),
+        [(np.zeros((f, N_COLORS, N_COLORS), np.float32), ids)],
+        device="cuda")
+
+
+def multi_bucket_arrays(rng):
+    """(var_costs, var_valid, buckets) of a 500-variable graph with
+    buckets of arity 1-4, D = 4, a tenth of each bucket's rows padding
+    (the sentinel row V)."""
     n_vars, d = 500, 4
     var_costs = rng.normal(size=(n_vars + 1, d)).astype(np.float32)
     var_costs[::3, d - 1] = BIG
@@ -230,16 +261,7 @@ def aggregation_graphs(graph_from_numpy, flagship_graph):
         ids = rng.integers(0, n_vars, size=(f, arity)).astype(np.int32)
         ids[-f // 10:] = n_vars                # padding rows -> sentinel
         buckets.append((np.zeros((f,) + (d,) * arity, np.float32), ids))
-    yield "multi_bucket_padded", graph_from_numpy(
-        var_costs, np.ones_like(var_costs, bool), buckets, device="cuda")
-    n_vars, f = 2_000, 3_000
-    ids = rng.integers(1, n_vars, size=(f, 2)).astype(np.int32)
-    ids[:, 0] = 0                              # variable 0: degree 3,000
-    var_costs = rng.normal(size=(n_vars + 1, N_COLORS)).astype(np.float32)
-    yield "hub", graph_from_numpy(
-        var_costs, np.ones_like(var_costs, bool),
-        [(np.zeros((f, N_COLORS, N_COLORS), np.float32), ids)],
-        device="cuda")
+    return var_costs, np.ones_like(var_costs, bool), buckets
 
 
 def final_run(ops, state_to_numpy, graph, cycles: int, **kw):
@@ -342,6 +364,29 @@ def scalefree_arrays(n_vars: int, edge_factor: float = 1.5):
     return coloring_arrays(rng, n_vars, var_ids)
 
 
+def ttc_arrays(n_vars: int, seed: int = TTC_SEED):
+    """bench.py build_ttc_graph's time-to-cost instance at ``n_vars``
+    variables, built directly as numpy: a loopy D = 128 colouring,
+    1.5 equality factors (cost 1) per variable, self-loops moved to
+    the next variable, integer unary costs in [0, 400), so pruned and
+    dense runs stay bit-identical.  Returns (var_costs, var_valid,
+    buckets)."""
+    rng = np.random.default_rng(seed)
+    n_factors = int(n_vars * 1.5)
+    var_ids = rng.integers(0, n_vars, size=(n_factors, 2)).astype(np.int32)
+    loop = var_ids[:, 0] == var_ids[:, 1]
+    var_ids[loop, 1] = (var_ids[loop, 0] + 1) % n_vars
+    eye = np.eye(TTC_DOMAIN, dtype=np.float32)
+    costs = np.ascontiguousarray(np.broadcast_to(
+        eye, (n_factors, TTC_DOMAIN, TTC_DOMAIN)))
+    var_costs = np.full((n_vars + 1, TTC_DOMAIN), BIG, np.float32)
+    var_costs[:-1] = rng.integers(
+        0, 400, size=(n_vars, TTC_DOMAIN)).astype(np.float32)
+    var_valid = np.zeros((n_vars + 1, TTC_DOMAIN), bool)
+    var_valid[:-1] = True
+    return var_costs, var_valid, [(costs, var_ids)]
+
+
 def coloring_arrays(rng, n_vars: int, var_ids):
     """(var_costs, var_valid, buckets) of a 3-colouring with binary
     equality factors ``var_ids`` and small random unary costs."""
@@ -354,6 +399,439 @@ def coloring_arrays(rng, n_vars: int, var_ids):
     var_valid = np.zeros((n_vars + 1, N_COLORS), bool)
     var_valid[:-1] = True
     return var_costs, var_valid, [(costs, var_ids)]
+
+
+def trace_run(ctx, graph, cycles: int, prune: bool):
+    """A fixed-cycle cost-trace run from zero messages: ((final state,
+    values) as numpy, the cost curve as numpy, pruned-step cycles)."""
+    stats = {}
+    state, values, costs = ctx["ops"].run_maxsum_trace(
+        graph, cycles, stop_on_convergence=False, prune=prune, stats=stats)
+    return ((ctx["state_to_numpy"](state), values.cpu().numpy()),
+            costs.cpu().numpy(), stats["prune_fast_cycles"])
+
+
+def timed_run(ctx, graph, cycles: int, prune: bool):
+    """Seconds of a fixed-cycle run (ended by a synchronise), its
+    pruned-step cycles, its launches and its result as numpy."""
+    torch, ops, _build = ctx["torch"], ctx["ops"], ctx["_build"]
+    stats = {}
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    t0 = time.perf_counter()
+    state, values = ops.run_maxsum(graph, cycles, stop_on_convergence=False,
+                                   prune=prune, stats=stats)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    return (seconds, stats["prune_fast_cycles"], launches,
+            (ctx["state_to_numpy"](state), values.cpu().numpy()))
+
+
+def phase_prune_ttc(ctx):
+    """bench.py's time-to-cost instance, pruned: the card's pruned and
+    dense traces and the CPU's pruned trace equal bit for bit in values,
+    every final message and the cost curve."""
+    torch, _build = ctx["torch"], ctx["_build"]
+    t_phase = time.perf_counter()
+    arrays = ttc_arrays(TTC_VARS)
+    card = ctx["graph_from_numpy"](*arrays, device="cuda")
+    cpu = ctx["graph_from_numpy"](*arrays, device="cpu")
+    _build.launch_counts.clear()
+    pruned = trace_run(ctx, card, TTC_CYCLES, True)
+    launches = dict(_build.launch_counts)
+    fast = pruned[2]
+    want = {"binary_factor_update": TTC_CYCLES - fast,
+            "segment_sum": 2 * TTC_CYCLES + 1}
+    if launches != want or fast == 0:
+        fail(f"prune_ttc launched {launches}, expected {want} "
+             f"({fast} pruned cycles)")
+    dense = trace_run(ctx, card, TTC_CYCLES, False)
+    on_cpu = trace_run(ctx, cpu, TTC_CYCLES, True)
+    for name, other in (("dense card trace", dense),
+                        ("pruned CPU trace", on_cpu)):
+        diff = run_differences(pruned[0], other[0])
+        if not np.array_equal(pruned[1], other[1]):
+            diff.append("cost curve")
+        if diff:
+            fail(f"prune_ttc: pruned card trace != {name} in {diff}")
+    if on_cpu[2] != fast:
+        fail(f"prune_ttc: {fast} pruned cycles on the card, {on_cpu[2]} "
+             "on the CPU")
+    costs = pruned[1]
+    ref = float(costs[-1])
+    cycles_to_ref = int(np.nonzero(costs <= ref)[0][0]) + 1
+    # bench_time_to_cost's timed quantity: warm untraced fixed runs.
+    times = {}
+    for prune in (True, False, False, True):
+        seconds, _, _, _ = timed_run(ctx, card, TTC_CYCLES, prune)
+        times.setdefault(prune, []).append(seconds)
+    # binary_factor_update at this shape (F = 360, D = 128): the
+    # generic D > 8 kernel.
+    from pydcop_tpu_torch.ops.binary_factor import (
+        binary_factor_update,
+        binary_factor_update_reference,
+    )
+
+    table = card.buckets[0].costs
+    v2f = torch.tensor(pruned[0][0]["v2f"][0], device="cuda")
+    if not torch.equal(binary_factor_update(table, v2f),
+                       binary_factor_update_reference(table, v2f)):
+        fail("binary kernel != plain at the TTC shape")
+    f, d = table.shape[0], table.shape[1]
+    k_ms = graph_ms(torch, lambda: binary_factor_update(table, v2f), 200)
+    p_ms = graph_ms(torch, lambda: binary_factor_update_reference(
+        table, v2f), 50)
+    bound_ms, bound_by = binary_bound(f, d)
+    kernel = dict(F=f, D=d, ms=k_ms[2], ms_spread=[k_ms[0], k_ms[-1]],
+                  plain_ms=p_ms[2], bound_ms=bound_ms, bound_by=bound_by,
+                  library_ms=None,
+                  launches=launches["binary_factor_update"])
+    return dict(
+        binary_factor_update=kernel,
+        n_vars=TTC_VARS, n_factors=int(arrays[2][0][1].shape[0]),
+        D=TTC_DOMAIN, cycles=TTC_CYCLES, seed=TTC_SEED,
+        fast_phase_cycles=fast, launches=launches, ref_cost=ref,
+        cycles_to_ref=cycles_to_ref,
+        bit_equal=["pruned card trace", "dense card trace",
+                   "pruned CPU trace"],
+        pruned_ms_per_cycle=[t / TTC_CYCLES * 1e3 for t in times[True]],
+        dense_ms_per_cycle=[t / TTC_CYCLES * 1e3 for t in times[False]],
+        seconds=time.perf_counter() - t_phase)
+
+
+def phase_prune_scale(ctx):
+    """The time-to-cost recipe at 20,000 variables (1.97 GB of tables):
+    pruned and dense runs equal bit for bit; ms per cycle of each, the
+    pruned update's time per call and binary_factor_update's at
+    F = 30,000, D = 128 beside its bound."""
+    torch, ops = ctx["torch"], ctx["ops"]
+    from pydcop_tpu_torch.ops.binary_factor import (
+        binary_factor_update,
+        binary_factor_update_reference,
+    )
+
+    t_phase = time.perf_counter()
+    arrays = ttc_arrays(PRUNE_SCALE_VARS)
+    graph = ctx["graph_from_numpy"](*arrays, device="cuda")
+    del arrays
+    ops.run_maxsum(graph, 2, stop_on_convergence=False, prune=True)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pruned_s, fast, launches, pruned = timed_run(
+        ctx, graph, PRUNE_SCALE_CYCLES, True)
+    peak_pruned = torch.cuda.max_memory_allocated()
+    want = {"binary_factor_update": PRUNE_SCALE_CYCLES - fast,
+            "segment_sum": PRUNE_SCALE_CYCLES + 1}
+    if launches != want or fast == 0:
+        fail(f"prune_scale launched {launches}, expected {want} "
+             f"({fast} pruned cycles)")
+    dense_s, _, dense_launches, dense = timed_run(
+        ctx, graph, PRUNE_SCALE_CYCLES, False)
+    diff = run_differences(pruned, dense)
+    if diff:
+        fail(f"prune_scale: pruned run != dense run in {diff}")
+    del dense
+    # Per call, on the messages of the final state.
+    bucket = graph.buckets[0]
+    pt = ops.prune_tables(graph)[0]
+    v2f = torch.tensor(pruned[0]["v2f"][0], device="cuda")
+    fits = bool(ops.prune_fits((v2f,), (pt,)))
+    f, d = bucket.costs.shape[0], bucket.costs.shape[1]
+    pruned_ms = cuda_ms(torch, lambda: ops._pruned_binary_update(
+        bucket, v2f, pt), 20)
+    del pt
+    k_ms = cuda_ms(torch, lambda: binary_factor_update(bucket.costs, v2f),
+                   20)
+    p_ms = cuda_ms(torch, lambda: binary_factor_update_reference(
+        bucket.costs, v2f), 3, warmup=1)
+    bound_ms, bound_by = binary_bound(f, d)
+    out = binary_factor_update(bucket.costs, v2f)
+    ref = binary_factor_update_reference(bucket.costs, v2f)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    if not torch.equal(out, ref):
+        fail(f"binary kernel != plain at F={f} D={d}: max |err| {err}")
+    del out, ref, v2f, graph, bucket
+    return dict(
+        n_vars=PRUNE_SCALE_VARS, n_factors=f, D=d,
+        cycles=PRUNE_SCALE_CYCLES, fast_phase_cycles=fast,
+        launches=launches, dense_launches=dense_launches,
+        bit_equal=["pruned card run", "dense card run"],
+        pruned_ms_per_cycle=pruned_s / PRUNE_SCALE_CYCLES * 1e3,
+        dense_ms_per_cycle=dense_s / PRUNE_SCALE_CYCLES * 1e3,
+        pruned_update_ms=pruned_ms, pruned_update_fits=fits,
+        peak_mem_bytes=peak_pruned,
+        binary_factor_update=dict(
+            F=f, D=d, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None, max_abs_err=err,
+            launches=launches["binary_factor_update"]),
+        seconds=time.perf_counter() - t_phase)
+
+
+def strategy_graph(ctx, arrays, strategy, device="cuda"):
+    return ctx["graph_from_numpy"](*arrays, device=device,
+                                   aggregation=strategy)
+
+
+def phase_aggregation_options(ctx, flagship_scatter):
+    """The flagship solved with sorted and with ell (card = CPU bit for
+    bit; sorted = scatter, one bucket); the four-bucket graph run with
+    sorted (the kernel's one-running-sum mode, card = CPU); the mode
+    against its plain version at scale on two buckets; one
+    aggregate_beliefs call per strategy timed at the flagship and scale
+    shapes; boundary held within the reference's tolerance on the
+    reference's own check."""
+    torch, ops, api, _build = (ctx["torch"], ctx["ops"], ctx["api"],
+                               ctx["_build"])
+    from pydcop_tpu_torch.ops.segment_sum import (
+        segment_sum,
+        segment_sum_reference,
+    )
+
+    from pydcop_tpu_torch.dcop import dcop as dcop_mod
+    from pydcop_tpu_torch.dcop import objects, relations
+
+    t_phase = time.perf_counter()
+    dcop, params, kw = ctx["dcop"], ctx["params"], ctx["kw"]
+    out = {"solves": {}}
+    for strategy in ("sorted", "ell"):
+        _build.launch_counts.clear()
+        res = api.solve(dcop, "maxsum", max_cycles=FIXED_CYCLES,
+                        algo_params={"aggregation": strategy})
+        launches = dict(_build.launch_counts)
+        uses_kernel = strategy == "sorted"
+        if (launches.get("binary_factor_update", 0) != res["cycles"]
+                or (launches.get("segment_sum", 0) > 0) != uses_kernel):
+            fail(f"{strategy} solve launched {launches}")
+        p = dict(params, aggregation=strategy)
+        card = final_run(ops, ctx["state_to_numpy"], ctx["build_engine"](
+            dcop, p).graph, FIXED_CYCLES, **kw)
+        cpu = final_run(ops, ctx["state_to_numpy"], ctx["build_engine"](
+            dcop, p, device="cpu").graph, FIXED_CYCLES, **kw)
+        diff = run_differences(card, cpu)
+        if diff:
+            fail(f"flagship {strategy}: card run != CPU run in {diff}")
+        same_as_scatter = not run_differences(card, flagship_scatter)
+        if strategy == "sorted" and not same_as_scatter:
+            fail("flagship sorted run != scatter run (one bucket)")
+        out["solves"][strategy] = dict(
+            cycles=res["cycles"], cost=res["cost"], status=res["status"],
+            time_s=res["time"], launches=launches,
+            card_equals_cpu=True, equals_scatter=same_as_scatter)
+
+    # The four-bucket graph with sorted: the kernel's one-running-sum
+    # mode on a path, card = CPU.
+    arrays = multi_bucket_arrays(np.random.default_rng(11))
+    graph = strategy_graph(ctx, arrays, "sorted")
+    _build.launch_counts.clear()
+    card = final_run(ops, ctx["state_to_numpy"], graph, 50)
+    launches = dict(_build.launch_counts)
+    if launches.get("segment_sum", 0) != 51:
+        fail(f"four-bucket sorted run launched {launches}")
+    cpu = final_run(ops, ctx["state_to_numpy"],
+                    strategy_graph(ctx, arrays, "sorted", "cpu"), 50)
+    diff = run_differences(card, cpu)
+    if diff:
+        fail(f"four-bucket sorted run: card != CPU in {diff}")
+    out["multi_bucket_sorted_run"] = dict(
+        cycles=50, buckets=len(arrays[2]), launches=launches,
+        card_equals_cpu=True)
+
+    # The sorted mode against its plain version, and timed, at the scale
+    # shape with a unary bucket beside the binary one (two buckets).
+    var_costs, var_valid, scale_buckets = scale_arrays(SCALE_VARS)
+    unary = np.arange(SCALE_VARS, dtype=np.int32)[:, None]
+    two = ctx["graph_from_numpy"](
+        var_costs, var_valid,
+        [(np.zeros((SCALE_VARS, N_COLORS), np.float32), unary)]
+        + scale_buckets, device="cuda", aggregation="sorted")
+    n_edges = int(two.agg_perm.shape[0])
+    n_seg, d = two.var_costs.shape
+    msgs = edge_messages(torch, n_edges, d, seed=300)
+    args = segment_args(torch, two, msgs)
+    flat_args = (msgs,) + args[1:5]
+    beliefs, sums = segment_sum(*args, one_sum=True)
+    ref_b, ref_s = segment_sum_reference(
+        msgs.cpu(), *(t.cpu() for t in args[1:5]), one_sum=True)
+    err = max(float((beliefs.cpu() - ref_b).abs().max()),
+              float((sums.cpu() - ref_s).abs().max()))
+    if not (torch.equal(beliefs.cpu(), ref_b)
+            and torch.equal(sums.cpu(), ref_s)):
+        fail(f"segment_sum sorted mode != plain at scale: max |err| {err}")
+    seg = torch.cat([b.var_ids.reshape(-1) for b in two.buckets])
+
+    def library():
+        s = torch.zeros_like(two.var_costs)
+        s.index_add_(0, seg, msgs)
+        return two.var_costs + s
+
+    k_ms = graph_ms(torch, lambda: segment_sum(*args, one_sum=True), 50)
+    split_ms = graph_ms(torch, lambda: segment_sum(*args), 50)
+    p_ms = graph_ms(torch, lambda: segment_sum_reference(
+        *flat_args, one_sum=True), 20)
+    l_ms = graph_ms(torch, library, 50)
+    bound_ms, bound_by = segment_bound(n_edges, n_seg, d)
+    sorted_timing = {"sorted_scale_two_buckets": dict(
+        V1=n_seg, E=n_edges, D=d, buckets=2, ms=k_ms[2],
+        ms_spread=[k_ms[0], k_ms[-1]], odd_even_ms=split_ms[2],
+        plain_ms=p_ms[2], library_ms=l_ms[2], bound_ms=bound_ms,
+        bound_by=bound_by, max_abs_err=err,
+        launches=out["solves"]["sorted"]["launches"]["segment_sum"])}
+    del msgs, args, flat_args, seg, two, beliefs, sums, ref_b, ref_s
+
+    # One aggregate_beliefs call per strategy, flagship and scale.
+    from pydcop_tpu_torch.engine.compile import compile_dcop
+
+    compiled, _ = compile_dcop(dcop, noise_level=0.01)
+    flag_arrays = (compiled.var_costs, compiled.var_valid,
+                   [(b.costs, b.var_ids) for b in compiled.buckets])
+    # boundary within the reference's tolerance, on the reference's own
+    # check (tests/unit/test_aggregation.py: a 300-variable colouring,
+    # messages after 3 supersteps); its f32 prefix sum grows with E, so
+    # at the flagship it is reported, not held.
+    small = ctx["build_engine"](build_flagship(
+        objects, relations, dcop_mod, 300, seed=5), params)
+    f2v = ops.run_maxsum(small.graph, 3, stop_on_convergence=False)[0].f2v
+    small_arrays = (small.graph.var_costs.cpu().numpy(),
+                    small.graph.var_valid.cpu().numpy(),
+                    [(b.costs.cpu().numpy(), b.var_ids.cpu().numpy())
+                     for b in small.graph.buckets])
+    got = ops.aggregate_beliefs(
+        strategy_graph(ctx, small_arrays, "boundary"), f2v)
+    want = ops.aggregate_beliefs(small.graph, f2v)
+    boundary_err = max(float((a - b).abs().max())
+                       for a, b in zip(got, want))
+    if not all(torch.allclose(a, b, rtol=1e-5, atol=1e-5)
+               for a, b in zip(got, want)):
+        fail(f"boundary outside rtol = atol = 1e-5 of scatter: max |err| "
+             f"{boundary_err}")
+    out["boundary_check"] = dict(
+        n_vars=300, supersteps=3, tolerance="rtol = atol = 1e-5",
+        max_abs_err=boundary_err)
+    del small, f2v, got, want
+
+    per_call = {}
+    for label, arrays in (("flagship", flag_arrays),
+                          ("scale", (var_costs, var_valid, scale_buckets))):
+        sums = {}
+        row = {}
+        for strategy in ("scatter", "sorted", "ell", "boundary"):
+            graph = strategy_graph(ctx, arrays, strategy)
+            f2v = tuple(
+                edge_messages(torch, b.var_ids.numel(), d, seed=400)
+                .reshape(tuple(b.var_ids.shape) + (d,))
+                for b in graph.buckets)
+            reps = 200 if label == "flagship" else (
+                50 if strategy in ("scatter", "sorted") else 10)
+            t = graph_ms(torch, lambda: ops.aggregate_beliefs(graph, f2v),
+                         reps)
+            row[strategy] = dict(ms=t[2], ms_spread=[t[0], t[-1]])
+            if label == "flagship":
+                normal = tuple(torch.randn(m.shape, device="cuda",
+                                           generator=torch.Generator(
+                                               "cuda").manual_seed(5))
+                               for m in f2v)
+                first = ops.aggregate_beliefs(graph, normal)[1]
+                again = ops.aggregate_beliefs(graph, normal)[1]
+                if not torch.equal(first, again):
+                    fail(f"{strategy} aggregation does not repeat itself")
+                sums[strategy] = first
+            del graph, f2v
+        per_call[label] = row
+        if label == "flagship":
+            per_call["flagship_boundary_max_abs_err"] = float(
+                (sums["boundary"] - sums["scatter"]).abs().max())
+            for strategy in ("sorted", "ell"):
+                if not torch.equal(sums[strategy][:-1],
+                                   sums["scatter"][:-1]):
+                    fail(f"flagship {strategy} sums != scatter sums")
+    out["aggregate_beliefs_ms"] = per_call
+    out["sorted_mode_timing"] = sorted_timing
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def phase_auto(ctx):
+    """api.solve(aggregation="auto") on the card: measured, recorded in
+    the metrics, then replayed from the stored decision (a file under
+    build/, never under the home directory)."""
+    api, _build = ctx["api"], ctx["_build"]
+    t_phase = time.perf_counter()
+    cache = os.path.join(HERE, "build", "chip_smoke_agg_autotune.json")
+    os.makedirs(os.path.dirname(cache), exist_ok=True)
+    if os.path.exists(cache):
+        os.remove(cache)
+    os.environ["PYDCOP_AGG_AUTOTUNE_CACHE"] = cache
+    dcop = ctx["dcop"]
+    _build.launch_counts.clear()
+    first = api.solve(dcop, "maxsum", max_cycles=FIXED_CYCLES,
+                      algo_params={"aggregation": "auto"})
+    launches = dict(_build.launch_counts)
+    second = api.solve(dcop, "maxsum", max_cycles=FIXED_CYCLES,
+                       algo_params={"aggregation": "auto"})
+    m1, m2 = first["metrics"], second["metrics"]
+    if m1.get("aggregation_source") != "measured" or not all(
+            m1["aggregation_timings_ms"].get(s) for s in
+            ("scatter", "sorted", "ell", "boundary")):
+        fail(f"auto did not measure: {m1}")
+    if (m2.get("aggregation_source") != "cache"
+            or m2["aggregation"] != m1["aggregation"]):
+        fail(f"auto did not replay the decision: {m2}")
+    if (second["assignment"] != first["assignment"]
+            or second["cost"] != first["cost"]):
+        fail("auto: the replayed solve differs from the measured one")
+    if launches.get("binary_factor_update", 0) != first["cycles"]:
+        fail(f"auto solve launched {launches}")
+    return dict(decision=m1["aggregation"],
+                timings_ms=m1["aggregation_timings_ms"],
+                key=m1["aggregation_key"], replay=m2["aggregation_source"],
+                cycles=first["cycles"], cost=first["cost"],
+                launches=launches, seconds=time.perf_counter() - t_phase)
+
+
+def phase_cli_trace(ctx):
+    """``python -m pydcop_tpu_torch solve --collect_on cycle_change
+    --run_metrics F`` on coloring_12_3.yml, 60 cycles, run in this
+    process through the CLI's own main(): one CSV row per cycle, then
+    the summary row, final cost 5000.0."""
+    import contextlib
+    import csv
+    import io
+
+    from pydcop_tpu_torch import dcop_cli
+
+    _build = ctx["_build"]
+    t_phase = time.perf_counter()
+    path = os.path.join(HERE, "build", "chip_smoke_cycle_metrics.csv")
+    if os.path.exists(path):
+        os.remove(path)
+    fixture = os.path.join(HERE, "tests", "instances", "coloring_12_3.yml")
+    out = io.StringIO()
+    _build.launch_counts.clear()
+    with contextlib.redirect_stdout(out):
+        rc = dcop_cli.main(["solve", "--algo", "maxsum", "-c", "60",
+                            "--collect_on", "cycle_change", "--run_metrics",
+                            path, fixture])
+    launches = dict(_build.launch_counts)
+    result = json.loads(out.getvalue())
+    with open(path, newline="") as f:
+        rows = list(csv.DictReader(f))
+    trace, summary = rows[:-1], rows[-1]
+    if (rc != 0 or len(trace) != result["cycle"] or result["cycle"] != 60
+            or result["cost"] != 5000.0
+            or float(trace[-1]["cost"]) != 5000.0
+            or float(summary["cost"]) != 5000.0):
+        fail(f"cli_trace: rc {rc}, {len(trace)} trace rows, result "
+             f"{result['cost']} after {result['cycle']} cycles")
+    if not launches.get("binary_factor_update") or not launches.get(
+            "segment_sum"):
+        fail(f"cli_trace launched {launches}")
+    return dict(fixture="tests/instances/coloring_12_3.yml",
+                cycles=result["cycle"], rows=len(rows),
+                final_cost=result["cost"],
+                first_costs=[float(r["cost"]) for r in trace[:5]],
+                launches=launches, seconds=time.perf_counter() - t_phase)
 
 
 def main() -> int:
@@ -662,6 +1140,7 @@ def main() -> int:
          fields=["values", "v2f", "f2v", "v2f_count", "f2v_count",
                  "stable", "cycle"],
          messages_per_field=int(sum(a.size for a in card[0][0]["f2v"])))
+    flagship_scatter = card[0]
     del card, cpu_run
 
     emit("main_path_profile", **profile_cycles(
@@ -719,6 +1198,28 @@ def main() -> int:
     emit("scale_profile", **profile_cycles(torch, scale_run, 5))
     del graph, scale_graph
 
+    # 8. This slice's paths: pruning, the cost trace, the sorted / ell /
+    # boundary aggregations, aggregation="auto" and the CLI's per-cycle
+    # metrics.  Each path is driven with the launch counts set to 0
+    # just before it and read just after.
+    ctx = dict(torch=torch, ops=ops, api=api, _build=_build,
+               graph_from_numpy=graph_from_numpy,
+               state_to_numpy=state_to_numpy, build_engine=build_engine,
+               dcop=dcop, params=params, kw=kw)
+    ttc = phase_prune_ttc(ctx)
+    timing["binary_factor_update"]["ttc_D128"] = ttc.pop(
+        "binary_factor_update")
+    emit("prune_ttc", **ttc)
+    scale_prune = phase_prune_scale(ctx)
+    timing["binary_factor_update"]["ttc_scale_D128"] = scale_prune.pop(
+        "binary_factor_update")
+    emit("prune_scale", **scale_prune)
+    options = phase_aggregation_options(ctx, flagship_scatter)
+    timing["segment_sum"].update(options.pop("sorted_mode_timing"))
+    emit("aggregation_options", **options)
+    emit("auto", **phase_auto(ctx))
+    emit("cli_trace", **phase_cli_trace(ctx))
+
     # 7. Fixture parity: the verify oracle.
     fixture = os.path.join(HERE, "tests", "instances", "coloring_12_3.yml")
     fres = api.solve(load_dcop_from_file(fixture), "maxsum", max_cycles=60)
@@ -750,11 +1251,12 @@ def main() -> int:
             "bound_ms": flag["bound_ms"],
             "bound_by": flag["bound_by"],
             "library_ms": flag["library_ms"],
-            # The same keys at the larger shapes timed above.
+            # The same keys at the other shapes timed above (with the
+            # launches of the path that runs the kernel at that shape).
             "shapes": {
                 label: {key: row[key] for key in (
-                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-                    if key in row}
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "launches") if key in row}
                 for label, row in timing[name].items()
                 if label != "flagship" and "ms" in row},
         })

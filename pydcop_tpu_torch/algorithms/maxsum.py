@@ -3,9 +3,11 @@
 Port of the device path of ``pydcop_tpu/algorithms/maxsum.py``.  The
 parameters are declared exactly as the reference declares them, so a
 parameter set valid there is valid here; the ones whose machinery is
-not ported yet (decimation, pruning, non-scatter aggregation, the lane
-layout, partitioned shards) raise ``NotImplementedError`` instead of
-being silently ignored.
+not ported yet (decimation, the lane layout, multi-device runs and
+partitioned shards) raise ``NotImplementedError`` instead of being
+silently ignored.  ``aggregation="auto"`` measures the strategies on
+the compiled graph (``engine/autotune.py``) or replays a stored
+decision before compiling.
 """
 
 import time
@@ -14,8 +16,11 @@ from typing import Optional
 
 from pydcop_tpu_torch.algorithms import AlgoParameterDef, AlgorithmDef
 from pydcop_tpu_torch.dcop.dcop import DCOP
-from pydcop_tpu_torch.device import DeviceLike
-from pydcop_tpu_torch.engine.compile import compile_dcop
+from pydcop_tpu_torch.device import DeviceLike, resolve_device
+from pydcop_tpu_torch.engine.compile import (
+    compile_dcop,
+    validated_aggregation,
+)
 from pydcop_tpu_torch.engine.runner import DeviceRunResult, MaxSumEngine
 
 STABILITY_COEFF = 0.1
@@ -43,21 +48,75 @@ algo_params = [
 ]
 
 
+def _replay_auto_choice(dcop: DCOP, device: DeviceLike):
+    """A stored autotune decision, looked up before compiling by the
+    DCOP's shape key on this device's backend.  Returns
+    ``(aggregation to compile with, metrics or None)``: on a miss,
+    scatter and None (the caller compiles and measures)."""
+    from pydcop_tpu_torch.engine.autotune import (
+        cached_choice,
+        dcop_shape_key,
+    )
+
+    key = dcop_shape_key(dcop, resolve_device(device).type)
+    choice = cached_choice(key)
+    if choice is None:
+        return "scatter", None
+    return choice, {
+        "aggregation": choice,
+        "aggregation_source": "cache",
+        "aggregation_key": key,
+    }
+
+
 def build_engine(dcop: DCOP, params: dict, mesh=None,
                  n_devices: Optional[int] = None,
                  shards: Optional[int] = None,
                  device: DeviceLike = "cuda") -> MaxSumEngine:
-    """Compile + construct the engine from validated algo params."""
+    """Compile + construct the engine from validated algo params.
+
+    ``aggregation="auto"`` replays a stored decision when there is one;
+    otherwise it compiles with scatter, measures the strategies on the
+    compiled graph on ``device`` (``engine/autotune.py``) and swaps in
+    the winner's arrays.  Either way the engine's results report the
+    decision in their metrics."""
     if shards is not None and shards > 1:
         raise NotImplementedError(
             "partitioned sharding (shards=) is not ported yet")
     if params.get("decimation", 0) or params.get("decimation_margin", 0.0):
         raise NotImplementedError("decimation is not ported yet")
+    pad_to = 1
+    if mesh is not None:
+        pad_to = mesh.size
+    elif n_devices:
+        pad_to = n_devices
+    auto = params.get("aggregation") == "auto"
+    aggregation = validated_aggregation(params, pad_to)
+    agg_info = None
+    if aggregation == "auto":
+        aggregation = "scatter"
+    elif auto:
+        agg_info = {"aggregation": "scatter",
+                    "aggregation_source": "mesh"}
+    if auto and agg_info is None:
+        aggregation, agg_info = _replay_auto_choice(dcop, device)
     graph, meta = compile_dcop(
-        dcop, noise_level=params.get("noise", 0.01),
-        aggregation=params.get("aggregation", "scatter"),
+        dcop, noise_level=params.get("noise", 0.01), pad_to=pad_to,
+        aggregation=aggregation,
     )
-    return MaxSumEngine(
+    if auto and agg_info is None:
+        from pydcop_tpu_torch.engine.autotune import (
+            apply_aggregation,
+            autotune_aggregation,
+        )
+
+        agg_info = autotune_aggregation(graph, pad_to=pad_to,
+                                        device=device)
+        if agg_info["aggregation"] != "scatter":
+            # The winner was built while it was timed, so its builder
+            # does not refuse it here.
+            graph = apply_aggregation(graph, agg_info["aggregation"])
+    engine = MaxSumEngine(
         graph, meta,
         damping=params.get("damping", 0.5),
         damping_nodes=params.get("damping_nodes", "both"),
@@ -67,6 +126,9 @@ def build_engine(dcop: DCOP, params: dict, mesh=None,
         prune=bool(params.get("prune", False)),
         device=device,
     )
+    if agg_info is not None:
+        engine.extra_metrics.update(agg_info)
+    return engine
 
 
 def solve_on_device(dcop: DCOP, algo_def: AlgorithmDef,

@@ -14,7 +14,10 @@
 // the reference's jitted ((0 + S0) + S1) + S2 + ...: bucket 0 starts
 // the running sum; an odd bucket is summed from +0.0f on its own and
 // then added to it; an even bucket (2, 4, ...) is added into it edge by
-// edge.  Then beliefs = var_costs + sums.  Every add is one __fadd_rn
+// edge.  The one_sum mode (the reference's `sorted` aggregation: one
+// segment_sum over the edges gathered into CSR order) adds every edge of
+// every bucket into the one running sum instead.  Then beliefs =
+// var_costs + sums.  Every add is one __fadd_rn
 // in that order, so the sums equal the CPU's index_add_ form
 // (segment_sum_reference) and the reference's jitted superstep bit for
 // bit.  No tree or shuffle reduction and no atomics touch a sum.
@@ -176,7 +179,10 @@ __device__ __forceinline__ void add_edges(const float* m,
 
 // One block per tile (v_lo, v_hi, e_lo, e_hi); W floats per load.
 // kMulti = false: one bucket, every edge adds into the running sum.
-template <int D, int W, bool kMulti>
+// kMulti = true: several buckets, each edge's row read from its own
+// bucket; kSplit = true adds in the odd/even bucket form, kSplit = false
+// adds every edge into the one running sum (one_sum mode).
+template <int D, int W, bool kMulti, bool kSplit>
 __global__ void __launch_bounds__(kThreads)
 segment_sum_tiled(const Buckets bk, const int* __restrict__ perm,
                   const int* __restrict__ offsets,
@@ -247,23 +253,23 @@ segment_sum_tiled(const Buckets bk, const int* __restrict__ perm,
         VT* dst = reinterpret_cast<VT*>(s_msg + i * D);
 #pragma unroll
         for (int j = 0; j < kVecs; ++j) dst[j] = row[u][j];
-        if (kMulti) s_bkt[i] = static_cast<uint8_t>(rb[u]);
+        if (kSplit) s_bkt[i] = static_cast<uint8_t>(rb[u]);
       }
     }
     __syncthreads();
     if (active) {
-      add_edges<D, kMulti>(s_msg + k, s_bkt, max(lo, c) - c,
+      add_edges<D, kSplit>(s_msg + k, s_bkt, max(lo, c) - c,
                            min(hi, c + n) - c, acc, part, b);
     }
   }
   if (!active) return;
-  if (kMulti && (b & 1)) acc = __fadd_rn(acc, part);
+  if (kSplit && (b & 1)) acc = __fadd_rn(acc, part);
   __stcs(sums + out, acc);
   __stcs(beliefs + out, __fadd_rn(cost, acc));
 }
 
 // D > kMaxTiledD: one thread per (variable, d), walking its edges.
-template <bool kMulti>
+template <bool kMulti, bool kSplit>
 __global__ void segment_sum_generic(const Buckets bk,
                                     const int* __restrict__ perm,
                                     const int* __restrict__ offsets,
@@ -292,8 +298,12 @@ __global__ void segment_sum_generic(const Buckets bk,
       acc = __fadd_rn(acc, bk.base[0][p * d + k]);
       continue;
     }
-    int q = b;
+    int q = kSplit ? b : 0;
     while (p >= s_start[q + 1]) ++q;
+    if (!kSplit) {
+      acc = __fadd_rn(acc, s_base[q][(p - s_start[q]) * d + k]);
+      continue;
+    }
     leave_buckets(b, q, acc, part);
     const float m = s_base[b][(p - s_start[b]) * d + k];
     if (b & 1) {
@@ -302,7 +312,7 @@ __global__ void segment_sum_generic(const Buckets bk,
       acc = __fadd_rn(acc, m);
     }
   }
-  if (kMulti && (b & 1)) acc = __fadd_rn(acc, part);
+  if (kSplit && (b & 1)) acc = __fadd_rn(acc, part);
   sums[t] = acc;
   beliefs[t] = __fadd_rn(var_costs[t], acc);
 }
@@ -317,57 +327,67 @@ struct Args {
   float* sums;
   float* beliefs;
   int chunk;
+  int one_sum;
   cudaStream_t stream;
 };
 
-template <int D, int W, bool kMulti>
+template <int D, int W, bool kMulti, bool kSplit>
 void launch_tiled(const Args& a) {
   const size_t smem = static_cast<size_t>(a.chunk) *
-                      (D * sizeof(float) + (kMulti ? 1 : 0));
-  segment_sum_tiled<D, W, kMulti>
+                      (D * sizeof(float) + (kSplit ? 1 : 0));
+  segment_sum_tiled<D, W, kMulti, kSplit>
       <<<a.n_tiles, kThreads, smem, a.stream>>>(
           a.bk, a.perm, a.offsets, a.tiles, a.var_costs, a.sums, a.beliefs,
           a.chunk);
 }
 
-template <int D, bool kMulti>
+template <int D, bool kMulti, bool kSplit>
 int launch_width(const Args& a, int w) {
   if constexpr (D % 4 == 0) {
     if (w == 4) {
-      launch_tiled<D, 4, kMulti>(a);
+      launch_tiled<D, 4, kMulti, kSplit>(a);
       return 0;
     }
   }
   if constexpr (D % 2 == 0) {
     if (w == 2) {
-      launch_tiled<D, 2, kMulti>(a);
+      launch_tiled<D, 2, kMulti, kSplit>(a);
       return 0;
     }
   }
   if (w != 1) return static_cast<int>(cudaErrorInvalidValue);
-  launch_tiled<D, 1, kMulti>(a);
+  launch_tiled<D, 1, kMulti, kSplit>(a);
   return 0;
 }
 
 template <int D>
 int launch_d(const Args& a, int w) {
-  return a.bk.n > 1 ? launch_width<D, true>(a, w)
-                    : launch_width<D, false>(a, w);
+  if (a.bk.n == 1) return launch_width<D, false, false>(a, w);
+  if (a.one_sum) {
+    // Rows of one float per load only: fewer instantiations to build,
+    // and D = 3 (the common width) loads floats anyway.
+    launch_tiled<D, 1, true, false>(a);
+    return 0;
+  }
+  return launch_width<D, true, true>(a, w);
 }
 
 }  // namespace
 
 // bases/starts: host arrays of n_buckets pointers and n_buckets + 1
 // edge starts.  w: floats per load (1, 2 or 4; D and every base must
-// allow it).  chunk: edges per shared-memory pass.  Returns a
-// cudaError_t (0 when the launch was taken).
+// allow it).  chunk: edges per shared-memory pass.  one_sum: 1 adds
+// every bucket's edges into the one running sum (sorted), 0 in the
+// odd/even form (scatter).  Returns a cudaError_t (0 when the launch was
+// taken).
 extern "C" int segment_sum_launch(const float* const* bases,
                                   const int* starts, int n_buckets,
                                   const int* perm, const int* offsets,
                                   const int* tiles, int n_tiles,
                                   const float* var_costs, float* sums,
                                   float* beliefs, int n_segments, int d,
-                                  int w, int chunk, cudaStream_t stream) {
+                                  int w, int chunk, int one_sum,
+                                  cudaStream_t stream) {
   if (n_buckets < 1 || n_buckets > kMaxBuckets || d < 1 || chunk < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -384,16 +404,20 @@ extern "C" int segment_sum_launch(const float* const* bases,
   a.sums = sums;
   a.beliefs = beliefs;
   a.chunk = chunk;
+  a.one_sum = one_sum;
   a.stream = stream;
   int err = 0;
   if (d > kMaxTiledD) {
     const int n_out = n_segments * d;
     const int blocks = (n_out + kThreads - 1) / kThreads;
-    if (n_buckets > 1) {
-      segment_sum_generic<true><<<blocks, kThreads, 0, stream>>>(
+    if (n_buckets == 1) {
+      segment_sum_generic<false, false><<<blocks, kThreads, 0, stream>>>(
+          a.bk, perm, offsets, var_costs, sums, beliefs, n_out, d);
+    } else if (one_sum) {
+      segment_sum_generic<true, false><<<blocks, kThreads, 0, stream>>>(
           a.bk, perm, offsets, var_costs, sums, beliefs, n_out, d);
     } else {
-      segment_sum_generic<false><<<blocks, kThreads, 0, stream>>>(
+      segment_sum_generic<true, true><<<blocks, kThreads, 0, stream>>>(
           a.bk, perm, offsets, var_costs, sums, beliefs, n_out, d);
     }
   } else if (n_tiles > 0) {

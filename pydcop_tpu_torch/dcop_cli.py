@@ -1,10 +1,17 @@
 """Command-line interface of the port.
 
 ``python -m pydcop_tpu_torch solve --algo maxsum [--algo_params k:v]
-[-c MAX_CYCLES] [--device cuda|cpu] FILE.yaml`` solves a DCOP on one
-torch device and prints the JSON result ``pydcop solve`` prints for a
-device solve (status, assignment, cost, violation, time, msg_count,
-msg_size, cycle, compile_time, backend).
+[-c MAX_CYCLES] [--device cuda|cpu] [--collect_on MOMENT]
+[--run_metrics FILE.csv] [--end_metrics FILE.csv] FILE.yaml`` solves a
+DCOP on one torch device and prints the JSON result ``pydcop solve``
+prints for a device solve (status, assignment, cost, violation, time,
+msg_count, msg_size, cycle, compile_time, backend).
+
+The metrics files are the reference's CSV (``commands/metrics_io.py``):
+with ``--collect_on cycle_change``, ``--run_metrics`` gets one row per
+cycle of a cost-trace run of the same solve (``MaxSumEngine.run_trace``)
+for a MaxSum solve without decimation; each metrics file then gets the
+final summary row.
 """
 
 import argparse
@@ -44,17 +51,26 @@ def make_parser() -> argparse.ArgumentParser:
                        choices=["cuda", "cpu"],
                        help="torch device (default cuda; there is no "
                             "silent CPU fallback)")
+    solve.add_argument("--collect_on", default="value_change",
+                       choices=["value_change", "cycle_change", "period"])
+    solve.add_argument("--run_metrics", default=None,
+                       help="csv file for run metrics")
+    solve.add_argument("--end_metrics", default=None,
+                       help="csv file for end metrics")
     return parser
 
 
 def run_solve(args) -> int:
+    from pydcop_tpu_torch.algorithms import AlgorithmDef
     from pydcop_tpu_torch.api import solve
+    from pydcop_tpu_torch.commands.metrics_io import add_csvline
     from pydcop_tpu_torch.dcop.yamldcop import load_dcop_from_file
 
     dcop = load_dcop_from_file(args.dcop_files)
-    res = solve(dcop, args.algo,
-                algo_params=parse_algo_params(args.algo_params),
-                max_cycles=args.cycles, device=args.device)
+    algo_def = AlgorithmDef.build_with_default_param(
+        args.algo, parse_algo_params(args.algo_params),
+        mode=dcop.objective)
+    res = solve(dcop, algo_def, max_cycles=args.cycles, device=args.device)
     result = {
         "status": res["status"],
         "assignment": res["assignment"],
@@ -67,6 +83,26 @@ def run_solve(args) -> int:
         "compile_time": res["compile_time"],
         "backend": "device",
     }
+    params = algo_def.params
+    if (args.run_metrics and args.collect_on == "cycle_change"
+            and algo_def.algo == "maxsum"
+            and not params.get("decimation")
+            and not params.get("decimation_margin")):
+        # The solve ran as one device loop, so the per-cycle rows come
+        # from a cost-trace run of the same solve, written afterwards.
+        from pydcop_tpu_torch.algorithms.maxsum import build_engine
+
+        trace = build_engine(dcop, params, device=args.device).run_trace(
+            max_cycles=max(res["cycles"], 1))
+        for i, cost in enumerate(trace.metrics["cost_trace"]):
+            add_csvline(args.run_metrics, "cycle_change", {
+                "time": None, "cycle": i + 1, "cost": float(cost),
+                "violation": None, "msg_count": None, "msg_size": None,
+                "status": "RUNNING",
+            })
+    for path in (args.run_metrics, args.end_metrics):
+        if path:
+            add_csvline(path, args.collect_on, result)
     print(json.dumps(result, sort_keys=True, indent="  "))
     return 0
 

@@ -6,7 +6,7 @@ not ask for ``"cpu"``, :func:`resolve_device` raises — the port never
 falls back to the CPU on its own.
 """
 
-from typing import NamedTuple, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -49,7 +49,15 @@ class TorchFactorGraph(NamedTuple):
     belief aggregation (``ops/segment_sum.py``) sums in this order.
     ``agg_tiles`` is its kernel's plan (``aggregation_plan``): the heavy
     variables' tiles first, then the light tiles, each row (first
-    variable, end variable, first edge, end edge)."""
+    variable, end variable, first edge, end edge).
+
+    ``agg_strategy`` names the belief aggregation the graph was compiled
+    for (``engine.compile.AGGREGATIONS``).  ``scatter`` and ``sorted``
+    both sum through ``segment_sum`` on the CSR arrays (``sorted`` as
+    one running sum per variable over every bucket, whose edge order is
+    the compiled graph's ``agg_perm``: the same array as ``agg_perm``
+    here); ``boundary`` takes its starts and ends from ``agg_offsets``;
+    ``ell`` reads ``agg_ell``, the compiled graph's [V+1, K] lists."""
 
     var_costs: torch.Tensor   # [V+1, Dmax] float32
     var_valid: torch.Tensor   # [V+1, Dmax] bool
@@ -58,6 +66,19 @@ class TorchFactorGraph(NamedTuple):
     agg_offsets: torch.Tensor  # [V+2] int32
     agg_buckets: torch.Tensor  # [n_buckets + 1] int32
     agg_tiles: torch.Tensor    # [T, 4] int32
+    agg_strategy: str = "scatter"
+    agg_ell: Optional[torch.Tensor] = None  # [V+1, K] int32 (ell only)
+
+
+def aggregation_strategy(graph: CompiledFactorGraph) -> str:
+    """The strategy whose ``agg_*`` arrays a compiled graph carries."""
+    if graph.agg_ell is not None:
+        return "ell"
+    if graph.agg_starts is not None:
+        return "boundary"
+    if graph.agg_sorted_seg is not None:
+        return "sorted"
+    return "scatter"
 
 
 def aggregation_arrays(buckets, n_segments: int
@@ -84,7 +105,7 @@ def aggregation_arrays(buckets, n_segments: int
 def to_device_graph(graph: CompiledFactorGraph,
                     device: DeviceLike = "cuda") -> TorchFactorGraph:
     """Move a host-compiled graph onto ``device`` (resolved by the
-    device rule)."""
+    device rule), with its aggregation strategy and arrays."""
     dev = resolve_device(device)
 
     def put(arr, dtype):
@@ -105,4 +126,7 @@ def to_device_graph(graph: CompiledFactorGraph,
         agg_offsets=put(offsets, torch.int32),
         agg_buckets=put(starts, torch.int32),
         agg_tiles=put(tiles, torch.int32),
+        agg_strategy=aggregation_strategy(graph),
+        agg_ell=(None if graph.agg_ell is None
+                 else put(graph.agg_ell, torch.int32)),
     )

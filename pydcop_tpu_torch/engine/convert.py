@@ -19,20 +19,33 @@ from pydcop_tpu_torch.device import (
     resolve_device,
     to_device_graph,
 )
-from pydcop_tpu_torch.engine.compile import CompiledFactorGraph, FactorBucket
+from pydcop_tpu_torch.engine.compile import (
+    CompiledFactorGraph,
+    FactorBucket,
+    build_aggregation_arrays,
+)
 from pydcop_tpu_torch.ops.maxsum import MaxSumState
 
 
 def graph_from_numpy(var_costs, var_valid,
                      buckets: Iterable[Tuple[np.ndarray, np.ndarray]],
-                     device: DeviceLike = "cuda") -> TorchFactorGraph:
+                     device: DeviceLike = "cuda",
+                     aggregation: str = "scatter") -> TorchFactorGraph:
     """``buckets`` is a sequence of ``(costs, var_ids)`` pairs in
-    bucket order."""
+    bucket order.  ``aggregation`` builds that strategy's arrays as
+    ``compile_dcop(aggregation=...)`` does (the reference's
+    ``build_aggregation_arrays``)."""
+    var_costs = np.asarray(var_costs)
+    fb = tuple(FactorBucket(np.asarray(c), np.asarray(ids))
+               for c, ids in buckets)
+    perm, sorted_seg, starts, ends, ell = build_aggregation_arrays(
+        fb, var_costs.shape[0], aggregation)
     graph = CompiledFactorGraph(
-        var_costs=np.asarray(var_costs),
+        var_costs=var_costs,
         var_valid=np.asarray(var_valid),
-        buckets=tuple(FactorBucket(np.asarray(c), np.asarray(ids))
-                      for c, ids in buckets),
+        buckets=fb,
+        agg_perm=perm, agg_sorted_seg=sorted_seg, agg_starts=starts,
+        agg_ends=ends, agg_ell=ell,
     )
     return to_device_graph(graph, device)
 

@@ -7,12 +7,15 @@ and state (``tests/test_torch_maxsum_ops.py``):
 - factor->variable: per arity bucket, ``total = costs + sum_q bcast(m_q)``
   then, for each position p, ``min`` over the other axes minus ``m_p``.
   Arity 2 goes to ``ops/binary_factor.py`` — the hand-written CUDA
-  kernel on the card, its plain version on the CPU;
+  kernel on the card, its plain version on the CPU — or, with
+  branch-and-bound pruning and while every factor's survivors fit the
+  static budget, to :func:`_pruned_binary_update` (plain torch);
 - variable->factor: per-variable sum of incoming messages in a fixed
-  order (``ops/segment_sum.py`` — a hand-written CUDA kernel on the
-  card, so the sums are the CPU's and the reference's bit for bit),
-  minus the own message, mean-normalised over valid domain slots,
-  damped;
+  order, by the graph's aggregation strategy (``scatter``/``sorted``:
+  ``ops/segment_sum.py``, a hand-written CUDA kernel on the card, so
+  the sums are the CPU's and the reference's bit for bit; ``ell``:
+  ``ops/ell.py``; ``boundary``: a prefix sum), minus the own message,
+  mean-normalised over valid domain slots, damped;
 - value selection: first-index argmin of own costs + message sums over
   valid slots.
 
@@ -25,18 +28,27 @@ cycle after cycle and a reassociated sum drifts the trajectory.
 The reference runs the solve loop on the device (``lax.while_loop``);
 here it is a host loop of supersteps that reads ``stable`` once per
 cycle when it may stop early, and never when it runs a fixed count.
-``cycles`` and ``converged`` equal the reference's on the same graph.
-Not ported yet: branch-and-bound pruning (``prune=True`` raises) and
-the cost-trace loop.
+With pruning, the reference's nested dense/fast phase loops come down
+to one decision per cycle (the pruned step when :func:`prune_fits`
+holds for the messages about to be consumed), read together with
+``stable`` in one host transfer per cycle.  ``cycles`` and
+``converged`` equal the reference's on the same graph.
+:func:`run_maxsum_trace` also writes each cycle's assignment cost into
+a device tensor, with no host sync of its own.
 """
 
-from typing import NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from pydcop_tpu_torch.device import TorchFactorGraph
-from pydcop_tpu_torch.engine.compile import BIG
+from pydcop_tpu_torch.engine.compile import (
+    BIG,
+    PRUNE_MIN_DOMAIN,
+    prune_width,
+)
 from pydcop_tpu_torch.ops.binary_factor import binary_factor_update
+from pydcop_tpu_torch.ops.ell import WINDOW, gather_reduce, window_sum
 from pydcop_tpu_torch.ops.segment_sum import segment_sum
 
 Msgs = Tuple[torch.Tensor, ...]  # one [F, arity, D] tensor per bucket
@@ -116,14 +128,151 @@ def _send_or_suppress(cand: torch.Tensor, prev: torch.Tensor,
     return sent, new_count, match
 
 
-def factor_to_var(graph: TorchFactorGraph, v2f: Msgs,
-                  prune=None) -> Msgs:
-    """All factor->variable messages for one superstep."""
-    if prune is not None:
-        raise NotImplementedError(
-            "branch-and-bound pruning is not ported yet")
+class PruneTable(NamedTuple):
+    """Per-bucket branch-and-bound tables of the pruned binary-factor
+    update (reference ``PruneTable``): per position p, the min and max
+    of the cost table over the other position's VALID slots, each
+    position's valid mask, the transposed table (direction 0 gathers
+    rows by the other position's slot, so a transposed copy makes them
+    contiguous; it doubles the table memory while pruning is on) and the
+    static gather budget."""
+
+    row_min: Tuple[torch.Tensor, torch.Tensor]  # per position p: [F, D]
+    row_max: Tuple[torch.Tensor, torch.Tensor]
+    valid: Tuple[torch.Tensor, torch.Tensor]    # [F, D] bool
+    costs_t: torch.Tensor                       # [F, D, D] transposed
+    width: int                                  # static gather budget
+
+
+def prune_tables(graph: TorchFactorGraph
+                 ) -> Tuple[Optional[PruneTable], ...]:
+    """Branch-and-bound tables, one entry per bucket (None: the bucket
+    stays on the dense path — not binary, empty, or D below
+    ``PRUNE_MIN_DOMAIN``).  Loop-invariant: built once per run."""
     out = []
-    for bucket, msgs in zip(graph.buckets, v2f):
+    d = graph.var_costs.shape[1]
+    for bucket in graph.buckets:
+        if (bucket.var_ids.shape[1] != 2 or d < PRUNE_MIN_DOMAIN
+                or bucket.var_ids.shape[0] == 0):
+            out.append(None)
+            continue
+        valid0 = graph.var_valid[bucket.var_ids[:, 0]]   # [F, D]
+        valid1 = graph.var_valid[bucket.var_ids[:, 1]]
+        costs = bucket.costs                             # [F, D, D]
+        m0 = valid0[:, :, None]
+        m1 = valid1[:, None, :]
+        out.append(PruneTable(
+            row_min=(
+                torch.amin(torch.where(m1, costs, torch.inf), dim=2),
+                torch.amin(torch.where(m0, costs, torch.inf), dim=1),
+            ),
+            row_max=(
+                torch.amax(torch.where(m1, costs, -torch.inf), dim=2),
+                torch.amax(torch.where(m0, costs, -torch.inf), dim=1),
+            ),
+            valid=(valid0, valid1),
+            costs_t=costs.transpose(1, 2).contiguous(),
+            width=prune_width(d),
+        ))
+    return tuple(out)
+
+
+# Relative slack of the survivor test (reference PRUNE_SLACK): entries
+# whose margin is inside the rounding noise of the bounds survive.
+PRUNE_SLACK = 2.5e-5
+
+
+def _survivors(msgs: torch.Tensor, pt: PruneTable, p: int
+               ) -> torch.Tensor:
+    """[F, D] bool: reduction rows of direction ``p`` that can still
+    attain the min.  Row e is dominated when its lower bound
+    ``m_q[e] + row_min[e]`` exceeds the factor's upper bound
+    ``min_e(m_q[e] + row_max[e])`` by more than the slack."""
+    mq = msgs[:, 1 - p]
+    vq = pt.valid[1 - p]
+    lb = mq + pt.row_min[p]
+    ub = torch.amin(torch.where(vq, mq + pt.row_max[p], torch.inf),
+                    dim=1, keepdim=True)
+    tau = PRUNE_SLACK * (1.0 + torch.abs(ub))
+    return vq & (lb <= ub + tau)
+
+
+def prune_fits(v2f: Msgs,
+               prune: Tuple[Optional[PruneTable], ...]) -> torch.Tensor:
+    """0-d bool tensor: every prunable bucket's survivor count fits the
+    static budget in both directions for these messages — the phase
+    predicate of the pruned run."""
+    fits = torch.ones((), dtype=torch.bool, device=v2f[0].device)
+    for msgs, pt in zip(v2f, prune):
+        if pt is None:
+            continue
+        for p in range(2):
+            n = torch.amax(torch.sum(_survivors(msgs, pt, p), dim=1,
+                                     dtype=torch.int32))
+            fits = fits & (n <= pt.width)
+    return fits
+
+
+def _pruned_binary_update(bucket, msgs: torch.Tensor,
+                          pt: PruneTable) -> torch.Tensor:
+    """Branch-and-bound f2v update of one binary bucket ([F, 2, D]).
+
+    Precondition: ``prune_fits`` holds for ``msgs`` (the run loop takes
+    this step only then).  The survivors are found sort-free: the j-th
+    survivor index comes from the monotone prefix counts by an unrolled
+    binary search, all K targets at once; both directions then gather
+    [K, D] rows (direction 0 from the transposed table) and min-plus
+    reduce over K, in the dense path's add order ``(c + m0) + m1``,
+    min, minus the own message — so the values equal the dense
+    update's.  Slots past the last survivor repeat a row that is a
+    survivor or dominated, which leaves the min unchanged."""
+    costs = bucket.costs
+    m0, m1 = msgs[:, 0], msgs[:, 1]
+    k = pt.width
+    f, d = costs.shape[0], costs.shape[1]
+    dev = costs.device
+    rows = torch.arange(f, device=dev)[:, None]
+    target = torch.arange(1, k + 1, dtype=torch.int32, device=dev)[None, :]
+    top = 1
+    while top * 2 <= d:
+        top <<= 1
+    outs = []
+    for p in range(2):
+        s = _survivors(msgs, pt, p)
+        cum = torch.cumsum(s.to(torch.int32), dim=1, dtype=torch.int32)
+        idx = torch.zeros((f, k), dtype=torch.int32, device=dev)
+        bit = top
+        while bit:
+            nxt = idx + bit
+            probe = torch.gather(
+                cum, 1, (torch.clamp(nxt, max=d) - 1).to(torch.int64))
+            idx = torch.where((nxt <= d) & (probe < target), nxt, idx)
+            bit >>= 1
+        idx = torch.clamp(idx, max=d - 1).to(torch.int64)
+        if p == 0:
+            c_g = pt.costs_t[rows, idx]                     # [F, K, D]
+            m1_g = torch.gather(m1, 1, idx)
+            total = (c_g + m0[:, None, :]) + m1_g[:, :, None]
+            outs.append(torch.amin(total, dim=1) - m0)
+        else:
+            c_g = costs[rows, idx]                          # [F, K, D]
+            m0_g = torch.gather(m0, 1, idx)
+            total = (c_g + m0_g[:, :, None]) + m1[:, None, :]
+            outs.append(torch.amin(total, dim=1) - m1)
+    return torch.stack(outs, dim=1)
+
+
+def factor_to_var(graph: TorchFactorGraph, v2f: Msgs,
+                  prune: Optional[Tuple[Optional[PruneTable], ...]] = None
+                  ) -> Msgs:
+    """All factor->variable messages for one superstep.  ``prune``
+    (from :func:`prune_tables`) sends the prunable binary buckets
+    through the branch-and-bound update — the same values."""
+    out = []
+    for bi, (bucket, msgs) in enumerate(zip(graph.buckets, v2f)):
+        if prune is not None and prune[bi] is not None:
+            out.append(_pruned_binary_update(bucket, msgs, prune[bi]))
+            continue
         f, arity, d = msgs.shape
         if arity == 2:
             out.append(binary_factor_update(bucket.costs, msgs))
@@ -145,25 +294,60 @@ def factor_to_var(graph: TorchFactorGraph, v2f: Msgs,
 def aggregate_beliefs(graph: TorchFactorGraph, f2v: Msgs
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sum incoming factor messages per variable in the order the
-    reference's jitted superstep sums them: edge order within a bucket;
-    across buckets XLA folds the per-bucket segment_sums so that bucket
-    0 starts from zero, each odd bucket is summed from zero on its own
-    and added, and each even bucket is added into the running sums.
-    Returns (beliefs [V+1, D] = own costs + sums, sums).  The same bits
-    on the card and on the CPU: the card runs ``csrc/segment_sum.cu``,
-    whose order is fixed and which reads each bucket's messages where
-    they lie."""
+    reference's jitted superstep sums them under the graph's strategy:
+
+    - ``scatter``: edge order within a bucket; across buckets XLA folds
+      the per-bucket segment_sums so that bucket 0 starts from zero,
+      each odd bucket is summed from zero on its own and added, and
+      each even bucket is added into the running sums;
+    - ``sorted``: one running sum per variable over every bucket's
+      edges in CSR order, from zero;
+    - ``ell``: the [V+1, K] lists' gather and K-way sum
+      (``ops/ell.py``); the sentinel row's list is all dummy slots, so
+      its sums are zero (``var_valid`` masks that row out of every
+      message);
+    - ``boundary`` (experiment-only, as in the reference): a prefix sum
+      over the edges in CSR order and boundary differences.  Its
+      cumsum adds in another order than XLA's, so it agrees with the
+      reference only within a tolerance.
+
+    Returns (beliefs [V+1, D] = own costs + sums, sums).  ``scatter``
+    and ``sorted`` give the same bits on the card and on the CPU: the
+    card runs ``csrc/segment_sum.cu``, whose order is fixed and which
+    reads each bucket's messages where they lie; ``ell`` is ordered
+    elementwise adds on both."""
     if not graph.buckets:
         # Constraint-free DCOP: no incoming messages at all.
         return graph.var_costs, torch.zeros_like(graph.var_costs)
+    strategy = graph.agg_strategy
+    if strategy in ("ell", "boundary"):
+        d = graph.var_costs.shape[1]
+        flats = [m.reshape(-1, d) for m in f2v]
+        flat = flats[0] if len(flats) == 1 else torch.cat(flats)
+        if strategy == "ell":
+            sums = gather_reduce(graph.agg_ell, flat)
+        else:
+            # The prefix sum runs along the last axis ([D, E]): a scan
+            # over the first axis of [E, D] is serial over E on the card.
+            in_order = flat[graph.agg_perm.to(torch.int64)].t().contiguous()
+            cum = torch.cumsum(in_order, dim=1)
+            cz = torch.cat([torch.zeros_like(cum[:, :1]), cum], dim=1)
+            bounds = graph.agg_offsets.to(torch.int64)
+            sums = (cz[:, bounds[1:]] - cz[:, bounds[:-1]]).t().contiguous()
+        return graph.var_costs + sums, sums
     return segment_sum(f2v, graph.agg_perm, graph.agg_offsets,
-                       graph.agg_buckets, graph.var_costs, graph.agg_tiles)
+                       graph.agg_buckets, graph.var_costs, graph.agg_tiles,
+                       one_sum=strategy == "sorted")
 
 
 def _sum_last(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last (domain) axis, left to right, keeping the axis:
-    the order XLA reduces in.  ``torch.sum`` vectorises some widths
-    (D=5 on the CPU) into another order, which changes the last bit."""
+    """Sum over the last (domain) axis, keeping the axis, in the order
+    XLA reduces in: left to right up to 32 slots, and above 32 in
+    windows of 32 (``ops.ell.window_sum``, XLA's tree-reduction
+    rewrite).  ``torch.sum`` vectorises some widths (D=5 on the CPU)
+    into another order, which changes the last bit."""
+    if x.shape[-1] > WINDOW:
+        return window_sum(x, x.dim() - 1)
     acc = x[..., :1]
     for k in range(1, x.shape[-1]):
         acc = acc + x[..., k:k + 1]
@@ -283,6 +467,7 @@ def run_maxsum(graph: TorchFactorGraph, max_cycles: int, *,
                damp_factors: bool = True, stability: float = 0.1,
                stop_on_convergence: bool = True,
                prune: bool = False,
+               stats: Optional[Dict[str, int]] = None,
                ) -> Tuple[MaxSumState, torch.Tensor]:
     """Full MaxSum run from zero messages.
 
@@ -291,8 +476,46 @@ def run_maxsum(graph: TorchFactorGraph, max_cycles: int, *,
         graph, init_state(graph), max_cycles,
         damping=damping, damp_vars=damp_vars,
         damp_factors=damp_factors, stability=stability,
-        stop_on_convergence=stop_on_convergence, prune=prune,
+        stop_on_convergence=stop_on_convergence, prune=prune, stats=stats,
     )
+
+
+def _active_prune(graph: TorchFactorGraph, prune: bool
+                  ) -> Optional[Tuple[Optional[PruneTable], ...]]:
+    pt = prune_tables(graph) if prune else None
+    if pt is not None and all(t is None for t in pt):
+        return None
+    return pt
+
+
+def _cycles(graph: TorchFactorGraph, state: MaxSumState, n_cycles: int,
+            pt, stop_on_convergence: bool, stats, **kw):
+    """Yield the state after each of up to ``n_cycles`` supersteps,
+    stopping at the fixpoint when ``stop_on_convergence``.  With prune
+    tables ``pt``, a cycle takes the pruned step when ``prune_fits``
+    holds for ``state.v2f``, the dense step otherwise; ``stable`` and
+    that predicate come to the host together, once per cycle.  Without
+    them, ``stable`` is read only when the run may stop early."""
+    fast = 0
+    for _ in range(n_cycles):
+        use_fast = False
+        if pt is not None:
+            fits = prune_fits(state.v2f, pt)
+            if stop_on_convergence:
+                stable, use_fast = torch.stack(
+                    [state.stable, fits]).tolist()
+                if stable:
+                    break
+            else:
+                use_fast = bool(fits)
+        elif stop_on_convergence and bool(state.stable):
+            break
+        state = superstep(state, graph, prune=pt if use_fast else None,
+                          **kw)
+        fast += use_fast
+        yield state
+    if stats is not None:
+        stats["prune_fast_cycles"] = fast
 
 
 def run_maxsum_from(graph: TorchFactorGraph, state: MaxSumState,
@@ -301,20 +524,70 @@ def run_maxsum_from(graph: TorchFactorGraph, state: MaxSumState,
                     damp_factors: bool = True, stability: float = 0.1,
                     stop_on_convergence: bool = True,
                     prune: bool = False,
+                    stats: Optional[Dict[str, int]] = None,
                     ) -> Tuple[MaxSumState, torch.Tensor]:
     """Run up to ``extra_cycles`` more supersteps from ``state``,
     stopping early at the fixpoint when ``stop_on_convergence`` — the
-    reference's ``while cycle < limit and not stable`` loop."""
-    if prune:
-        raise NotImplementedError(
-            "branch-and-bound pruning (prune=True) is not ported yet")
-    for _ in range(extra_cycles):
-        if stop_on_convergence and bool(state.stable):
-            break
-        state = superstep(
-            state, graph, damping=damping, damp_vars=damp_vars,
-            damp_factors=damp_factors, stability=stability,
-        )
+    reference's ``while cycle < limit and not stable`` loop.
+
+    ``prune=True`` enables branch-and-bound pruning of the binary
+    factor->variable reductions (:func:`prune_tables`): each cycle takes
+    the pruned step when every factor's survivors fit the budget, the
+    dense step otherwise.  Both give the same values, so pruning never
+    changes the result.  ``stats``, when a dict, receives
+    ``prune_fast_cycles``: the cycles that took the pruned step."""
+    for state in _cycles(
+            graph, state, extra_cycles, _active_prune(graph, prune),
+            stop_on_convergence, stats, damping=damping,
+            damp_vars=damp_vars, damp_factors=damp_factors,
+            stability=stability):
+        pass
     beliefs, _ = aggregate_beliefs(graph, state.f2v)
     values = select_values(graph, beliefs)
     return state, values
+
+
+def run_maxsum_trace(graph: TorchFactorGraph, max_cycles: int, *,
+                     damping: float = 0.5, damp_vars: bool = True,
+                     damp_factors: bool = True, stability: float = 0.1,
+                     var_base_costs: Optional[torch.Tensor] = None,
+                     stop_on_convergence: bool = True,
+                     prune: bool = False,
+                     stats: Optional[Dict[str, int]] = None,
+                     ) -> Tuple[MaxSumState, torch.Tensor, torch.Tensor]:
+    """Like :func:`run_maxsum`, also recording the cost of the selected
+    assignment after every cycle: a [max_cycles] tensor on the graph's
+    device, written there each cycle (no host sync of its own).
+    ``var_base_costs`` ([V, D], the noise-free variable costs, on the
+    graph's device) adds the variable-side costs.  With
+    ``stop_on_convergence`` the run stops at the fixpoint and the rest
+    of the curve holds the final cost.  ``prune`` and ``stats`` as in
+    :func:`run_maxsum_from`: pruning never changes a cost.
+
+    Returns (final state, selected values [V], costs [max_cycles])."""
+    def cost_of(values):
+        cost = assignment_constraint_cost(graph, values)
+        if var_base_costs is not None:
+            cost = cost + torch.sum(torch.gather(
+                var_base_costs, 1, values.to(torch.int64)[:, None]))
+        return cost
+
+    costs = torch.zeros((max_cycles,), dtype=graph.var_costs.dtype,
+                        device=graph.var_costs.device)
+    last = torch.zeros((), dtype=costs.dtype, device=costs.device)
+    state = init_state(graph)
+    n = 0
+    for state in _cycles(
+            graph, state, max_cycles, _active_prune(graph, prune),
+            stop_on_convergence, stats, damping=damping,
+            damp_vars=damp_vars, damp_factors=damp_factors,
+            stability=stability):
+        beliefs, _ = aggregate_beliefs(graph, state.f2v)
+        last = cost_of(select_values(graph, beliefs))
+        costs[n] = last
+        n += 1
+    # An early exit leaves the tail unwritten: hold the final cost.
+    costs[n:] = last
+    beliefs, _ = aggregate_beliefs(graph, state.f2v)
+    values = select_values(graph, beliefs)
+    return state, values, costs

@@ -3,7 +3,9 @@ version.
 
 Sums every variable's incoming factor->variable messages in a fixed
 order — edge order within a bucket, and across buckets the form XLA
-gives the reference's jitted superstep — and adds its own costs.  The reference's scatter branch of
+gives the reference's jitted superstep (or, in the ``one_sum`` mode of
+the ``sorted`` aggregation, one running sum over every bucket's edges
+in CSR order) — and adds its own costs.  The reference's scatter branch of
 ``pydcop_tpu/ops/maxsum.py:389 aggregate_beliefs`` is jnp code, not a
 Pallas kernel; on the card it is the hand-written kernel
 ``csrc/segment_sum.cu``, because torch's ``index_add_`` adds with
@@ -88,15 +90,18 @@ def aggregation_plan(offsets, d: int,
 
 def segment_sum_reference(msgs: torch.Tensor, perm: torch.Tensor,
                           offsets: torch.Tensor, buckets: torch.Tensor,
-                          var_costs: torch.Tensor
+                          var_costs: torch.Tensor, one_sum: bool = False
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The definition, in ``index_add_`` calls (each sequential in edge
     order on the CPU): bucket 0's edges are added into zeros; then,
     bucket by bucket, an odd bucket is summed into zeros of its own and
     added, and an even bucket is added into the running sums — the form
     XLA gives the reference's jitted sum of per-bucket segment_sums.
-    Then ``var_costs + sums``.  Each edge's variable is read back from
-    the CSR arrays.  ``msgs`` is [E, D], every bucket's edges in bucket
+    With ``one_sum`` every edge is added into the one running sum in
+    edge order (the reference's ``sorted`` aggregation: its single
+    segment_sum over the edges gathered into CSR order).  Then
+    ``var_costs + sums``.  Each edge's variable is read back from the
+    CSR arrays.  ``msgs`` is [E, D], every bucket's edges in bucket
     order.  Returns (beliefs, sums), both [V+1, D]."""
     n_seg, d = var_costs.shape
     dev = perm.device
@@ -104,6 +109,10 @@ def segment_sum_reference(msgs: torch.Tensor, perm: torch.Tensor,
     seg = torch.empty(perm.shape, dtype=torch.int64, device=dev)
     seg[perm.to(torch.int64)] = torch.repeat_interleave(
         torch.arange(n_seg, device=dev), counts, output_size=perm.shape[0])
+    if one_sum:
+        sums = torch.zeros((n_seg, d), dtype=var_costs.dtype, device=dev)
+        sums.index_add_(0, seg, msgs)
+        return var_costs + sums, sums
     edge_bucket = torch.searchsorted(
         buckets, torch.arange(perm.shape[0], dtype=torch.int32, device=dev),
         right=True) - 1
@@ -185,7 +194,7 @@ def _launcher():
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 3 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -202,10 +211,11 @@ def _load_width(parts, d: int) -> int:
 def segment_sum(msgs: Messages, perm: torch.Tensor,
                 offsets: torch.Tensor, buckets: torch.Tensor,
                 var_costs: torch.Tensor,
-                tiles: Optional[torch.Tensor] = None
+                tiles: Optional[torch.Tensor] = None,
+                one_sum: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Beliefs and sums [V+1, D] f32, in the order of
-    :func:`segment_sum_reference`.
+    :func:`segment_sum_reference` (``one_sum`` as there).
 
     ``msgs`` is either one [E, D] f32 tensor, every bucket's edges in
     bucket order, or the buckets' own f2v tensors in bucket order
@@ -227,7 +237,7 @@ def segment_sum(msgs: Messages, perm: torch.Tensor,
             parts[0].reshape(-1, d) if len(parts) == 1
             else torch.cat([p.reshape(-1, d) for p in parts]))
         return segment_sum_reference(whole, perm, offsets, buckets,
-                                     var_costs)
+                                     var_costs, one_sum)
     n_seg, d = var_costs.shape
     n_buckets = buckets.shape[0] - 1
     if flat and n_buckets > 1:
@@ -248,7 +258,7 @@ def segment_sum(msgs: Messages, perm: torch.Tensor,
     if perm.device.index != torch.cuda.current_device():
         with torch.cuda.device(perm.device):
             return segment_sum(msgs, perm, offsets, buckets, var_costs,
-                               tiles)
+                               tiles, one_sum)
     sums = torch.empty_like(var_costs)
     beliefs = torch.empty_like(var_costs)
     if sums.numel() == 0:
@@ -260,7 +270,7 @@ def segment_sum(msgs: Messages, perm: torch.Tensor,
                       offsets.data_ptr(), tiles.data_ptr(), tiles.shape[0],
                       var_costs.data_ptr(), sums.data_ptr(),
                       beliefs.data_ptr(), n_seg, d, _load_width(parts, d),
-                      pass_edges(d),
+                      pass_edges(d), int(one_sum),
                       torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"segment_sum launch failed: CUDA error {err}")

@@ -2,7 +2,11 @@
 pydcop_tpu.engine.compile.compile_dcop: every compiled array is
 ``np.array_equal`` and every meta field equal, on the fixtures under
 tests/instances/, with and without tie-breaking noise, on a mixed-arity
-(1/2/3) DCOP and under row padding.
+(1/2/3) DCOP and under row padding; the ``agg_*`` arrays of the
+sorted/boundary/ell aggregations too, on the fixtures and on a padded
+multi-bucket graph.  The ell hub guard refuses the same graphs with the
+same message; ``validated_aggregation`` and ``prune_width`` give the
+same values; the structure cache counts hits and layout builds.
 
 Also the home of the small test problems the other port tests share.
 """
@@ -13,6 +17,8 @@ import jax  # noqa: F401  (imported first: JAX stays on the CPU)
 import numpy as np
 import pytest
 
+import pydcop_tpu.engine.compile as JC
+import pydcop_tpu_torch.engine.compile as TC
 from pydcop_tpu.dcop import yamldcop as jax_yaml
 from pydcop_tpu.engine.compile import compile_dcop as jax_compile
 from pydcop_tpu_torch.dcop import yamldcop as torch_yaml
@@ -125,7 +131,17 @@ def assert_same_compile(jax_dcop, torch_dcop, **kw):
                   "mode", "constant_cost"):
         assert getattr(m1, field) == getattr(m2, field), field
     np.testing.assert_array_equal(m1.var_base_costs, m2.var_base_costs)
+    for field in AGG_FIELDS:
+        a, b = getattr(g1, field), getattr(g2, field)
+        assert (a is None) == (b is None), field
+        if a is not None:
+            assert a.dtype == b.dtype, field
+            np.testing.assert_array_equal(a, b, err_msg=field)
     return g2
+
+
+AGG_FIELDS = ("agg_perm", "agg_sorted_seg", "agg_starts", "agg_ends",
+              "agg_ell")
 
 
 @pytest.mark.parametrize("noise", [0.0, 0.01])
@@ -151,7 +167,153 @@ def test_bench_style_instance_compiles_identically():
     assert_same_compile(*build_coloring_both(300), noise_level=0.01)
 
 
-def test_non_scatter_aggregation_is_not_ported():
-    with pytest.raises(NotImplementedError):
+@pytest.mark.parametrize("aggregation", ["sorted", "boundary", "ell"])
+@pytest.mark.parametrize("fixture", ["coloring_12_3.yml", "loft_scene.yml",
+                                     "secp_lamps.yaml", MIXED_YAML])
+def test_aggregation_arrays_compile_identically(fixture, aggregation):
+    g = assert_same_compile(*load_both(fixture), noise_level=0.01,
+                            aggregation=aggregation, use_cache=False)
+    set_fields = {f for f in AGG_FIELDS if getattr(g, f) is not None}
+    assert set_fields == {
+        "sorted": {"agg_perm", "agg_sorted_seg"},
+        "boundary": {"agg_perm", "agg_starts", "agg_ends"},
+        "ell": {"agg_ell"}}[aggregation]
+
+
+@pytest.mark.parametrize("aggregation", ["sorted", "boundary", "ell"])
+@pytest.mark.parametrize("n_buckets", [2, 3, 4])
+def test_aggregation_arrays_of_padded_multi_bucket_graphs(aggregation,
+                                                          n_buckets):
+    """Buckets of arity 1..n with a tenth of their rows padding (the
+    sentinel V), through each package's own builder."""
+    rng = np.random.default_rng(n_buckets)
+    n_vars = 50
+    ids = []
+    for arity in range(1, n_buckets + 1):
+        f = int(rng.integers(20, 60))
+        b = rng.integers(0, n_vars, size=(f, arity)).astype(np.int32)
+        b[-(f // 10):] = n_vars
+        ids.append(b)
+    ref = JC.build_aggregation_arrays(
+        [JC.FactorBucket(np.zeros(0, np.float32), b) for b in ids],
+        n_vars + 1, aggregation)
+    out = TC.build_aggregation_arrays(
+        [TC.FactorBucket(np.zeros(0, np.float32), b) for b in ids],
+        n_vars + 1, aggregation)
+    for a, b in zip(ref, out):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+    if aggregation == "ell":
+        # The sentinel row keeps an all-dummy list.
+        assert (out[4][-1] == sum(b.size for b in ids)).all()
+
+
+def _hub_buckets(module, n_vars, n_factors):
+    ids = np.zeros((n_factors, 2), np.int32)
+    ids[:, 1] = np.arange(n_factors) % (n_vars - 1) + 1
+    return (module.FactorBucket(np.zeros(0, np.float32), ids),)
+
+
+@pytest.mark.parametrize("n_vars,n_factors,refused", [
+    (2_000_000, 600_000, True),      # the reference's own hub-guard case
+    (1_500_000, 400_000, True),
+    (1_000, 900, False),
+])
+def test_ell_hub_guard_refuses_the_same_graphs(n_vars, n_factors, refused):
+    def build(module):
+        try:
+            module.build_aggregation_arrays(
+                _hub_buckets(module, n_vars, n_factors), n_vars + 1, "ell")
+        except ValueError as e:
+            return str(e)
+        return None
+
+    ref, out = build(JC), build(TC)
+    assert out == ref
+    assert (out is not None) == refused
+    if refused:
+        assert "hub" in out
+
+
+def test_unknown_aggregation_is_refused_like_the_reference():
+    ids = (TC.FactorBucket(np.zeros(0, np.float32),
+                           np.zeros((3, 2), np.int32)),)
+    with pytest.raises(ValueError) as err:
+        TC.build_aggregation_arrays(ids, 4, "nope")
+    with pytest.raises(ValueError) as ref:
+        JC.build_aggregation_arrays(ids, 4, "nope")
+    assert str(err.value) == str(ref.value)
+    with pytest.raises(ValueError):
         torch_compile(load_both("coloring_chain.yaml")[1],
-                      aggregation="ell")
+                      aggregation="nope")
+
+
+@pytest.mark.parametrize("aggregation", ["scatter", "sorted", "ell",
+                                         "auto", "boundary"])
+@pytest.mark.parametrize("pad_to", [1, 2, 8])
+def test_validated_aggregation_equals_reference(aggregation, pad_to):
+    params = {"aggregation": aggregation}
+
+    def run(module):
+        try:
+            return module.validated_aggregation(params, pad_to)
+        except ValueError as e:
+            return ("ValueError", str(e))
+
+    assert run(TC) == run(JC)
+    assert TC.validated_aggregation({}, pad_to) == "scatter"
+
+
+def test_prune_constants_and_width_equal_reference():
+    for name in ("PRUNE_WIDTH_DIVISOR", "PRUNE_WIDTH_CAP",
+                 "PRUNE_MIN_DOMAIN", "AGGREGATIONS", "AUTO_AGGREGATION"):
+        assert getattr(TC, name) == getattr(JC, name), name
+    for d in range(1, 300):
+        assert TC.prune_width(d) == JC.prune_width(d), d
+
+
+def test_compile_cache_counts_hits_and_layout_builds(monkeypatch):
+    monkeypatch.setattr(TC, "compile_cache", TC.CompileCache(maxsize=2))
+    cache = TC.compile_cache
+    dcop = load_both("coloring_12_3.yml")[1]
+    g1, _ = torch_compile(dcop, aggregation="ell")
+    assert cache.stats() == {"hits": 0, "misses": 1, "layout_builds": 1,
+                             "entries": 1}
+    g2, _ = torch_compile(dcop, aggregation="ell", noise_level=0.5)
+    assert cache.stats()["hits"] == 1
+    assert cache.stats()["layout_builds"] == 1
+    # The layout is shared and frozen; the costs are not.
+    assert g2.agg_ell is g1.agg_ell and not g1.agg_ell.flags.writeable
+    assert g2.buckets[0].var_ids is g1.buckets[0].var_ids
+    assert not np.array_equal(g1.var_costs, g2.var_costs)
+    # Another aggregation or pad_to is another structure.
+    torch_compile(dcop, aggregation="sorted")
+    torch_compile(dcop, aggregation="sorted", pad_to=4)
+    assert cache.stats()["layout_builds"] == 3
+    assert cache.stats()["entries"] == 2          # LRU bound
+    # use_cache=False builds without touching the entries.
+    torch_compile(dcop, use_cache=False)
+    assert cache.stats()["layout_builds"] == 4
+    assert cache.stats()["misses"] == 3
+    monkeypatch.setenv("PYDCOP_COMPILE_CACHE", "0")
+    torch_compile(dcop, aggregation="sorted", pad_to=4)
+    assert cache.stats()["layout_builds"] == 5
+    cache.clear()
+    assert cache.stats() == {"hits": 0, "misses": 0, "layout_builds": 0,
+                             "entries": 0}
+
+
+def test_cached_compile_equals_uncached_and_reference():
+    jax_dcop, torch_dcop = build_coloring_both(120, seed=2)
+    first = assert_same_compile(jax_dcop, torch_dcop, noise_level=0.01,
+                                aggregation="sorted")
+    again = assert_same_compile(jax_dcop, torch_dcop, noise_level=0.01,
+                                aggregation="sorted")
+    fresh = assert_same_compile(jax_dcop, torch_dcop, noise_level=0.01,
+                                aggregation="sorted", use_cache=False)
+    for field in ("agg_perm", "agg_sorted_seg"):
+        np.testing.assert_array_equal(getattr(again, field),
+                                      getattr(fresh, field))
+    assert again.agg_perm is first.agg_perm

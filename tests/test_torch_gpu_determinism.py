@@ -22,6 +22,16 @@ repository's root conftest imports JAX, so where JAX is missing run:
   is made to raise during the call) and equals the CPU's result; the
   wrapper refuses one [E, D] tensor for several buckets and a call
   without the placement plan.
+- ``segment_sum``'s one-running-sum mode (the ``sorted`` aggregation)
+  equals its plain version bit for bit on the multi-bucket graphs, at a
+  templated D and at a generic D.
+- Solves with the ``sorted`` and ``ell`` aggregations on the card equal
+  the CPU's bit for bit; a ``boundary`` run on the card equals its own
+  second run.
+- A pruned run of the time-to-cost recipe (D = 128) on the card equals
+  the dense run on the card and the pruned run on the CPU, values and
+  every final message, with the binary kernel launched once per dense
+  cycle.
 """
 
 import numpy as np
@@ -257,3 +267,110 @@ def test_binary_kernel_equals_plain_version(f, d, view):
     out = binary_factor_update(costs, v2f)
     torch.cuda.synchronize()
     assert torch.equal(out, binary_factor_update_reference(costs, v2f))
+
+
+@pytest.mark.gpu
+def test_segment_sum_sorted_mode_equals_plain_version():
+    _need_card()
+    graphs = list(_graphs()) + [powerlaw_hub_graph("cuda")]
+    rng = np.random.default_rng(12)
+    n_vars, d = 400, 11            # D > 8: the generic kernel
+    buckets = []
+    for arity, f in ((1, 150), (2, 300), (3, 100)):
+        ids = rng.integers(0, n_vars, size=(f, arity)).astype(np.int32)
+        ids[-f // 10:] = n_vars
+        buckets.append((np.zeros((f,) + (d,) * arity, np.float32), ids))
+    var_costs = rng.normal(size=(n_vars + 1, d)).astype(np.float32)
+    graphs.append(graph_from_numpy(var_costs, np.ones_like(var_costs, bool),
+                                   buckets, device="cuda"))
+    for i, graph in enumerate(graphs):
+        f2v = _bucket_messages(graph, 20 + i)
+        args = (graph.agg_perm, graph.agg_offsets, graph.agg_buckets,
+                graph.var_costs)
+        before = _build.launch_counts["segment_sum"]
+        beliefs, sums = segment_sum(f2v, *args, graph.agg_tiles,
+                                    one_sum=True)
+        torch.cuda.synchronize()
+        assert _build.launch_counts["segment_sum"] == before + 1
+        d = graph.var_costs.shape[1]
+        flat = torch.cat([m.reshape(-1, d) for m in f2v]).cpu()
+        cpu_args = tuple(t.cpu() for t in args)
+        ref_b, ref_s = segment_sum_reference(flat, *cpu_args, one_sum=True)
+        assert torch.equal(sums.cpu(), ref_s), i
+        assert torch.equal(beliefs.cpu(), ref_b), i
+        if len(f2v) > 1:
+            split = segment_sum_reference(flat, *cpu_args)[1]
+            assert not torch.equal(split, ref_s), i
+
+
+def _strategy_engines(aggregation):
+    params = dict(AlgorithmDef.build_with_default_param("maxsum").params,
+                  aggregation=aggregation)
+    dcop = coloring(2_000)
+    return (build_engine(dcop, params, device="cuda"),
+            build_engine(dcop, params, device="cpu"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("aggregation", ["sorted", "ell"])
+def test_aggregation_options_card_equals_cpu(aggregation):
+    _need_card()
+    card, cpu = _strategy_engines(aggregation)
+    assert card.graph.agg_strategy == aggregation
+    (s0, v0), (s1, v1) = _final(card), _final(cpu)
+    np.testing.assert_array_equal(v0, v1)
+    for field in ("v2f", "f2v", "v2f_count", "f2v_count"):
+        for a, b in zip(s0[field], s1[field]):
+            np.testing.assert_array_equal(a, b, err_msg=field)
+
+
+@pytest.mark.gpu
+def test_boundary_run_on_card_repeats_itself():
+    _need_card()
+    card, _ = _strategy_engines("boundary")
+    (s0, v0), (s1, v1) = _final(card), _final(card)
+    np.testing.assert_array_equal(v0, v1)
+    for a, b in zip(s0["f2v"], s1["f2v"]):
+        np.testing.assert_array_equal(a, b)
+
+
+def ttc_like(device, n_vars=120, d=128, seed=11):
+    """bench.py build_ttc_graph's recipe at ``n_vars`` variables."""
+    rng = np.random.default_rng(seed)
+    n_factors = int(n_vars * 1.5)
+    ids = rng.integers(0, n_vars, size=(n_factors, 2)).astype(np.int32)
+    loop = ids[:, 0] == ids[:, 1]
+    ids[loop, 1] = (ids[loop, 0] + 1) % n_vars
+    costs = np.ascontiguousarray(np.broadcast_to(
+        np.eye(d, dtype=np.float32), (n_factors, d, d)))
+    var_costs = np.full((n_vars + 1, d), 1e9, np.float32)
+    var_costs[:-1] = rng.integers(0, 400, size=(n_vars, d))
+    var_valid = np.zeros((n_vars + 1, d), bool)
+    var_valid[:-1] = True
+    return graph_from_numpy(var_costs, var_valid, [(costs, ids)],
+                            device=device)
+
+
+@pytest.mark.gpu
+def test_pruned_run_on_card_equals_dense_and_cpu():
+    _need_card()
+    card, cpu = ttc_like("cuda"), ttc_like("cpu")
+    runs, stats = [], []
+    for graph, prune in ((card, True), (card, False), (cpu, True)):
+        st = {}
+        before = _build.launch_counts["binary_factor_update"]
+        state, values = ops.run_maxsum(graph, CYCLES,
+                                       stop_on_convergence=False,
+                                       prune=prune, stats=st)
+        launched = _build.launch_counts["binary_factor_update"] - before
+        runs.append((state_to_numpy(state), values.cpu().numpy()))
+        stats.append((st["prune_fast_cycles"], launched))
+    fast = stats[0][0]
+    assert 0 < fast < CYCLES and stats[2][0] == fast
+    assert stats[0][1] == CYCLES - fast and stats[1] == (0, CYCLES)
+    (s0, v0) = runs[0]
+    for state, values in runs[1:]:
+        np.testing.assert_array_equal(values, v0)
+        for field in ("v2f", "f2v", "v2f_count", "f2v_count"):
+            for a, b in zip(state[field], s0[field]):
+                np.testing.assert_array_equal(a, b, err_msg=field)

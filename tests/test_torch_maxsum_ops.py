@@ -241,9 +241,3 @@ def test_state_round_trip():
     for f in ("v2f", "f2v", "v2f_count", "f2v_count"):
         _eq(tuple(s[f]), tuple(torch.from_numpy(a) for a in back[f]))
     assert back["cycle"] == 7 and back["stable"] is False
-
-
-def test_prune_is_not_ported():
-    _, tg = _graphs("mixed")
-    with pytest.raises(NotImplementedError):
-        T.run_maxsum(tg, 5, prune=True)

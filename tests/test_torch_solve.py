@@ -1,9 +1,14 @@
 """The port's solve entry points against pydcop_tpu.api.solve on the CPU:
 the same assignment, cost, cycles and status on the named fixtures and
-on a 300-variable instance built like bench.py's flagship problem; the
-CLI in a subprocess; and the device rule (no silent CPU fallback).
+on a 300-variable instance built like bench.py's flagship problem, with
+the default options and with pruning, the sorted and ell aggregations
+and ``aggregation="auto"`` (measured, and replayed from a stored
+decision); the CLI in a subprocess, its per-cycle metrics CSV holding
+the JAX engine's cost trace; and the device rule (no silent CPU
+fallback).  The options the port does not run yet still raise.
 """
 
+import csv
 import json
 import os
 import subprocess
@@ -13,10 +18,12 @@ import jax  # noqa: F401  (imported first: JAX stays on the CPU)
 import pytest
 import torch
 
+from pydcop_tpu.algorithms.maxsum import build_engine as jax_build_engine
 from pydcop_tpu.api import solve as jax_solve
 from pydcop_tpu_torch.algorithms.maxsum import build_engine
 from pydcop_tpu_torch.api import solve as torch_solve
 from test_torch_compile import INSTANCES, build_coloring_both, load_both
+from test_torch_prune import loopy_both
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -87,10 +94,8 @@ def test_default_device_is_cuda_and_never_falls_back():
 
 
 @pytest.mark.parametrize("params,kw", [
-    ({"prune": True}, {}),
     ({"layout": "lane"}, {}),
     ({"decimation": 10}, {}),
-    ({"aggregation": "auto"}, {}),
     ({}, {"n_devices": 2}),
     ({}, {"shards": 2}),
 ])
@@ -98,6 +103,114 @@ def test_unported_options_raise(params, kw):
     dcop = load_both("coloring_chain.yaml")[1]
     with pytest.raises(NotImplementedError):
         build_engine(dcop, params, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("fixture,max_cycles", [
+    ("coloring_12_3.yml", 60), ("loft_scene.yml", 100),
+    ("pref_ring_max.yaml", 100),
+])
+@pytest.mark.parametrize("params", [
+    {"aggregation": "sorted"}, {"aggregation": "ell"}, {"prune": True},
+    {"prune": True, "aggregation": "ell"},
+])
+def test_options_solve_identically(fixture, max_cycles, params):
+    _assert_same_result(*load_both(fixture), max_cycles, **params)
+
+
+@pytest.mark.parametrize("params", [
+    {"prune": True}, {"prune": True, "aggregation": "sorted"},
+    {"prune": "true", "noise": "0"},
+])
+def test_pruned_solve_of_a_large_domain_problem(params):
+    """D = 32: the pruned step runs on most cycles."""
+    out = _assert_same_result(*loopy_both(d=32, seed=1, unary="variables"),
+                              150, **params)
+    assert out["metrics"]["prune_fast_cycles"] > 0
+
+
+def test_auto_replays_a_stored_decision(tmp_path, monkeypatch):
+    """Both packages read the file named by PYDCOP_AGG_AUTOTUNE_CACHE;
+    with the same stored decision both solve with it."""
+    from pydcop_tpu_torch.engine.autotune import dcop_shape_key
+
+    jax_dcop, torch_dcop = load_both("loft_scene.yml")
+    path = tmp_path / "agg.json"
+    path.write_text(json.dumps({dcop_shape_key(torch_dcop, "cpu"): {
+        "aggregation": "sorted"}}))
+    monkeypatch.setenv("PYDCOP_AGG_AUTOTUNE_CACHE", str(path))
+    out = _assert_same_result(jax_dcop, torch_dcop, 100,
+                              aggregation="auto")
+    assert out["metrics"]["aggregation"] == "sorted"
+    assert out["metrics"]["aggregation_source"] == "cache"
+
+
+def test_auto_measures_on_a_one_bucket_problem(tmp_path, monkeypatch):
+    """Each package measures on its own (separate files); on one bucket
+    every selectable strategy gives the same bits, so whatever each
+    picks, the solves agree."""
+    jax_dcop, torch_dcop = build_coloring_both(200)
+    monkeypatch.setenv("PYDCOP_AGG_AUTOTUNE_CACHE", str(tmp_path / "j"))
+    ref = jax_solve(jax_dcop, "maxsum", max_cycles=150,
+                    algo_params={"aggregation": "auto"})
+    monkeypatch.setenv("PYDCOP_AGG_AUTOTUNE_CACHE", str(tmp_path / "t"))
+    out = torch_solve(torch_dcop, "maxsum", max_cycles=150,
+                      algo_params={"aggregation": "auto"}, device="cpu")
+    for key in ("assignment", "cost", "cycles", "status"):
+        assert out[key] == ref[key], key
+    assert out["metrics"]["aggregation_source"] == "measured"
+    assert set(out["metrics"]["aggregation_timings_ms"]) == {
+        "scatter", "sorted", "boundary", "ell"}
+    again = torch_solve(torch_dcop, "maxsum", max_cycles=150,
+                        algo_params={"aggregation": "auto"}, device="cpu")
+    assert again["metrics"]["aggregation_source"] == "cache"
+    assert again["assignment"] == out["assignment"]
+
+
+def test_boundary_is_not_a_solve_option():
+    from pydcop_tpu_torch.algorithms import AlgoParameterException
+
+    dcop = load_both("coloring_chain.yaml")[1]
+    with pytest.raises(AlgoParameterException):
+        torch_solve(dcop, "maxsum", algo_params={"aggregation": "boundary"},
+                    device="cpu")
+
+
+@pytest.mark.parametrize("fixture,cycles", [("coloring_12_3.yml", 60),
+                                            ("pref_ring_max.yaml", 40)])
+def test_cli_cycle_metrics_hold_the_jax_cost_trace(tmp_path, fixture,
+                                                   cycles):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    path = os.path.join(INSTANCES, fixture)
+    run_csv, end_csv = tmp_path / "run.csv", tmp_path / "end.csv"
+    proc = subprocess.run(
+        [sys.executable, "-m", "pydcop_tpu_torch", "solve", "--algo",
+         "maxsum", "-c", str(cycles), "--device", "cpu", "--collect_on",
+         "cycle_change", "--run_metrics", str(run_csv), "--end_metrics",
+         str(end_csv), path],
+        capture_output=True, text=True, env=env, cwd=REPO, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    result = json.loads(proc.stdout)
+    jax_dcop = load_both(fixture)[0]
+    ref = jax_build_engine(
+        jax_dcop, {"damping": 0.5, "damping_nodes": "both",
+                   "stability": 0.1, "noise": 0.01}).run_trace(
+        max_cycles=max(result["cycle"], 1))
+    with open(run_csv, newline="") as f:
+        rows = list(csv.DictReader(f))
+    assert list(rows[0]) == ["time", "cycle", "cost", "violation",
+                             "msg_count", "msg_size", "status"]
+    trace, summary = rows[:-1], rows[-1]
+    assert len(trace) == result["cycle"]
+    assert [int(r["cycle"]) for r in trace] == list(
+        range(1, len(trace) + 1))
+    assert [float(r["cost"]) for r in trace] == [
+        float(c) for c in ref.metrics["cost_trace"]]
+    assert all(r["status"] == "RUNNING" for r in trace)
+    assert float(summary["cost"]) == result["cost"]
+    assert summary["status"] == result["status"]
+    with open(end_csv, newline="") as f:
+        end_rows = list(csv.DictReader(f))
+    assert end_rows == [summary]
 
 
 @pytest.mark.gpu
