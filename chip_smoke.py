@@ -15,7 +15,12 @@ Then it drives the other MaxSum paths the same way, each with the
 launch counts zeroed just before it: branch-and-bound pruning and the
 cost trace on bench.py's time-to-cost instance and at 20,000
 variables, the sorted / ell / boundary aggregations, the aggregation
-autotuner (``aggregation="auto"``) and the CLI's per-cycle metrics.
+autotuner (``aggregation="auto"``), the CLI's per-cycle metrics, and
+the segmented solve: checkpoint and resume at the flagship and the
+1M-variable scale arrays (snapshots written by the card and by the
+CPU, resumed on the card), guard-and-recover through the whole
+escalation ladder, and decimation, each held equal to the plain or the
+CPU run in every final message.
 Each phase prints one JSON line; any failure raises and the
 script exits non-zero without the final line.  On success the last
 three lines are the kernel table (JSON), the card's name and power
@@ -63,6 +68,17 @@ TTC_CYCLES = 160
 # and as much again for the pruned update's transposed copy).
 PRUNE_SCALE_VARS = 20_000
 PRUNE_SCALE_CYCLES = 40
+# The segmented solve (checkpoints, recovery, decimation): the scale
+# arrays' 60 cycles in three segments, and the flagship's decimated
+# solves: 10 % of the variables clamped per 60-cycle round, and a
+# threshold run clamping the variables whose belief margin exceeds
+# 0.005 (the flagship's margins sit near its unary noise, 0.0005-0.015
+# from 10 to 60 cycles, median 0.003).
+CKPT_SCALE_VARS = SCALE_VARS
+CKPT_SCALE_CYCLES = 60
+DECIM_CYCLES = 1000
+DECIM_MARGIN = 0.005
+DECIM_MARGIN_CYCLES = 300
 
 
 def emit(phase: str, **fields):
@@ -503,8 +519,9 @@ def phase_prune_ttc(ctx):
 def phase_prune_scale(ctx):
     """The time-to-cost recipe at 20,000 variables (1.97 GB of tables):
     pruned and dense runs equal bit for bit; ms per cycle of each, the
-    pruned update's time per call and binary_factor_update's at
-    F = 30,000, D = 128 beside its bound."""
+    pruned update's time per call, the prune tables' build (paid again
+    by every segment of a segmented pruned run) and
+    binary_factor_update's at F = 30,000, D = 128 beside its bound."""
     torch, ops = ctx["torch"], ctx["ops"]
     from pydcop_tpu_torch.ops.binary_factor import (
         binary_factor_update,
@@ -535,6 +552,9 @@ def phase_prune_scale(ctx):
     # Per call, on the messages of the final state.
     bucket = graph.buckets[0]
     pt = ops.prune_tables(graph)[0]
+    # What each segment of a segmented pruned run pays to rebuild them.
+    tables_ms = cuda_ms(torch, lambda: ops.prune_tables(graph), 3,
+                        warmup=1)
     v2f = torch.tensor(pruned[0]["v2f"][0], device="cuda")
     fits = bool(ops.prune_fits((v2f,), (pt,)))
     f, d = bucket.costs.shape[0], bucket.costs.shape[1]
@@ -561,7 +581,7 @@ def phase_prune_scale(ctx):
         pruned_ms_per_cycle=pruned_s / PRUNE_SCALE_CYCLES * 1e3,
         dense_ms_per_cycle=dense_s / PRUNE_SCALE_CYCLES * 1e3,
         pruned_update_ms=pruned_ms, pruned_update_fits=fits,
-        peak_mem_bytes=peak_pruned,
+        prune_tables_ms=tables_ms, peak_mem_bytes=peak_pruned,
         binary_factor_update=dict(
             F=f, D=d, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
             bound_by=bound_by, library_ms=None, max_abs_err=err,
@@ -832,6 +852,425 @@ def phase_cli_trace(ctx):
                 final_cost=result["cost"],
                 first_costs=[float(r["cost"]) for r in trace[:5]],
                 launches=launches, seconds=time.perf_counter() - t_phase)
+
+
+def snapshot_differences(ctx, path, engine, plain):
+    """Fields in which the solver state of the snapshot at ``path``
+    (loaded onto ``engine``'s device) differs from ``plain``
+    (state_to_numpy form)."""
+    state, _ = ctx["load_state"](path, engine.init_state())
+    got = ctx["state_to_numpy"](state)
+    return run_differences((got, np.zeros(0)), (plain, np.zeros(0)))
+
+
+def checksum(ctx, path):
+    return ctx["read_meta"](path)["checksum"]
+
+
+def phase_checkpoint_flagship(ctx):
+    """The flagship's segmented solve (200 fixed cycles, a snapshot
+    every 50) on the card: with the asynchronous writer it equals the
+    card's plain run in values and every final message; a run stopped
+    after 2 segments and resumed from disk equals it too; so does a
+    snapshot written by a CPU run of the port, resumed on the card, and
+    the card's cycle-100 snapshot has the CPU's checksum.  Times the
+    plain, segmented-sync and segmented-async runs."""
+    import tempfile
+
+    _build = ctx["_build"]
+    engine, cpu_engine = ctx["engine"], ctx["cpu_engine"]
+    plain_state, plain_values = ctx["flagship_scatter"]
+    plain_assignment = engine.meta.assignment_from_indices(plain_values)
+    every = 50
+    kw = dict(max_cycles=FIXED_CYCLES, segment_cycles=every,
+              stop_on_convergence=False)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        mgr = ctx["CheckpointManager"](os.path.join(tmp, "async"),
+                                       every=every, keep=FIXED_CYCLES)
+        _build.launch_counts.clear()
+        res = engine.run_checkpointed(manager=mgr, checkpoint_async=True,
+                                      **kw)
+        launches = dict(_build.launch_counts)
+        want = {"binary_factor_update": FIXED_CYCLES,
+                "segment_sum": FIXED_CYCLES + FIXED_CYCLES // every}
+        if launches != want:
+            fail(f"checkpoint_flagship launched {launches}, want {want}")
+        if res.assignment != plain_assignment or res.cycles != FIXED_CYCLES:
+            fail("checkpoint_flagship: segmented run != plain run")
+        diff = snapshot_differences(ctx, mgr.path_for(FIXED_CYCLES),
+                                    engine, plain_state)
+        if diff or res.metrics["checkpoints_written"] != 4:
+            fail(f"checkpoint_flagship: final snapshot != plain run in "
+                 f"{diff}")
+
+        # Stopped after 2 segments, resumed from disk on the card.
+        part_mgr = ctx["CheckpointManager"](os.path.join(tmp, "part"),
+                                            every=every, keep=2)
+        part = engine.run_checkpointed(manager=part_mgr, max_segments=2,
+                                       **kw)
+        resumed = ctx["resume_from_checkpoint"](
+            engine, part_mgr, max_cycles=FIXED_CYCLES,
+            segment_cycles=every, stop_on_convergence=False)
+        diff = snapshot_differences(ctx, part_mgr.path_for(FIXED_CYCLES),
+                                    engine, plain_state)
+        if (not part.metrics["interrupted"] or part.cycles != 100
+                or resumed.metrics["resumed_from_cycle"] != 100
+                or resumed.assignment != plain_assignment or diff):
+            fail(f"checkpoint_flagship: resumed run != plain run ({diff})")
+
+        # Written by a CPU run of the port, resumed on the card.
+        cpu_mgr = ctx["CheckpointManager"](os.path.join(tmp, "cpu"),
+                                           every=every, keep=2)
+        cpu_engine.run_checkpointed(manager=cpu_mgr, max_segments=2,
+                                    checkpoint_async=False, **kw)
+        cpu_sum = checksum(ctx, cpu_mgr.path_for(100))
+        card_sum = checksum(ctx, mgr.path_for(100))
+        if cpu_sum != card_sum:
+            fail("checkpoint_flagship: cycle-100 snapshot checksums differ "
+                 "between the CPU and the card")
+        from_cpu = ctx["resume_from_checkpoint"](
+            engine, cpu_mgr, max_cycles=FIXED_CYCLES, segment_cycles=every,
+            stop_on_convergence=False)
+        diff = snapshot_differences(ctx, cpu_mgr.path_for(FIXED_CYCLES),
+                                    engine, plain_state)
+        if from_cpu.assignment != plain_assignment or diff:
+            fail(f"checkpoint_flagship: CPU snapshot resumed on the card "
+                 f"!= plain run ({diff})")
+
+        # Timing, warm, in turns.
+        times = {"plain": [], "segmented_sync": [], "segmented_async": []}
+        snapshot_bytes = mgr.writes[-1]["bytes"]
+        for rep in range(2):
+            times["plain"].append(engine.run(
+                FIXED_CYCLES, stop_on_convergence=False).time_s)
+            for mode, is_async in (("segmented_sync", False),
+                                   ("segmented_async", True)):
+                m = ctx["CheckpointManager"](
+                    os.path.join(tmp, f"{mode}{rep}"), every=every, keep=2)
+                times[mode].append(engine.run_checkpointed(
+                    manager=m, checkpoint_async=is_async, **kw).time_s)
+    return dict(
+        n_vars=len(engine.meta.var_names), cycles=FIXED_CYCLES, every=every,
+        bit_equal=["segmented async = plain", "stopped at 100 + resumed "
+                   "= plain", "CPU-written snapshot resumed on the card = "
+                   "plain", "cycle-100 checksum card = CPU"],
+        checksum_100=card_sum, snapshot_bytes=snapshot_bytes,
+        ms_per_cycle={k: [t / FIXED_CYCLES * 1e3 for t in v]
+                      for k, v in times.items()},
+        launches=launches, seconds=time.perf_counter() - t_phase)
+
+
+def scale_engine(ctx, n_vars: int):
+    """A MaxSumEngine on the card over bench.py's 1M-variable scale
+    arrays (seed 7), built as arrays: meta names the variables v<i>."""
+    from pydcop_tpu_torch.engine.compile import (
+        CompiledFactorGraph,
+        FactorBucket,
+        FactorGraphMeta,
+    )
+
+    var_costs, var_valid, buckets = scale_arrays(n_vars)
+    graph = CompiledFactorGraph(
+        var_costs=var_costs, var_valid=var_valid,
+        buckets=tuple(FactorBucket(c, ids) for c, ids in buckets))
+    meta = FactorGraphMeta(
+        var_names=tuple(f"v{i}" for i in range(n_vars)),
+        domains=(tuple(range(N_COLORS)),) * n_vars, factor_names=(),
+        bucket_sizes=tuple(ids.shape[0] for _, ids in buckets), mode="min")
+    return ctx["MaxSumEngine"](graph, meta, device=ctx["dev"])
+
+
+def phase_checkpoint_scale(ctx):
+    """The 1M-variable scale arrays, 60 fixed cycles: unsegmented, and
+    segmented every 20 cycles with the synchronous writer and with the
+    asynchronous one; the snapshot's bytes and each write's host copy,
+    checksum and file seconds; how often the writer's queue blocked the
+    loop.  A resume from the cycle-40 snapshot equals the unsegmented
+    run in every final message (card against card)."""
+    import tempfile
+
+    _build, ops, sync = ctx["_build"], ctx["ops"], ctx["sync"]
+    t_phase = time.perf_counter()
+    engine = scale_engine(ctx, CKPT_SCALE_VARS)
+    every = CKPT_SCALE_CYCLES // 3
+    kw = dict(max_cycles=CKPT_SCALE_CYCLES, segment_cycles=every,
+              stop_on_convergence=False)
+    engine.run_checkpointed(**kw)     # warm
+    sync()
+    t0 = time.perf_counter()
+    state, values = ops.run_maxsum(engine.graph, CKPT_SCALE_CYCLES,
+                                   stop_on_convergence=False)
+    sync()
+    plain_s = time.perf_counter() - t0
+    plain = ctx["state_to_numpy"](state)
+    plain_assignment = engine.meta.assignment_from_indices(
+        values.cpu().numpy())
+    del state, values
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scale_") as tmp:
+        for mode, is_async in (("sync", False), ("async", True)):
+            mgr = ctx["CheckpointManager"](os.path.join(tmp, mode),
+                                           every=every, keep=3)
+            _build.launch_counts.clear()
+            res = engine.run_checkpointed(manager=mgr,
+                                          checkpoint_async=is_async, **kw)
+            launches = dict(_build.launch_counts)
+            want = {"binary_factor_update": CKPT_SCALE_CYCLES,
+                    "segment_sum": CKPT_SCALE_CYCLES + 3}
+            if launches != want:
+                fail(f"checkpoint_scale {mode} launched {launches}")
+            if res.assignment != plain_assignment:
+                fail(f"checkpoint_scale: {mode} run != unsegmented run")
+            out[mode] = dict(
+                ms_per_cycle=res.time_s / CKPT_SCALE_CYCLES * 1e3,
+                writes=mgr.writes, queue_blocked=mgr.blocked,
+                queue_blocked_s=mgr.blocked_s, launches=launches)
+        # Resume from the async run's cycle-40 snapshot.
+        mgr = ctx["CheckpointManager"](os.path.join(tmp, "async"),
+                                       every=every, keep=3)
+        os.remove(mgr.path_for(CKPT_SCALE_CYCLES))
+        resumed = ctx["resume_from_checkpoint"](engine, mgr, **kw)
+        diff = snapshot_differences(
+            ctx, mgr.path_for(CKPT_SCALE_CYCLES), engine, plain)
+        if (resumed.metrics["resumed_from_cycle"] != 2 * every or diff
+                or resumed.assignment != plain_assignment):
+            fail(f"checkpoint_scale: resumed run != unsegmented run "
+                 f"({diff})")
+    return dict(
+        n_vars=CKPT_SCALE_VARS, cycles=CKPT_SCALE_CYCLES, every=every,
+        unsegmented_ms_per_cycle=plain_s / CKPT_SCALE_CYCLES * 1e3,
+        snapshot_bytes=out["sync"]["writes"][0]["bytes"], **out,
+        bit_equal=["resumed from cycle 40 = unsegmented (card)"],
+        seconds=time.perf_counter() - t_phase)
+
+
+def phase_recovery(ctx):
+    """The flagship under RecoveryPolicy(trip_cycles=(50, 100, 150)),
+    which walks reseed, damping bump, then both: the card's run equals
+    the CPU's in values, every final message and the actions.  A
+    guarded run with no trips equals the plain run; a NaN planted in
+    one f2v entry trips the guard as "nonfinite" on the card, and the
+    run recovers."""
+    import tempfile
+
+    _build = ctx["_build"]
+    engine, cpu_engine = ctx["engine"], ctx["cpu_engine"]
+    plain_state, plain_values = ctx["flagship_scatter"]
+    policy = ctx["RecoveryPolicy"]
+    every = 50
+    kw = dict(max_cycles=FIXED_CYCLES, segment_cycles=every,
+              stop_on_convergence=False)
+    t_phase = time.perf_counter()
+    base_damping = engine.damping
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rec_") as tmp:
+        runs = {}
+        for label, eng in (("card", engine), ("cpu", cpu_engine)):
+            eng.damping = base_damping
+            mgr = ctx["CheckpointManager"](os.path.join(tmp, label),
+                                           every=every, keep=1)
+            _build.launch_counts.clear()
+            t0 = time.perf_counter()
+            res = eng.run_checkpointed(
+                manager=mgr, checkpoint_async=False,
+                recovery=policy(trip_cycles=(50, 100, 150)), **kw)
+            runs[label] = (res, checksum(ctx, mgr.path_for(FIXED_CYCLES)),
+                           dict(_build.launch_counts),
+                           time.perf_counter() - t0, eng.damping)
+        (card, card_sum, launches, card_s, card_damping) = runs["card"]
+        cpu, cpu_sum, _, cpu_s, cpu_damping = runs["cpu"]
+        stepped = card.metrics["segments"] * every
+        if launches != {"binary_factor_update": stepped,
+                        "segment_sum": stepped + card.metrics["segments"]}:
+            fail(f"recovery launched {launches} for {stepped} cycles")
+        if (card.assignment != cpu.assignment or card_sum != cpu_sum
+                or card.metrics["recovery_actions"]
+                != cpu.metrics["recovery_actions"]
+                or card_damping != cpu_damping):
+            fail("recovery: card run != CPU run")
+        if card.metrics["recovery_actions"] != [
+                "reseed_noise", "damping_bump",
+                "reseed_noise+damping_bump"]:
+            fail(f"recovery actions {card.metrics['recovery_actions']}")
+        engine.damping = cpu_engine.damping = base_damping
+
+        # Guarded, nothing injected: equal to the plain run.
+        mgr = ctx["CheckpointManager"](os.path.join(tmp, "guarded"),
+                                       every=every, keep=1)
+        guarded = engine.run_checkpointed(manager=mgr, recovery=policy(),
+                                          **kw)
+        diff = snapshot_differences(ctx, mgr.path_for(FIXED_CYCLES),
+                                    engine, plain_state)
+        if (guarded.metrics["guard_trips"] != 0 or diff
+                or guarded.assignment
+                != engine.meta.assignment_from_indices(plain_values)):
+            fail(f"recovery: guarded run != plain run ({diff})")
+
+    # A NaN planted in one f2v entry after the segment ending at 100.
+    ops = ctx["ops"]
+    real = ops.run_maxsum_from
+    planted = []
+
+    def poisoned(graph, state, extra, **kwargs):
+        state, values = real(graph, state, extra, **kwargs)
+        if not planted and int(state.cycle) == 100:
+            f2v = list(state.f2v)
+            f2v[0] = f2v[0].clone()
+            f2v[0][0, 0, 0] = float("nan")
+            state = state._replace(f2v=tuple(f2v))
+            planted.append(int(state.cycle))
+        return state, values
+
+    ops.run_maxsum_from = poisoned
+    try:
+        healed = engine.run_checkpointed(recovery=policy(), **kw)
+    finally:
+        ops.run_maxsum_from = real
+        engine.damping = base_damping
+    kinds = [v["kind"] for v in healed.metrics["guard_violations"]]
+    if kinds != ["nonfinite"] or healed.cycles != FIXED_CYCLES:
+        fail(f"recovery: planted NaN gave trips {kinds}")
+    return dict(
+        n_vars=len(engine.meta.var_names), cycles=FIXED_CYCLES, every=every,
+        trip_cycles=[50, 100, 150],
+        actions=card.metrics["recovery_actions"],
+        final_damping=card_damping, checksum_200=card_sum,
+        card_s=card_s, cpu_s=cpu_s, stepped_cycles=stepped,
+        nan_trip={"planted_at_cycle": planted[0], "kinds": kinds,
+                  "actions": healed.metrics["recovery_actions"]},
+        bit_equal=["card = CPU (values, every message, actions, damping)",
+                   "guarded, no trips = plain"],
+        launches=launches, seconds=time.perf_counter() - t_phase)
+
+
+def phase_decimation(ctx):
+    """api.solve on the card with decimation:10, and with
+    decimation_margin: each equals the CPU run in assignment, cycles,
+    converged, decimated_vars, decimation_rounds and active_edges (and
+    the decimation:10 run in every final message and clamp: its last
+    snapshots' checksums).  A run stopped after 3 rounds and resumed
+    from disk equals the uninterrupted one.  Times a round, split into
+    device (segment and margin) and host clamp."""
+    import tempfile
+
+    from pydcop_tpu_torch.engine import runner
+
+    api, _build = ctx["api"], ctx["_build"]
+    dcop, engine = ctx["dcop"], ctx["engine"]
+    keys = ("decimated_vars", "decimation_rounds", "active_edges",
+            "decimated_fraction")
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_decim_") as tmp:
+        for label, params, cycles in (
+                ("decimation_10", {"decimation": 10}, DECIM_CYCLES),
+                ("decimation_margin", {"decimation_margin": DECIM_MARGIN},
+                 DECIM_MARGIN_CYCLES)):
+            results = {}
+            for device in (ctx["dev"], "cpu"):
+                ck = os.path.join(tmp, f"{label}_{device}")
+                _build.launch_counts.clear()
+                results[device] = api.solve(
+                    dcop, "maxsum", max_cycles=cycles, algo_params=params,
+                    checkpoint_dir=ck, checkpoint_every=60,
+                    checkpoint_keep=1, device=device)
+                if device == ctx["dev"]:
+                    launches = dict(_build.launch_counts)
+                last = ctx["CheckpointManager"](ck).latest()
+                results[device]["checksum"] = checksum(ctx, last)
+            card, cpu = results[ctx["dev"]], results["cpu"]
+            m = card["metrics"]
+            if (card["assignment"] != cpu["assignment"]
+                    or card["cycles"] != cpu["cycles"]
+                    or card["status"] != cpu["status"]
+                    or card["checksum"] != cpu["checksum"]
+                    or any(m[k] != cpu["metrics"][k] for k in keys)):
+                fail(f"decimation {label}: card run != CPU run")
+            if launches != {
+                    "binary_factor_update": card["cycles"],
+                    "segment_sum": card["cycles"] + 2 * m["segments"]}:
+                fail(f"decimation {label} launched {launches}")
+            out[label] = dict(
+                params=params, max_cycles=cycles, cycles=card["cycles"],
+                status=card["status"], cost=card["cost"],
+                segments=m["segments"], launches=launches,
+                checksum=card["checksum"], **{k: m[k] for k in keys})
+
+        # Stopped after 3 rounds and resumed from disk, on the card.
+        plan = ctx["decimation_plan_from_params"]({"decimation": 10})
+        mgr = ctx["CheckpointManager"](os.path.join(tmp, "part"),
+                                       every=60, keep=2)
+        part = engine.run_checkpointed(
+            max_cycles=DECIM_CYCLES, manager=mgr, segment_cycles=60,
+            decimation=plan, max_segments=3)
+        resumed = ctx["resume_from_checkpoint"](
+            engine, mgr, max_cycles=DECIM_CYCLES, segment_cycles=60,
+            decimation=plan)
+        ref = out["decimation_10"]
+        if (not part.metrics["interrupted"]
+                or resumed.metrics["resumed_from_cycle"] != 180
+                or resumed.cycles != ref["cycles"]
+                # decimation_rounds counts this call's rounds only.
+                or any(resumed.metrics[k] != ref[k] for k in keys
+                       if k != "decimation_rounds")
+                or checksum(ctx, mgr.latest()) != ref["checksum"]):
+            fail(f"decimation: resumed run (from cycle "
+                 f"{resumed.metrics['resumed_from_cycle']}, "
+                 f"{resumed.cycles} cycles) != uninterrupted run "
+                 f"({ref['cycles']} cycles)")
+
+    # A round's device time and host clamp time, without a writer.
+    real = runner._DecimationRun.clamp
+    host = []
+
+    def timed_clamp(self, *args):
+        ctx["sync"]()
+        t0 = time.perf_counter()
+        result = real(self, *args)
+        host.append(time.perf_counter() - t0)
+        return result
+
+    runner._DecimationRun.clamp = timed_clamp
+    try:
+        timed = api.solve(dcop, "maxsum", max_cycles=DECIM_CYCLES,
+                          algo_params={"decimation": 10},
+                          device=ctx["dev"])
+    finally:
+        runner._DecimationRun.clamp = real
+    rounds = timed["metrics"]["segments"]
+    out["round_ms"] = timed["time"] / rounds * 1e3
+    out["host_clamp_ms"] = sum(host) / len(host) * 1e3
+    out["device_ms_per_round"] = (timed["time"] - sum(host)) / rounds * 1e3
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+def run_segmented_phases(ctx):
+    """Emit the four phases of the segmented solve.  ``ctx`` holds the
+    card's device name (``dev``) and synchronise, the flagship's DCOP,
+    engines on the card and the CPU, and the card's plain 200-cycle
+    run (``flagship_scatter``)."""
+    from pydcop_tpu_torch.algorithms.maxsum import (
+        decimation_plan_from_params,
+    )
+    from pydcop_tpu_torch.engine.runner import MaxSumEngine
+    from pydcop_tpu_torch.resilience.checkpoint import (
+        CheckpointManager,
+        load_state,
+        read_meta,
+        resume_from_checkpoint,
+    )
+    from pydcop_tpu_torch.resilience.recovery import RecoveryPolicy
+
+    ctx.update(decimation_plan_from_params=decimation_plan_from_params,
+               MaxSumEngine=MaxSumEngine,
+               CheckpointManager=CheckpointManager, load_state=load_state,
+               read_meta=read_meta,
+               resume_from_checkpoint=resume_from_checkpoint,
+               RecoveryPolicy=RecoveryPolicy)
+    emit("checkpoint_flagship", **phase_checkpoint_flagship(ctx))
+    emit("checkpoint_scale", **phase_checkpoint_scale(ctx))
+    emit("recovery", **phase_recovery(ctx))
+    emit("decimation", **phase_decimation(ctx))
 
 
 def main() -> int:
@@ -1219,6 +1658,12 @@ def main() -> int:
     emit("aggregation_options", **options)
     emit("auto", **phase_auto(ctx))
     emit("cli_trace", **phase_cli_trace(ctx))
+
+    # 9. The segmented solve: checkpoint and resume (flagship and
+    # scale), guard-and-recover, and decimation.
+    ctx.update(dev="cuda", sync=torch.cuda.synchronize, engine=engine,
+               cpu_engine=cpu_engine, flagship_scatter=flagship_scatter)
+    run_segmented_phases(ctx)
 
     # 7. Fixture parity: the verify oracle.
     fixture = os.path.join(HERE, "tests", "instances", "coloring_12_3.yml")

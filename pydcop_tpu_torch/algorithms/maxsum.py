@@ -3,11 +3,13 @@
 Port of the device path of ``pydcop_tpu/algorithms/maxsum.py``.  The
 parameters are declared exactly as the reference declares them, so a
 parameter set valid there is valid here; the ones whose machinery is
-not ported yet (decimation, the lane layout, multi-device runs and
-partitioned shards) raise ``NotImplementedError`` instead of being
-silently ignored.  ``aggregation="auto"`` measures the strategies on
-the compiled graph (``engine/autotune.py``) or replays a stored
-decision before compiling.
+not ported yet (the lane layout, multi-device runs and partitioned
+shards) raise ``NotImplementedError`` instead of being silently
+ignored.  ``aggregation="auto"`` measures the strategies on the
+compiled graph (``engine/autotune.py``) or replays a stored decision
+before compiling.  ``decimation`` / ``decimation_margin`` run the
+segmented solve (``MaxSumEngine.run_checkpointed``) with a
+``DecimationPlan``.
 """
 
 import time
@@ -21,7 +23,11 @@ from pydcop_tpu_torch.engine.compile import (
     compile_dcop,
     validated_aggregation,
 )
-from pydcop_tpu_torch.engine.runner import DeviceRunResult, MaxSumEngine
+from pydcop_tpu_torch.engine.runner import (
+    DecimationPlan,
+    DeviceRunResult,
+    MaxSumEngine,
+)
 
 STABILITY_COEFF = 0.1
 
@@ -69,6 +75,26 @@ def _replay_auto_choice(dcop: DCOP, device: DeviceLike):
     }
 
 
+def decimation_plan_from_params(params: dict) -> Optional[DecimationPlan]:
+    """The ``decimation`` / ``decimation_margin`` params as a
+    :class:`DecimationPlan` (None = off).
+
+    ``decimation:N`` alone is the classic schedule: the top N % of free
+    variables by belief margin clamped per round until everything is
+    fixed.  ``decimation_margin:M`` switches to threshold mode: only
+    variables whose margin exceeds M clamp (at most N % per round when
+    both are given), and nothing is forced."""
+    n = int(params.get("decimation", 0) or 0)
+    margin = float(params.get("decimation_margin", 0.0) or 0.0)
+    if n <= 0 and margin <= 0:
+        return None
+    return DecimationPlan(
+        margin=margin,
+        frac_per_round=(n / 100.0) if n > 0 else 1.0,
+        force_progress=margin <= 0,
+    )
+
+
 def build_engine(dcop: DCOP, params: dict, mesh=None,
                  n_devices: Optional[int] = None,
                  shards: Optional[int] = None,
@@ -83,8 +109,6 @@ def build_engine(dcop: DCOP, params: dict, mesh=None,
     if shards is not None and shards > 1:
         raise NotImplementedError(
             "partitioned sharding (shards=) is not ported yet")
-    if params.get("decimation", 0) or params.get("decimation_margin", 0.0):
-        raise NotImplementedError("decimation is not ported yet")
     pad_to = 1
     if mesh is not None:
         pad_to = mesh.size
@@ -137,10 +161,19 @@ def solve_on_device(dcop: DCOP, algo_def: AlgorithmDef,
                     shards: Optional[int] = None,
                     warmup: bool = False,
                     device: DeviceLike = "cuda") -> DeviceRunResult:
-    """Batched BSP MaxSum on one torch device."""
+    """Batched BSP MaxSum on one torch device.  A decimated solve runs
+    segmented, one round per segment; ``warmup`` does not apply to it
+    (its ``cycles_per_s`` already leaves the kernels' build out)."""
     engine = build_engine(dcop, algo_def.params, mesh=mesh,
                           n_devices=n_devices, shards=shards,
                           device=device)
+    plan = decimation_plan_from_params(algo_def.params)
+    if plan is not None:
+        return engine.run_checkpointed(
+            max_cycles=max_cycles,
+            segment_cycles=plan.cycles_per_round,
+            decimation=plan,
+        )
     run = partial(engine.run, max_cycles=max_cycles)
     if warmup:
         # Build the kernels and fill the caching allocator first, so

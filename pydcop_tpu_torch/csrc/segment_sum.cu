@@ -12,9 +12,11 @@
 // edges are added one at a time in edge order ((factor, position)
 // order), starting from +0.0f.  Across buckets it is the form XLA gives
 // the reference's jitted ((0 + S0) + S1) + S2 + ...: bucket 0 starts
-// the running sum; an odd bucket is summed from +0.0f on its own and
-// then added to it; an even bucket (2, 4, ...) is added into it edge by
-// edge.  The one_sum mode (the reference's `sorted` aggregation: one
+// the running sum; a bucket whose bit is set in `sep` (the wrapper's
+// separate_buckets: odd buckets, unless XLA merged them into the
+// scatter before) is summed from +0.0f on its own and then added to
+// it; any other bucket is added into it edge by edge.  The one_sum mode
+// (the reference's `sorted` aggregation: one
 // segment_sum over the edges gathered into CSR order) adds every edge of
 // every bucket into the one running sum instead.  Then beliefs =
 // var_costs + sums.  Every add is one __fadd_rn
@@ -64,8 +66,9 @@
 //      edges instead of one dependent chain per thread;
 //   2. add: thread (v, d) adds its variable's edges of this pass from
 //      shared memory, one __fadd_rn at a time, carrying the running
-//      sum, the odd bucket's own sum and the bucket index in registers
-//      from one pass to the next, so the order is the one-pass order.
+//      sum, the separate bucket's own sum and the bucket index in
+//      registers from one pass to the next, so the order is the one-pass
+//      order.
 // perm, offsets, tiles and var_costs are read and sums and beliefs
 // written once, with evict-first hints (__ldcs / __stcs), so they push
 // fewer message rows out of L2.
@@ -93,19 +96,25 @@ struct Buckets {
   const float* base[kMaxBuckets];
   int start[kMaxBuckets + 1];
   int n;
+  unsigned long long sep;  // bit b: bucket b summed on its own, then added
 };
+
+__device__ __forceinline__ bool separate(unsigned long long sep, int b) {
+  return (sep >> b) & 1ull;
+}
 
 template <int W> struct Vec;
 template <> struct Vec<1> { using T = float; };
 template <> struct Vec<2> { using T = float2; };
 template <> struct Vec<4> { using T = float4; };
 
-// Leave buckets until `to` (edges come in bucket order): leaving an odd
-// bucket adds its own sum into the running sum.
+// Leave buckets until `to` (edges come in bucket order): leaving a
+// separate bucket adds its own sum into the running sum.
 __device__ __forceinline__ void leave_buckets(int& b, int to, float& acc,
-                                              float& part) {
+                                              float& part,
+                                              unsigned long long sep) {
   while (b < to) {
-    if (b & 1) {
+    if (separate(sep, b)) {
       acc = __fadd_rn(acc, part);
       part = 0.0f;
     }
@@ -115,13 +124,14 @@ __device__ __forceinline__ void leave_buckets(int& b, int to, float& acc,
 
 template <bool kMulti>
 __device__ __forceinline__ void add_edge(float m, int eb, float& acc,
-                                         float& part, int& b) {
+                                         float& part, int& b,
+                                         unsigned long long sep) {
   if (!kMulti) {
     acc = __fadd_rn(acc, m);
     return;
   }
-  if (eb != b) leave_buckets(b, eb, acc, part);
-  if (b & 1) {
+  if (eb != b) leave_buckets(b, eb, acc, part, sep);
+  if (separate(sep, b)) {
     part = __fadd_rn(part, m);
   } else {
     acc = __fadd_rn(acc, m);
@@ -143,7 +153,8 @@ template <int D, bool kMulti>
 __device__ __forceinline__ void add_edges(const float* m,
                                           const uint8_t* bkt, int e,
                                           int e_end, float& acc,
-                                          float& part, int& b) {
+                                          float& part, int& b,
+                                          unsigned long long sep) {
   if constexpr (kMulti) {
     if (e + kBatch <= e_end) {
       float v[kBatch];
@@ -163,25 +174,27 @@ __device__ __forceinline__ void add_edges(const float* m,
         }
 #pragma unroll
         for (int j = 0; j < kBatch; ++j) {
-          add_edge<true>(v[j], q[j], acc, part, b);
+          add_edge<true>(v[j], q[j], acc, part, b, sep);
           v[j] = vn[j];
           q[j] = qn[j];
         }
       }
 #pragma unroll
-      for (int j = 0; j < kBatch; ++j) add_edge<true>(v[j], q[j], acc, part, b);
+      for (int j = 0; j < kBatch; ++j) {
+        add_edge<true>(v[j], q[j], acc, part, b, sep);
+      }
     }
   }
   for (; e < e_end; ++e) {
-    add_edge<kMulti>(m[e * D], kMulti ? bkt[e] : 0, acc, part, b);
+    add_edge<kMulti>(m[e * D], kMulti ? bkt[e] : 0, acc, part, b, sep);
   }
 }
 
 // One block per tile (v_lo, v_hi, e_lo, e_hi); W floats per load.
 // kMulti = false: one bucket, every edge adds into the running sum.
 // kMulti = true: several buckets, each edge's row read from its own
-// bucket; kSplit = true adds in the odd/even bucket form, kSplit = false
-// adds every edge into the one running sum (one_sum mode).
+// bucket; kSplit = true adds in the separate/running bucket form,
+// kSplit = false adds every edge into the one running sum (one_sum mode).
 template <int D, int W, bool kMulti, bool kSplit>
 __global__ void __launch_bounds__(kThreads)
 segment_sum_tiled(const Buckets bk, const int* __restrict__ perm,
@@ -216,7 +229,7 @@ segment_sum_tiled(const Buckets bk, const int* __restrict__ perm,
     __syncthreads();
   }
   float acc = 0.0f;   // the running sum
-  float part = 0.0f;  // the current odd bucket's own sum
+  float part = 0.0f;  // the current separate bucket's own sum
   int b = 0;          // bucket of the last edge added
   for (int c = tile.z; c < tile.w; c += chunk) {
     const int n = min(chunk, tile.w - c);
@@ -259,11 +272,11 @@ segment_sum_tiled(const Buckets bk, const int* __restrict__ perm,
     __syncthreads();
     if (active) {
       add_edges<D, kSplit>(s_msg + k, s_bkt, max(lo, c) - c,
-                           min(hi, c + n) - c, acc, part, b);
+                           min(hi, c + n) - c, acc, part, b, bk.sep);
     }
   }
   if (!active) return;
-  if (kSplit && (b & 1)) acc = __fadd_rn(acc, part);
+  if (kSplit && separate(bk.sep, b)) acc = __fadd_rn(acc, part);
   __stcs(sums + out, acc);
   __stcs(beliefs + out, __fadd_rn(cost, acc));
 }
@@ -304,15 +317,15 @@ __global__ void segment_sum_generic(const Buckets bk,
       acc = __fadd_rn(acc, s_base[q][(p - s_start[q]) * d + k]);
       continue;
     }
-    leave_buckets(b, q, acc, part);
+    leave_buckets(b, q, acc, part, bk.sep);
     const float m = s_base[b][(p - s_start[b]) * d + k];
-    if (b & 1) {
+    if (separate(bk.sep, b)) {
       part = __fadd_rn(part, m);
     } else {
       acc = __fadd_rn(acc, m);
     }
   }
-  if (kSplit && (b & 1)) acc = __fadd_rn(acc, part);
+  if (kSplit && separate(bk.sep, b)) acc = __fadd_rn(acc, part);
   sums[t] = acc;
   beliefs[t] = __fadd_rn(var_costs[t], acc);
 }
@@ -378,8 +391,8 @@ int launch_d(const Args& a, int w) {
 // edge starts.  w: floats per load (1, 2 or 4; D and every base must
 // allow it).  chunk: edges per shared-memory pass.  one_sum: 1 adds
 // every bucket's edges into the one running sum (sorted), 0 in the
-// odd/even form (scatter).  Returns a cudaError_t (0 when the launch was
-// taken).
+// separate/running form of `sep` (scatter).  Returns a cudaError_t (0
+// when the launch was taken).
 extern "C" int segment_sum_launch(const float* const* bases,
                                   const int* starts, int n_buckets,
                                   const int* perm, const int* offsets,
@@ -387,6 +400,7 @@ extern "C" int segment_sum_launch(const float* const* bases,
                                   const float* var_costs, float* sums,
                                   float* beliefs, int n_segments, int d,
                                   int w, int chunk, int one_sum,
+                                  unsigned long long sep,
                                   cudaStream_t stream) {
   if (n_buckets < 1 || n_buckets > kMaxBuckets || d < 1 || chunk < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -396,6 +410,7 @@ extern "C" int segment_sum_launch(const float* const* bases,
   for (int b = 0; b < n_buckets; ++b) a.bk.base[b] = bases[b];
   for (int b = 0; b <= n_buckets; ++b) a.bk.start[b] = starts[b];
   a.bk.n = n_buckets;
+  a.bk.sep = sep;
   a.perm = perm;
   a.offsets = offsets;
   a.tiles = reinterpret_cast<const int4*>(tiles);

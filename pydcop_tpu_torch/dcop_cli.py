@@ -2,16 +2,20 @@
 
 ``python -m pydcop_tpu_torch solve --algo maxsum [--algo_params k:v]
 [-c MAX_CYCLES] [--device cuda|cpu] [--collect_on MOMENT]
-[--run_metrics FILE.csv] [--end_metrics FILE.csv] FILE.yaml`` solves a
-DCOP on one torch device and prints the JSON result ``pydcop solve``
-prints for a device solve (status, assignment, cost, violation, time,
-msg_count, msg_size, cycle, compile_time, backend).
+[--run_metrics FILE.csv] [--end_metrics FILE.csv] [--checkpoint_dir DIR
+[--checkpoint_every N] [--[no-]checkpoint_async] [--checkpoint_keep N]
+[--resume]] [--recovery [--recovery_max_restarts N] [--recovery_noise S]
+[--recovery_damping_bump B]] FILE.yaml`` solves a DCOP on one torch
+device and prints the JSON result ``pydcop solve`` prints for a device
+solve (status, assignment, cost, violation, time, msg_count, msg_size,
+cycle, compile_time, backend).  The resilience flags are the
+reference's, with its defaults.
 
 The metrics files are the reference's CSV (``commands/metrics_io.py``):
 with ``--collect_on cycle_change``, ``--run_metrics`` gets one row per
 cycle of a cost-trace run of the same solve (``MaxSumEngine.run_trace``)
-for a MaxSum solve without decimation; each metrics file then gets the
-final summary row.
+for a MaxSum (or A-MaxSum) solve without decimation; each metrics file
+then gets the final summary row.
 """
 
 import argparse
@@ -42,7 +46,8 @@ def make_parser() -> argparse.ArgumentParser:
     solve = sub.add_parser("solve", help="solve a static DCOP")
     solve.add_argument("dcop_files", nargs="+", help="dcop yaml file(s)")
     solve.add_argument("-a", "--algo", required=True,
-                       help="algorithm name (maxsum)")
+                       help="algorithm name (maxsum, amaxsum, "
+                            "maxsum_dynamic)")
     solve.add_argument("-p", "--algo_params", action="append",
                        help="algorithm parameter as name:value")
     solve.add_argument("-c", "--cycles", type=int, default=1000,
@@ -57,6 +62,37 @@ def make_parser() -> argparse.ArgumentParser:
                        help="csv file for run metrics")
     solve.add_argument("--end_metrics", default=None,
                        help="csv file for end metrics")
+    solve.add_argument("--checkpoint_dir", default=None,
+                       help="snapshot solver state to this directory "
+                            "between segments")
+    solve.add_argument("--checkpoint_every", type=int, default=100,
+                       help="cycles per checkpoint segment")
+    solve.add_argument("--checkpoint_async",
+                       action=argparse.BooleanOptionalAction,
+                       default=True,
+                       help="write snapshots on a background thread "
+                            "overlapping device compute (default; "
+                            "--no-checkpoint_async restores the "
+                            "synchronous write between segments)")
+    solve.add_argument("--checkpoint_keep", type=int, default=2,
+                       help="keep-last-N checkpoint retention (the "
+                            "newest valid snapshot is never pruned)")
+    solve.add_argument("--resume", action="store_true",
+                       help="continue from the newest VALID checkpoint "
+                            "in --checkpoint_dir (corrupt/truncated "
+                            "snapshots are skipped with a warning)")
+    solve.add_argument("--recovery", action="store_true",
+                       help="arm segment-boundary guards (NaN/Inf "
+                            "scan) with rollback-and-recover on a trip")
+    solve.add_argument("--recovery_max_restarts", type=int, default=3,
+                       help="restart budget before RecoveryExhausted")
+    solve.add_argument("--recovery_noise", type=float, default=1e-3,
+                       help="tie-break noise scale of the first "
+                            "recovery escalation")
+    solve.add_argument("--recovery_damping_bump", type=float,
+                       default=0.2,
+                       help="damping increase of the second recovery "
+                            "escalation")
     return parser
 
 
@@ -70,7 +106,22 @@ def run_solve(args) -> int:
     algo_def = AlgorithmDef.build_with_default_param(
         args.algo, parse_algo_params(args.algo_params),
         mode=dcop.objective)
-    res = solve(dcop, algo_def, max_cycles=args.cycles, device=args.device)
+    recovery = None
+    if args.recovery:
+        from pydcop_tpu_torch.resilience.recovery import RecoveryPolicy
+
+        recovery = RecoveryPolicy(
+            max_restarts=args.recovery_max_restarts,
+            noise_scale=args.recovery_noise,
+            damping_bump=args.recovery_damping_bump,
+        )
+    res = solve(dcop, algo_def, max_cycles=args.cycles,
+                checkpoint_dir=args.checkpoint_dir,
+                checkpoint_every=args.checkpoint_every,
+                checkpoint_async=args.checkpoint_async,
+                checkpoint_keep=args.checkpoint_keep,
+                resume=args.resume, recovery=recovery,
+                device=args.device)
     result = {
         "status": res["status"],
         "assignment": res["assignment"],
@@ -85,7 +136,7 @@ def run_solve(args) -> int:
     }
     params = algo_def.params
     if (args.run_metrics and args.collect_on == "cycle_change"
-            and algo_def.algo == "maxsum"
+            and algo_def.algo in ("maxsum", "amaxsum")
             and not params.get("decimation")
             and not params.get("decimation_margin")):
         # The solve ran as one device loop, so the per-cycle rows come

@@ -23,7 +23,11 @@ Messages live in bucket space (``[F, arity, D]`` per bucket).  All
 kernels minimize; ``objective=max`` problems are negated at compile
 time.  Every element-wise expression keeps the reference's operation
 order, because damping and mean-normalisation accrete mantissa bits
-cycle after cycle and a reassociated sum drifts the trajectory.
+cycle after cycle and a reassociated sum drifts the trajectory; where
+XLA:CPU computes another form than the one written in the reference
+(damping as ``(o + n) * 0.5`` or one fused multiply-add, the domain
+mean vectorised after a fused fold, subnormals flushed to zero), the
+port computes that form.
 
 The reference runs the solve loop on the device (``lax.while_loop``);
 here it is a host loop of supersteps that reads ``stable`` once per
@@ -39,6 +43,7 @@ a device tensor, with no host sync of its own.
 
 from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from pydcop_tpu_torch.device import TorchFactorGraph
@@ -49,7 +54,7 @@ from pydcop_tpu_torch.engine.compile import (
 )
 from pydcop_tpu_torch.ops.binary_factor import binary_factor_update
 from pydcop_tpu_torch.ops.ell import WINDOW, gather_reduce, window_sum
-from pydcop_tpu_torch.ops.segment_sum import segment_sum
+from pydcop_tpu_torch.ops.segment_sum import segment_sum, separate_buckets
 
 Msgs = Tuple[torch.Tensor, ...]  # one [F, arity, D] tensor per bucket
 
@@ -298,8 +303,10 @@ def aggregate_beliefs(graph: TorchFactorGraph, f2v: Msgs
 
     - ``scatter``: edge order within a bucket; across buckets XLA folds
       the per-bucket segment_sums so that bucket 0 starts from zero,
-      each odd bucket is summed from zero on its own and added, and
-      each even bucket is added into the running sums;
+      and each later bucket is either summed from zero on its own and
+      added, or added into the running sums, as
+      ``ops.segment_sum.separate_buckets`` reads off the bucket sizes
+      (odd buckets on their own, unless XLA merged them);
     - ``sorted``: one running sum per variable over every bucket's
       edges in CSR order, from zero;
     - ``ell``: the [V+1, K] lists' gather and K-way sum
@@ -340,18 +347,62 @@ def aggregate_beliefs(graph: TorchFactorGraph, f2v: Msgs
                        one_sum=strategy == "sorted")
 
 
-def _sum_last(x: torch.Tensor) -> torch.Tensor:
+def _lane_sum(x: torch.Tensor, width: int, head: int) -> torch.Tensor:
+    """LLVM's vectorised form of a sum over the last axis: ``width``
+    lanes from zero, lane j adding slots j, j + width, ... below
+    ``head``; the lanes folded by halves; then slots ``head`` onward
+    added one by one.  The axis is kept with length 1."""
+    lanes = []
+    for j in range(width):
+        acc = torch.zeros_like(x[..., :1])
+        for k in range(j, head, width):
+            acc = acc + x[..., k:k + 1]
+        lanes.append(acc)
+    while len(lanes) > 1:
+        half = len(lanes) // 2
+        lanes = [lanes[i] + lanes[i + half] for i in range(half)]
+    acc = lanes[0]
+    for k in range(head, x.shape[-1]):
+        acc = acc + x[..., k:k + 1]
+    return acc
+
+
+def _sum_last(x: torch.Tensor, vectorised: bool = False) -> torch.Tensor:
     """Sum over the last (domain) axis, keeping the axis, in the order
     XLA reduces in: left to right up to 32 slots, and above 32 in
     windows of 32 (``ops.ell.window_sum``, XLA's tree-reduction
     rewrite).  ``torch.sum`` vectorises some widths (D=5 on the CPU)
-    into another order, which changes the last bit."""
-    if x.shape[-1] > WINDOW:
+    into another order, which changes the last bit.
+
+    ``vectorised``: the reference's sums come out of an add that XLA
+    fuses into the gather feeding this reduction (a scatter fold that
+    ends with a bucket summed on its own), and LLVM then vectorises the
+    sum of 28 to 32 slots: lanes of 8 over the first 24 slots and the
+    rest one by one (D = 28..31), or lanes of 16 over all 32."""
+    d = x.shape[-1]
+    if d > WINDOW:
         return window_sum(x, x.dim() - 1)
+    if vectorised and d == WINDOW:
+        return _lane_sum(x, 16, WINDOW)
+    if vectorised and d >= 28:
+        return _lane_sum(x, 8, 24)
     acc = x[..., :1]
-    for k in range(1, x.shape[-1]):
+    for k in range(1, d):
         acc = acc + x[..., k:k + 1]
     return acc
+
+
+def _sums_fused(graph: TorchFactorGraph) -> bool:
+    """Whether the reference's jitted superstep computes this graph's
+    belief sums as an add it fuses into their consumers: the scatter
+    aggregation over several buckets, its last bucket summed on its own
+    (``ops.segment_sum.separate_buckets``)."""
+    n = len(graph.buckets)
+    if graph.agg_strategy != "scatter" or n < 2:
+        return False
+    starts = np.cumsum([0] + [b.var_ids.numel() for b in graph.buckets])
+    return bool(separate_buckets(starts, graph.var_costs.shape[0])
+                >> (n - 1) & 1)
 
 
 def var_to_factor(graph: TorchFactorGraph, f2v: Msgs,
@@ -359,6 +410,7 @@ def var_to_factor(graph: TorchFactorGraph, f2v: Msgs,
     """All variable->factor messages: belief minus own contribution,
     mean-normalized over valid slots (reference maxsum.py:670-674)."""
     out = []
+    fused = _sums_fused(graph)
     for bucket, msgs in zip(graph.buckets, f2v):
         valid = graph.var_valid[bucket.var_ids]        # [F, a, D]
         raw = beliefs[bucket.var_ids] - msgs           # own cost + others
@@ -366,7 +418,8 @@ def var_to_factor(graph: TorchFactorGraph, f2v: Msgs,
         n_valid = torch.clamp(
             torch.sum(valid, dim=-1, keepdim=True, dtype=torch.int32),
             min=1)
-        avg = _sum_last(torch.where(valid, factor_sum, 0.0)) / n_valid
+        avg = _sum_last(torch.where(valid, factor_sum, 0.0),
+                        fused) / n_valid
         out.append(torch.where(valid, raw - avg, float(BIG)))
     return tuple(out)
 
@@ -379,22 +432,70 @@ def select_values(graph: TorchFactorGraph,
     return torch.argmin(masked[:-1], dim=1).to(torch.int32)
 
 
+# Smallest normal float32.  XLA:CPU runs the reference with subnormals
+# flushed to zero (FTZ/DAZ), and so does the TPU; torch keeps them.
+FLT_MIN = float(np.finfo(np.float32).tiny)
+
+
+def _ftz(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with every subnormal value replaced by a zero of its sign
+    (NaN and infinities kept), as the reference's arithmetic leaves a
+    subnormal result."""
+    return x * (torch.abs(x) >= FLT_MIN)
+
+
+def _fma(a: float, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``a * x + y`` for float32 ``x`` and ``y``, rounded once (a fused
+    multiply-add).  The product is exact in float64; the sum's float64
+    rounding error is recovered exactly (TwoSum), and it decides the
+    float32 rounding where the float64 sum lies exactly halfway between
+    two float32 values — everywhere else rounding the float64 sum is
+    already correct.  The same bits on the CPU and on the card."""
+    p = x.double() * float(np.float32(a))
+    q = y.double()
+    s = p + q
+    bq = s - p
+    err = (p - (s - bq)) + (q - bq)
+    t = s.float()
+    d = s - t.double()
+    toward = torch.nextafter(t, torch.where(d > 0, torch.inf, -torch.inf)
+                             .to(t.dtype))
+    tie = (d != 0) & (toward.double() - t.double() == 2 * d)
+    return torch.where(tie & (err != 0) & ((err > 0) == (d > 0)), toward, t)
+
+
 def _damp(new: Msgs, old: Msgs, damping: float,
           first: torch.Tensor) -> Msgs:
     """damped = damping * prev + (1-damping) * new; no damping on the
-    first cycle (reference maxsum.py:679)."""
-    return tuple(
-        torch.where(first, n, damping * o + (1.0 - damping) * n)
-        for n, o in zip(new, old)
-    )
+    first cycle (reference maxsum.py:679), in the forms XLA:CPU gives
+    the reference's ``damping * o + (1 - damping) * n``: at damping 0.5
+    (the default) ``(o + n) * 0.5``, otherwise one fused multiply-add,
+    ``fma(damping, o, (1 - damping) * n)`` (:func:`_fma`).  The forms
+    agree with the plain expression on normal numbers and differ from it
+    where a product would be subnormal, which the reference flushes to
+    zero."""
+    if damping == 0.5:
+        damped = [(o + n) * 0.5 for n, o in zip(new, old)]
+    else:
+        damped = [_fma(damping, o, _ftz((1.0 - damping) * n))
+                  for n, o in zip(new, old)]
+    return tuple(torch.where(first, n, d) for n, d in zip(new, damped))
+
+
+def _flush_subnormals(msgs: Msgs) -> Msgs:
+    """:func:`_ftz` of each message.  A message that decays toward zero
+    (damping halves it every cycle) passes through the subnormal range,
+    where the reference sends 0: the candidates are flushed before they
+    are compared and sent."""
+    return tuple(_ftz(m) for m in msgs)
 
 
 def superstep(state: MaxSumState, graph: TorchFactorGraph, *,
               damping: float, damp_vars: bool, damp_factors: bool,
               stability: float, prune=None) -> MaxSumState:
     """One synchronous MaxSum cycle: in cycle k BOTH sides fire from
-    the messages sent in cycle k-1, with per-edge damping and
-    SAME_COUNT send-suppression."""
+    the messages sent in cycle k-1, with per-edge damping, subnormal
+    candidates flushed to zero and SAME_COUNT send-suppression."""
     first = state.cycle == 0
     valids = tuple(
         graph.var_valid[b.var_ids] for b in graph.buckets
@@ -403,12 +504,14 @@ def superstep(state: MaxSumState, graph: TorchFactorGraph, *,
     f2v_cand = factor_to_var(graph, state.v2f, prune=prune)
     if damp_factors and damping > 0:
         f2v_cand = _damp(f2v_cand, state.f2v, damping, first)
+    f2v_cand = _flush_subnormals(f2v_cand)
 
     # Variable side uses the factor messages from the PREVIOUS cycle.
     beliefs, sums = aggregate_beliefs(graph, state.f2v)
     v2f_cand = var_to_factor(graph, state.f2v, beliefs, sums)
     if damp_vars and damping > 0:
         v2f_cand = _damp(v2f_cand, state.v2f, damping, first)
+    v2f_cand = _flush_subnormals(v2f_cand)
 
     f2v_new, f2v_count = [], []
     v2f_new, v2f_count = [], []

@@ -3,9 +3,10 @@ version.
 
 Sums every variable's incoming factor->variable messages in a fixed
 order — edge order within a bucket, and across buckets the form XLA
-gives the reference's jitted superstep (or, in the ``one_sum`` mode of
-the ``sorted`` aggregation, one running sum over every bucket's edges
-in CSR order) — and adds its own costs.  The reference's scatter branch of
+gives the reference's jitted superstep (:func:`separate_buckets`; or,
+in the ``one_sum`` mode of the ``sorted`` aggregation, one running sum
+over every bucket's edges in CSR order) — and adds its own costs.
+The reference's scatter branch of
 ``pydcop_tpu/ops/maxsum.py:389 aggregate_beliefs`` is jnp code, not a
 Pallas kernel; on the card it is the hand-written kernel
 ``csrc/segment_sum.cu``, because torch's ``index_add_`` adds with
@@ -88,15 +89,49 @@ def aggregation_plan(offsets, d: int,
                     axis=1).astype(np.int32)
 
 
+def separate_buckets(starts: Sequence[int], n_rows: int) -> int:
+    """Which buckets the reference's jitted ``((0 + S0) + S1) + ...``
+    sums on their own: bit b set means bucket b's edges are summed from
+    zero and the result added to the running sums; clear, they are added
+    into the running sums edge by edge.  ``starts`` are the buckets'
+    first edges and then E; ``n_rows`` is V + 1.
+
+    XLA's algebraic simplifier (jax 0.9.0, CPU) rewrites the chain of
+    adds from the left: adding a bucket's scatter-add to a scatter
+    merges the two into one scatter over the concatenated edges (one
+    running sum) when together they hold fewer edges than ``n_rows``;
+    otherwise the bucket stays a scatter of its own, summed from zero
+    and added; and adding a bucket to such a sum scatters the bucket
+    into it.  Without merges this is the odd/even form (odd buckets on
+    their own).  The rule reproduced every shape probed against the
+    reference's optimised HLO and sums (two to six buckets, D = 1, 3,
+    5, merges on and off)."""
+    sizes = np.diff(np.asarray(starts, dtype=np.int64))
+    mask = 0
+    into_scatter = True      # the running expression ends in a scatter
+    edges = int(sizes[0]) if sizes.size else 0
+    for b in range(1, sizes.size):
+        e = int(sizes[b])
+        if not into_scatter:
+            into_scatter, edges = True, e
+        elif edges + e < n_rows:
+            edges += e
+        else:
+            mask |= 1 << b
+            into_scatter = False
+    return mask
+
+
 def segment_sum_reference(msgs: torch.Tensor, perm: torch.Tensor,
                           offsets: torch.Tensor, buckets: torch.Tensor,
                           var_costs: torch.Tensor, one_sum: bool = False
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The definition, in ``index_add_`` calls (each sequential in edge
     order on the CPU): bucket 0's edges are added into zeros; then,
-    bucket by bucket, an odd bucket is summed into zeros of its own and
-    added, and an even bucket is added into the running sums — the form
-    XLA gives the reference's jitted sum of per-bucket segment_sums.
+    bucket by bucket, a bucket that :func:`separate_buckets` marks is
+    summed into zeros of its own and added, and any other is added into
+    the running sums — the form XLA gives the reference's jitted sum of
+    per-bucket segment_sums.
     With ``one_sum`` every edge is added into the one running sum in
     edge order (the reference's ``sorted`` aggregation: its single
     segment_sum over the edges gathered into CSR order).  Then
@@ -118,9 +153,14 @@ def segment_sum_reference(msgs: torch.Tensor, perm: torch.Tensor,
         right=True) - 1
     # Row n_seg takes the edges of the other buckets and is dropped.
     sums = torch.zeros((n_seg + 1, d), dtype=var_costs.dtype, device=dev)
-    for b in range(buckets.shape[0] - 1):
+    # Bucket 0 is never summed on its own: one bucket needs no host
+    # read of the starts (so the plain version stays capturable in a
+    # CUDA graph there).
+    n_buckets = buckets.shape[0] - 1
+    sep = separate_buckets(buckets.tolist(), n_seg) if n_buckets > 1 else 0
+    for b in range(n_buckets):
         rows = torch.where(edge_bucket == b, seg, n_seg)
-        if b % 2:
+        if (sep >> b) & 1:
             part = torch.zeros_like(sums)
             part.index_add_(0, rows, msgs)
             sums = sums + part
@@ -194,7 +234,8 @@ def _launcher():
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 3 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 5 + [ctypes.c_ulonglong]
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -264,13 +305,14 @@ def segment_sum(msgs: Messages, perm: torch.Tensor,
     if sums.numel() == 0:
         return beliefs, sums
     bases = (ctypes.c_void_p * n_buckets)(*(p.data_ptr() for p in parts))
-    starts = (ctypes.c_int * (n_buckets + 1))(
-        *np.cumsum([0] + [p.numel() // d for p in parts]).tolist())
+    edge_starts = np.cumsum([0] + [p.numel() // d for p in parts]).tolist()
+    starts = (ctypes.c_int * (n_buckets + 1))(*edge_starts)
     err = _launcher()(bases, starts, n_buckets, perm.data_ptr(),
                       offsets.data_ptr(), tiles.data_ptr(), tiles.shape[0],
                       var_costs.data_ptr(), sums.data_ptr(),
                       beliefs.data_ptr(), n_seg, d, _load_width(parts, d),
                       pass_edges(d), int(one_sum),
+                      0 if one_sum else separate_buckets(edge_starts, n_seg),
                       torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"segment_sum launch failed: CUDA error {err}")

@@ -19,6 +19,7 @@ the CSR arrays of device.to_device_graph) against the JAX reference.
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -48,6 +49,7 @@ from pydcop_tpu_torch.ops import maxsum as T
 from pydcop_tpu_torch.ops.segment_sum import (
     segment_sum,
     segment_sum_reference,
+    separate_buckets,
 )
 from test_torch_compile import load_both
 
@@ -186,9 +188,15 @@ def _messages(g, seed):
 def kernel_walk(flat, perm, offsets, buckets, var_costs, reverse=False,
                 bucket_form=True):
     """What csrc/segment_sum.cu computes, as numpy float32: per variable,
-    +0.0 plus each CSR edge's message row, one add at a time, an odd
-    bucket's rows into a sum of their own that is added when the walk
-    leaves the bucket (``bucket_form=False``: all into one sum)."""
+    +0.0 plus each CSR edge's message row, one add at a time, a separate
+    bucket's rows (``separate_buckets``: the odd ones unless XLA merged
+    them) into a sum of their own that is added when the walk leaves the
+    bucket (``bucket_form=False``: all into one sum)."""
+    sep = separate_buckets(list(buckets), var_costs.shape[0])
+
+    def own(b):
+        return (sep >> b) & 1
+
     sums = np.zeros_like(var_costs)
     for v in range(var_costs.shape[0]):
         edges = perm[offsets[v]:offsets[v + 1]]
@@ -197,14 +205,14 @@ def kernel_walk(flat, perm, offsets, buckets, var_costs, reverse=False,
         b = 0
         for e in (edges[::-1] if reverse else edges):
             while bucket_form and e >= buckets[b + 1]:
-                if b % 2:
+                if own(b):
                     acc, part = acc + part, np.zeros_like(part)
                 b += 1
-            if b % 2:
+            if own(b):
                 part = part + flat[e]
             else:
                 acc = acc + flat[e]
-        sums[v] = acc + part if b % 2 else acc
+        sums[v] = acc + part if own(b) else acc
     return var_costs + sums, sums
 
 
@@ -367,3 +375,105 @@ def _same_state(jstate, tstate):
             np.testing.assert_array_equal(np.asarray(a), b, err_msg=field)
     assert bool(jstate.stable) == tn["stable"]
     assert int(jstate.cycle) == tn["cycle"]
+
+
+def _random_bucket_graph(trial):
+    """A graph of 2-5 buckets (arity 1, 2, ...) whose sizes straddle
+    V + 1, so that XLA merges some buckets' scatters and not others;
+    every tenth row padding; D in {1, 3, 5}."""
+    rng = np.random.default_rng(1000 + trial)
+    n_vars = int(rng.integers(20, 200))
+    d = int(rng.choice([1, 3, 5]))
+    buckets = []
+    for arity in range(1, int(rng.integers(2, 6)) + 1):
+        f = int(rng.integers(1, max(2, n_vars // (arity + 1) + 10)))
+        ids = rng.integers(0, n_vars, size=(f, arity)).astype(np.int32)
+        ids[-(f // 10 or 1):] = n_vars
+        buckets.append((np.zeros((f,) + (d,) * arity, np.float32), ids))
+    var_costs = (rng.normal(size=(n_vars + 1, d)) * 10).astype(np.float32)
+    var_valid = np.ones_like(var_costs, bool)
+    g = CompiledFactorGraph(var_costs, var_valid,
+                            tuple(FactorBucket(c, i) for c, i in buckets))
+    return g, graph_from_numpy(var_costs, var_valid, buckets, device="cpu")
+
+
+@pytest.mark.parametrize("trial", range(16))
+def test_bucket_fold_follows_xla_merges(trial):
+    """XLA merges the scatter-adds of consecutive buckets into one
+    running sum while their edges are fewer than V + 1
+    (``separate_buckets``); the port's sums equal the jitted
+    reference's on order-sensitive messages, merged or not."""
+    g, tg = _random_bucket_graph(trial)
+    _check_walk_plain_jax(g, tg, 20 + trial)
+
+
+def test_bucket_folds_of_the_probed_shapes():
+    """The shapes probed against the reference's optimised HLO: two
+    buckets of 100 edges at V + 1 = 101 merge (one scatter), at 101
+    edges they do not; with none merged the fold is odd/even."""
+    assert separate_buckets([0, 50, 100], 101) == 0
+    assert separate_buckets([0, 51, 101], 101) == 0b10
+    assert separate_buckets([0, 99, 101], 101) == 0b10
+    assert separate_buckets([0, 48, 100, 175], 151) == 0b100
+    assert separate_buckets([0, 500, 1000, 1500, 2000, 2500], 101) == 0b1010
+    assert separate_buckets([0, 10, 30, 60, 100, 150, 210], 1001) == 0
+    assert separate_buckets([0, 60, 62, 65, 69, 74], 51) == 0b10
+    assert separate_buckets([0, 7], 3) == 0
+
+
+def test_merged_buckets_in_the_jitted_superstep():
+    """The shape of ROADMAP Queue C's first open item (two buckets of
+    48 and 52 edges at V + 1 = 151, merged by XLA into one scatter):
+    ten supersteps from order-sensitive messages equal the jitted
+    reference's, every message."""
+    from test_torch_aggregation_options import strategy_graphs
+
+    g, tg = strategy_graphs(2, "scatter", seed=1, d=3)
+    assert separate_buckets(tg.agg_buckets.tolist(), 151) == 0
+    f2v = _messages(g, 31)
+    v2f = _messages(g, 32)
+    counts = [np.zeros(b.var_ids.shape, np.int8) for b in g.buckets]
+    state = dict(v2f=v2f, f2v=f2v, v2f_count=counts, f2v_count=counts,
+                 stable=False, cycle=3)
+    js = J.MaxSumState(
+        v2f=tuple(jnp.asarray(a) for a in v2f),
+        f2v=tuple(jnp.asarray(a) for a in f2v),
+        v2f_count=tuple(jnp.asarray(a) for a in counts),
+        f2v_count=tuple(jnp.asarray(a) for a in counts),
+        stable=jnp.asarray(False), cycle=jnp.asarray(3, jnp.int32))
+    ts = state_from_numpy(**state, device="cpu")
+    kw = dict(damping=0.5, damp_vars=True, damp_factors=True,
+              stability=0.1)
+    step = jax.jit(lambda s, gr: J.superstep(s, gr, **kw))
+    for _ in range(10):
+        js, ts = step(js, g), T.superstep(ts, tg, **kw)
+    for name in ("v2f", "f2v", "v2f_count", "f2v_count"):
+        for a, b in zip(getattr(js, name), getattr(ts, name)):
+            np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+@pytest.mark.parametrize("d", [27, 28, 30, 32, 33])
+def test_domain_mean_after_a_fold_ending_on_its_own(d):
+    """Unary factors beside the binary ones (two buckets, the second
+    summed on its own): XLA fuses the add of the two scatters into the
+    gathers of var_to_factor and LLVM vectorises the domain sum of 28 to
+    32 slots (ROADMAP Queue C; the plain left-to-right sum differed from
+    cycle 4 at D = 28 and 30, from cycle 10 at D = 32).  Fourteen
+    supersteps equal the jitted reference's, every message, at D on both
+    sides of that range."""
+    from test_torch_prune import KW as PRUNE_KW
+    from test_torch_prune import loopy_graphs
+
+    g, tg = loopy_graphs(aggregation="scatter", d=d, seed=0,
+                         unary="factors")
+    assert len(g.buckets) == 2
+    assert T._sums_fused(tg)
+    step = jax.jit(lambda s, gr: J.superstep(s, gr, **PRUNE_KW))
+    js, ts = J.init_state(g), T.init_state(tg)
+    for c in range(14):
+        js, ts = step(js, g), T.superstep(ts, tg, **PRUNE_KW)
+    for name in ("v2f", "f2v", "v2f_count", "f2v_count"):
+        for a, b in zip(getattr(js, name), getattr(ts, name)):
+            np.testing.assert_array_equal(np.asarray(a), b.numpy(),
+                                          err_msg=name)
+    assert bool(js.stable) == bool(ts.stable)

@@ -2,10 +2,11 @@
 
 Checked in a fresh interpreter (this test process already imported jax
 through the root conftest): every module of pydcop_tpu_torch is
-imported, then ``sys.modules`` must hold no ``jax*`` module and no
-``pydcop_tpu``/``pydcop_tpu.*`` module.  The sources of the package,
-of chip_smoke.py and of chip_compare.py are also scanned for such
-imports.
+imported (among them the resilience modules, the PRNG and the
+delegating algorithms), then ``sys.modules`` must hold no ``jax*``
+module and no ``pydcop_tpu``/``pydcop_tpu.*`` module.  The sources of
+the package, of chip_smoke.py and of chip_compare.py are also scanned
+for such imports.
 """
 
 import ast
@@ -30,8 +31,18 @@ for name in names:
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k.startswith("jaxlib")
              or k == "pydcop_tpu" or k.startswith("pydcop_tpu."))
-print(json.dumps({"modules": len(names), "bad": bad}))
+print(json.dumps({"modules": names, "bad": bad}))
 """
+
+# Modules that must be among those imported (the later slices' too).
+REQUIRED = [
+    "pydcop_tpu_torch.resilience.checkpoint",
+    "pydcop_tpu_torch.resilience.recovery",
+    "pydcop_tpu_torch.utils.prng",
+    "pydcop_tpu_torch.utils.tree",
+    "pydcop_tpu_torch.algorithms.amaxsum",
+    "pydcop_tpu_torch.algorithms.maxsum_dynamic",
+]
 
 
 def test_no_jax_or_reference_module_is_loaded():
@@ -40,7 +51,9 @@ def test_no_jax_or_reference_module_is_loaded():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out["modules"] >= 15
+    assert len(out["modules"]) >= 15
+    missing = [m for m in REQUIRED if m not in out["modules"]]
+    assert missing == [], f"not imported: {missing}"
     assert out["bad"] == [], f"the port pulled in: {out['bad']}"
 
 

@@ -127,17 +127,52 @@ def test_aggregate_beliefs_constraint_free():
     _eq(J.aggregate_beliefs(g, ()), T.aggregate_beliefs(tg, ()))
 
 
+@pytest.mark.parametrize("damping", [0.5, 0.7, 0.9, 0.25, 0.95, 0.1])
 @pytest.mark.parametrize("first", [False, True])
-def test_damp(first):
+def test_damp(first, damping):
+    """Damping 0.5 (the default) and, since the recovery ladder bumps
+    it, other values: XLA:CPU fuses the reference's multiply-add into
+    one rounding, which the port reproduces bit for bit."""
     g, _ = _graphs("mixed")
     a, b = _random_state(g, 3), _random_state(g, 4)
     new = tuple(a["v2f"])
     old = tuple(b["v2f"])
-    damp = jax.jit(partial(J._damp, damping=0.5))
+    damp = jax.jit(partial(J._damp, damping=damping))
     _eq(damp(new, old, first=jnp.asarray(first)),
         T._damp(tuple(torch.from_numpy(x) for x in new),
-                tuple(torch.from_numpy(x) for x in old), 0.5,
+                tuple(torch.from_numpy(x) for x in old), damping,
                 torch.tensor(first)))
+
+
+@pytest.mark.parametrize("damping", [0.5, 0.7, 0.25])
+def test_damped_messages_decaying_to_zero_flush_like_the_reference(damping):
+    """Messages of 1.3e-38 .. 1e-36 (normal, as in every state the port
+    carries: its candidates are flushed) damped into the subnormal
+    range: the reference runs with subnormals flushed to zero (XLA:CPU's
+    FTZ/DAZ), and the port's damped candidates, flushed to zeros of
+    their sign, carry the same bits."""
+    g, _ = _graphs("mixed")
+    rng = np.random.default_rng(13)
+    msgs = []
+    for seed in (5, 6):
+        m = tuple(_random_state(g, seed)["v2f"])
+        for a in m:
+            tiny = rng.random(a.shape) < 0.7
+            a[tiny] = np.sign(a[tiny]) * 10.0 ** rng.uniform(
+                -37.9, -36, tiny.sum())
+            a[rng.random(a.shape) < 0.1] = 0.0
+        msgs.append(m)
+    new, old = msgs
+    damp = jax.jit(partial(J._damp, damping=damping))
+    ref = damp(new, old, first=jnp.asarray(False))
+    out = T._flush_subnormals(T._damp(
+        tuple(torch.from_numpy(x) for x in new),
+        tuple(torch.from_numpy(x) for x in old), damping,
+        torch.tensor(False)))
+    for a, b in zip(ref, out):
+        np.testing.assert_array_equal(np.asarray(a).view(np.uint32),
+                                      b.numpy().view(np.uint32))
+    assert any(np.any(np.asarray(a) == 0) for a in ref)
 
 
 @pytest.mark.parametrize("first", [False, True])

@@ -95,7 +95,6 @@ def test_default_device_is_cuda_and_never_falls_back():
 
 @pytest.mark.parametrize("params,kw", [
     ({"layout": "lane"}, {}),
-    ({"decimation": 10}, {}),
     ({}, {"n_devices": 2}),
     ({}, {"shards": 2}),
 ])
