@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the card's belief aggregation of this checkout beside another
-checkout's, on the same inputs, in turns.
+"""Time the card's belief aggregation and whole MaxSum runs of this
+checkout beside another checkout's, on the same inputs, in turns.
 
     python3 chip_compare.py OTHER_CHECKOUT [--rounds 2]
 
@@ -14,7 +14,12 @@ builds that checkout's kernels), checks ``ops.aggregate_beliefs`` on
 the card against the same call on the CPU bit for bit, and times it:
 ``reps`` calls captured in a CUDA graph, replayed five times, median
 per call.  ``aggregate_beliefs(graph, f2v)`` is the one entry both
-sides share whatever their kernel's own signature.  The last lines
+sides share whatever their kernel's own signature.  Each worker also
+times whole fixed-cycle runs (``ops.run_maxsum``) on the flagship
+(chip_smoke.py's 10,000-variable colouring, 200 cycles) and the
+1M-variable scale graph (30 cycles): wall ms per cycle, best of three
+after a warm-up, and the CUDA kernels per cycle that torch.profiler
+counts over 20 (flagship) or 5 (scale) cycles.  The last lines
 are one JSON object of device milliseconds per shape and checkout and
 the card's name and power limit.  It needs one CUDA card and exits 1
 without one; it imports nothing of JAX and nothing of the JAX package.
@@ -115,7 +120,62 @@ def worker(root: str):
         out[label] = graph_ms(
             torch, lambda: ops.aggregate_beliefs(card, f2v_card), reps)
         del card, cpu, f2v_card
+    out.update(run_timings(torch, ops, graph_from_numpy))
     print(json.dumps(out), flush=True)
+
+
+def kernels_per_cycle(torch, run, cycles: int) -> float:
+    """CUDA kernels per cycle of ``run(cycles)`` under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run(cycles)
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / cycles
+
+
+def run_timings(torch, ops, graph_from_numpy):
+    """Whole-run ms/cycle and kernels/cycle at the flagship and scale
+    shapes (chip_smoke.py's arrays, built by this checkout)."""
+    import time
+
+    sys.path.insert(0, HERE)
+    import chip_smoke
+
+    from pydcop_tpu_torch.engine.compile import compile_dcop
+    from pydcop_tpu_torch.dcop import dcop as dcop_mod
+    from pydcop_tpu_torch.dcop import objects, relations
+
+    flagship, _ = compile_dcop(chip_smoke.build_flagship(
+        objects, relations, dcop_mod, chip_smoke.FLAGSHIP_VARS),
+        noise_level=0.01)
+    graphs = {
+        "flagship": (graph_from_numpy(
+            flagship.var_costs, flagship.var_valid,
+            [(b.costs, b.var_ids) for b in flagship.buckets], "cuda"),
+            200, 20),
+        "scale": (graph_from_numpy(
+            *chip_smoke.scale_arrays(chip_smoke.SCALE_VARS), "cuda"),
+            30, 5),
+    }
+    out = {}
+    for label, (graph, cycles, prof_cycles) in graphs.items():
+        def run(n, graph=graph):
+            ops.run_maxsum(graph, n, stop_on_convergence=False)
+            torch.cuda.synchronize()
+
+        run(cycles)                                   # warm
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run(cycles)
+            times.append(time.perf_counter() - t0)
+        out[f"{label}_run_ms_per_cycle"] = min(times) / cycles * 1e3
+        out[f"{label}_kernels_per_cycle"] = kernels_per_cycle(
+            torch, run, prof_cycles)
+    return out
 
 
 def main() -> int:
@@ -138,7 +198,7 @@ def main() -> int:
     order = []
     for r in range(opts.rounds):
         order += ["this", "other"] if r % 2 == 0 else ["other", "this"]
-    times = {name: {label: [] for label in SHAPES} for name in roots}
+    times = {name: {} for name in roots}
     for name in order:
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--worker",
@@ -148,7 +208,7 @@ def main() -> int:
             print(proc.stdout, proc.stderr, file=sys.stderr)
             return 1
         for label, ms in json.loads(proc.stdout.splitlines()[-1]).items():
-            times[name][label].append(ms)
+            times[name].setdefault(label, []).append(ms)
         print(json.dumps({"checkout": name, "ms": {
             k: v[-1] for k, v in times[name].items()}}), flush=True)
     print(json.dumps({"order": order, "ms": times}), flush=True)

@@ -20,7 +20,15 @@ the segmented solve: checkpoint and resume at the flagship and the
 1M-variable scale arrays (snapshots written by the card and by the
 CPU, resumed on the card), guard-and-recover through the whole
 escalation ladder, and decimation, each held equal to the plain or the
-CPU run in every final message.
+CPU run in every final message.  It also holds the fused
+per-edge kernel ``csrc/var_update.cu`` against its plain version at
+every shape, the card's run of a state full of subnormal-producing
+messages against the CPU's, and drives the observability paths: a
+traced, metered flagship solve equal to the plain one (with its
+profiler entry: kernels per cycle and the three hand kernels), the
+engine probe at the 1M-variable scale (with the roofline's
+``hbm_util``), the live telemetry endpoint during a solve, and the
+``trace summary`` / ``profile report`` commands.
 Each phase prints one JSON line; any failure raises and the
 script exits non-zero without the final line.  On success the last
 three lines are the kernel table (JSON), the card's name and power
@@ -32,6 +40,7 @@ repository beside it; without a card it exits 1 and prints no result.
 It imports nothing of JAX and nothing of the JAX package.
 """
 
+import collections
 import json
 import os
 import subprocess
@@ -140,6 +149,14 @@ def graph_ms(torch, fn, reps: int) -> float:
         times.append(start.elapsed_time(end) / reps)
     del graph
     return sorted(times)
+
+
+def eager_ms(torch, fn, calls: int):
+    """Milliseconds per call between CUDA events, sorted over five rounds
+    of ``calls`` eager calls: for a plain version that reads the host
+    (segment_sum's edge-rank walk reads the degrees), which a CUDA graph
+    cannot capture; host gaps between its launches count."""
+    return sorted(cuda_ms(torch, fn, calls, warmup=1) for _ in range(5))
 
 
 def profile_cycles(torch, run, cycles: int):
@@ -458,7 +475,8 @@ def phase_prune_ttc(ctx):
     launches = dict(_build.launch_counts)
     fast = pruned[2]
     want = {"binary_factor_update": TTC_CYCLES - fast,
-            "segment_sum": 2 * TTC_CYCLES + 1}
+            "segment_sum": 2 * TTC_CYCLES + 1,
+            "var_update": 2 * TTC_CYCLES}
     if launches != want or fast == 0:
         fail(f"prune_ttc launched {launches}, expected {want} "
              f"({fast} pruned cycles)")
@@ -539,7 +557,8 @@ def phase_prune_scale(ctx):
         ctx, graph, PRUNE_SCALE_CYCLES, True)
     peak_pruned = torch.cuda.max_memory_allocated()
     want = {"binary_factor_update": PRUNE_SCALE_CYCLES - fast,
-            "segment_sum": PRUNE_SCALE_CYCLES + 1}
+            "segment_sum": PRUNE_SCALE_CYCLES + 1,
+            "var_update": 2 * PRUNE_SCALE_CYCLES}
     if launches != want or fast == 0:
         fail(f"prune_scale launched {launches}, expected {want} "
              f"({fast} pruned cycles)")
@@ -688,8 +707,8 @@ def phase_aggregation_options(ctx, flagship_scatter):
 
     k_ms = graph_ms(torch, lambda: segment_sum(*args, one_sum=True), 50)
     split_ms = graph_ms(torch, lambda: segment_sum(*args), 50)
-    p_ms = graph_ms(torch, lambda: segment_sum_reference(
-        *flat_args, one_sum=True), 20)
+    p_ms = eager_ms(torch, lambda: segment_sum_reference(
+        *flat_args, one_sum=True), 2)
     l_ms = graph_ms(torch, library, 50)
     bound_ms, bound_by = segment_bound(n_edges, n_seg, d)
     sorted_timing = {"sorted_scale_two_buckets": dict(
@@ -893,7 +912,8 @@ def phase_checkpoint_flagship(ctx):
                                       **kw)
         launches = dict(_build.launch_counts)
         want = {"binary_factor_update": FIXED_CYCLES,
-                "segment_sum": FIXED_CYCLES + FIXED_CYCLES // every}
+                "segment_sum": FIXED_CYCLES + FIXED_CYCLES // every,
+                "var_update": 2 * FIXED_CYCLES}
         if launches != want:
             fail(f"checkpoint_flagship launched {launches}, want {want}")
         if res.assignment != plain_assignment or res.cycles != FIXED_CYCLES:
@@ -1017,7 +1037,8 @@ def phase_checkpoint_scale(ctx):
                                           checkpoint_async=is_async, **kw)
             launches = dict(_build.launch_counts)
             want = {"binary_factor_update": CKPT_SCALE_CYCLES,
-                    "segment_sum": CKPT_SCALE_CYCLES + 3}
+                    "segment_sum": CKPT_SCALE_CYCLES + 3,
+                    "var_update": 2 * CKPT_SCALE_CYCLES}
             if launches != want:
                 fail(f"checkpoint_scale {mode} launched {launches}")
             if res.assignment != plain_assignment:
@@ -1081,7 +1102,8 @@ def phase_recovery(ctx):
         cpu, cpu_sum, _, cpu_s, cpu_damping = runs["cpu"]
         stepped = card.metrics["segments"] * every
         if launches != {"binary_factor_update": stepped,
-                        "segment_sum": stepped + card.metrics["segments"]}:
+                        "segment_sum": stepped + card.metrics["segments"],
+                        "var_update": 2 * stepped}:
             fail(f"recovery launched {launches} for {stepped} cycles")
         if (card.assignment != cpu.assignment or card_sum != cpu_sum
                 or card.metrics["recovery_actions"]
@@ -1188,7 +1210,8 @@ def phase_decimation(ctx):
                 fail(f"decimation {label}: card run != CPU run")
             if launches != {
                     "binary_factor_update": card["cycles"],
-                    "segment_sum": card["cycles"] + 2 * m["segments"]}:
+                    "segment_sum": card["cycles"] + 2 * m["segments"],
+                    "var_update": 2 * card["cycles"]}:
                 fail(f"decimation {label} launched {launches}")
             out[label] = dict(
                 params=params, max_cycles=cycles, cycles=card["cycles"],
@@ -1244,6 +1267,237 @@ def phase_decimation(ctx):
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
+FLT_MIN = float(np.finfo(np.float32).tiny)
+
+
+def tiny_messages(rng, shape, valid):
+    """Messages of ``shape`` with about half of the slots of magnitude
+    1.2e-38 .. 1e-36 (normal numbers whose sums, differences and means
+    are subnormal), the rest of order 1, some exact zeros, BIG where
+    ``valid`` is false: ROADMAP Queue C's state."""
+    m = rng.normal(size=shape)
+    tiny = rng.random(shape) < 0.5
+    m[tiny] = np.sign(m[tiny]) * 10.0 ** rng.uniform(
+        np.log10(FLT_MIN), -36, int(tiny.sum()))
+    m[rng.random(shape) < 0.05] = 0.0
+    return np.where(valid, m.astype(np.float32), BIG)
+
+
+def tiny_state_arrays(graph, seed: int):
+    """A cycle-3 state of ``graph`` (on any device) as numpy: tiny
+    messages (:func:`tiny_messages`) and random SAME_COUNT counts."""
+    rng = np.random.default_rng(seed)
+    valid = graph.var_valid.cpu().numpy()
+    d = valid.shape[1]
+    out = {"v2f": [], "f2v": [], "v2f_count": [], "f2v_count": []}
+    for b in graph.buckets:
+        ids = b.var_ids.cpu().numpy()
+        for field in ("v2f", "f2v"):
+            out[field].append(tiny_messages(rng, ids.shape + (d,),
+                                            valid[ids]))
+        for field in ("v2f_count", "f2v_count"):
+            out[field].append(rng.integers(0, 6, size=ids.shape)
+                              .astype(np.int8))
+    return dict(out, stable=False, cycle=3)
+
+
+def fold_arrays(d: int, n_vars: int = 200, seed: int = 17):
+    """(var_costs, var_valid, buckets) of a graph whose domain mean the
+    reference vectorises or windows: a unary bucket beside a binary one
+    with more edges than V + 1, so the second bucket's belief sum is
+    taken on its own (``_sums_fused``); integer costs, D = ``d``."""
+    rng = np.random.default_rng(seed)
+    unary = rng.integers(0, 40, size=(n_vars, d)).astype(np.float32)
+    ids1 = np.arange(n_vars, dtype=np.int32)[:, None]
+    f2 = 2 * n_vars
+    ids2 = rng.integers(0, n_vars, size=(f2, 2)).astype(np.int32)
+    ids2[ids2[:, 0] == ids2[:, 1], 1] = (
+        ids2[ids2[:, 0] == ids2[:, 1], 0] + 1) % n_vars
+    eye = np.ascontiguousarray(np.broadcast_to(
+        np.eye(d, dtype=np.float32), (f2, d, d)))
+    var_costs = np.zeros((n_vars + 1, d), np.float32)
+    var_costs[-1] = BIG
+    var_valid = np.ones((n_vars + 1, d), bool)
+    var_valid[-1] = False
+    return var_costs, var_valid, [(unary, ids1), (eye, ids2)]
+
+
+def var_update_bound(n_edges: int, n_rows: int, d: int):
+    """(bound_ms, bound_by) of v2f_update: per edge its f2v and last
+    sent rows, var_ids (int64) and count read once, the sent row and
+    count written once; per variable row beliefs, sums and var_valid
+    read once; against ~16 f32 operations per edge slot."""
+    bytes_moved = (n_edges * (4 * d * 3 + 8 + 2) + n_rows * (2 * 4 * d + d))
+    ops = 16 * n_edges * d
+    bytes_ms = bytes_moved / H100_BYTES_PER_S * 1e3
+    ops_ms = ops / H100_F32_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
+def var_update_graphs(ctx, flagship_graph, scale_graph):
+    """(label, graph on the card) at the shapes var_update is checked
+    at: the flagship, the scale graph, the four-bucket arity 1-4 graph,
+    the fold graphs at D = 28..33 and the D = 128 time-to-cost graph."""
+    g = ctx["graph_from_numpy"]
+    yield "flagship", flagship_graph
+    yield "scale", scale_graph
+    yield "multi_bucket_arity_1_4", g(
+        *multi_bucket_arrays(np.random.default_rng(11)), device="cuda")
+    for d in (28, 29, 30, 31, 32, 33):
+        yield f"fold_D{d}", g(*fold_arrays(d), device="cuda")
+    yield "ttc_D128", g(*ttc_arrays(TTC_VARS), device="cuda")
+
+
+def phase_var_update(ctx, flagship_graph, scale_graph):
+    """var_update.cu against its plain version on the card, bit for
+    bit (messages as int32 bit patterns, counts, the stable flag), at
+    every shape of :func:`var_update_graphs`, from Queue C's tiny-
+    message state, at cycles 0 and 3 and damping 0, 0.5 and 0.7; then
+    both entry points timed at the flagship and scale shapes."""
+    torch, ops, _build = ctx["torch"], ctx["ops"], ctx["_build"]
+    from pydcop_tpu_torch.ops import var_update as vu
+
+    t_phase = time.perf_counter()
+    checked, max_err = {}, 0.0
+    timing = {}
+    for label, graph in var_update_graphs(ctx, flagship_graph, scale_graph):
+        s = tiny_state_arrays(graph, seed=len(checked))
+        dev = graph.var_costs.device
+        f2v = [torch.tensor(m, device=dev) for m in s["f2v"]]
+        v2f = [torch.tensor(m, device=dev) for m in s["v2f"]]
+        cnt = [torch.tensor(c, device=dev) for c in s["v2f_count"]]
+        beliefs, sums = ops.aggregate_beliefs(graph, tuple(f2v))
+        fused = ops._sums_fused(graph)
+        n = 0
+        for cycle in (0, 3):
+            cyc = torch.tensor(cycle, dtype=torch.int32, device=dev)
+            for damping in (0.0, 0.5, 0.7):
+                for i, b in enumerate(graph.buckets):
+                    for side in ("v2f", "send"):
+                        if side == "v2f":
+                            args = (beliefs, sums, f2v[i], v2f[i], cnt[i],
+                                    b.var_ids, graph.var_valid, cyc)
+                            kernel, plain = vu.v2f_update, \
+                                vu.v2f_update_reference
+                            kw = dict(damping=damping, stability=0.1,
+                                      fused=fused)
+                        else:
+                            args = (f2v[i], v2f[i], cnt[i], b.var_ids,
+                                    graph.var_valid, cyc)
+                            kernel, plain = vu.send_update, \
+                                vu.send_update_reference
+                            kw = dict(damping=damping, stability=0.1)
+                        flag_k = cyc != 0
+                        flag_p = cyc != 0
+                        out_k, cnt_k = kernel(*args, flag_k, **kw)
+                        out_p, cnt_p = plain(*args, flag_p, **kw)
+                        torch.cuda.synchronize()
+                        err = float((out_k - out_p).abs().max())
+                        max_err = max(max_err, err)
+                        if not (torch.equal(out_k.view(torch.int32),
+                                            out_p.view(torch.int32))
+                                and torch.equal(cnt_k, cnt_p)
+                                and bool(flag_k) == bool(flag_p)):
+                            fail(f"var_update {side} != plain on {label} "
+                                 f"bucket {i} cycle {cycle} damping "
+                                 f"{damping}: max |err| {err}")
+                        if not torch.isfinite(out_k).all():
+                            fail(f"var_update: non-finite output on {label}")
+                        n += 1
+        checked[label] = dict(
+            V1=int(graph.var_costs.shape[0]), D=int(graph.var_costs.shape[1]),
+            buckets=[list(b.var_ids.shape) for b in graph.buckets],
+            fused=fused, calls_compared=n)
+        if label in ("flagship", "scale"):
+            b = graph.buckets[0]
+            stable = torch.ones((), dtype=torch.bool, device=dev)
+            cyc = torch.tensor(3, dtype=torch.int32, device=dev)
+            args = (beliefs, sums, f2v[0], v2f[0], cnt[0], b.var_ids,
+                    graph.var_valid, cyc, stable)
+            kw = dict(damping=0.5, stability=0.1, fused=fused)
+            reps = 200 if label == "flagship" else 50
+            k_ms = graph_ms(torch, lambda: vu.v2f_update(*args, **kw), reps)
+            p_ms = graph_ms(torch, lambda: vu.v2f_update_reference(
+                *args, **kw), reps)
+            s_args = (f2v[0], v2f[0], cnt[0], b.var_ids, graph.var_valid,
+                      cyc, stable)
+            s_ms = graph_ms(torch, lambda: vu.send_update(
+                *s_args, damping=0.5, stability=0.1), reps)
+            sp_ms = graph_ms(torch, lambda: vu.send_update_reference(
+                *s_args, damping=0.5, stability=0.1), reps)
+            n_edges = b.var_ids.numel()
+            d = int(graph.var_costs.shape[1])
+            bound_ms, bound_by = var_update_bound(
+                n_edges, int(graph.var_costs.shape[0]), d)
+            timing[label] = dict(
+                E=n_edges, D=d, ms=k_ms[2], plain_ms=p_ms[2],
+                ms_spread=[k_ms[0], k_ms[-1]],
+                plain_ms_spread=[p_ms[0], p_ms[-1]],
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                send_update_ms=s_ms[2], send_update_plain_ms=sp_ms[2])
+        del graph, f2v, v2f, cnt, beliefs, sums
+    return dict(shapes=checked, tolerance="exact (int32 bit patterns)",
+                max_abs_err=max_err, timing=timing,
+                phase_s=time.perf_counter() - t_phase)
+
+
+def phase_subnormal_state(ctx):
+    """ROADMAP Queue C's state (half of all messages 1.2e-38 .. 1e-36):
+    60 cycles on the card from it equal 60 on the CPU, every message,
+    count and value, bit for bit, on the 300-variable colouring (D = 3),
+    the four-bucket arity 1-4 graph and the D = 30 fold graph, at
+    damping 0.5 and 0.7."""
+    torch, ops = ctx["torch"], ctx["ops"]
+    from pydcop_tpu_torch.algorithms.maxsum import build_engine
+    from pydcop_tpu_torch.dcop import dcop as dcop_mod
+    from pydcop_tpu_torch.dcop import objects, relations
+    from pydcop_tpu_torch.engine.convert import state_from_numpy
+
+    t_phase = time.perf_counter()
+    colouring = build_flagship(objects, relations, dcop_mod, 300)
+    params = ctx["params"]
+    cases = {
+        "colouring_300": (build_engine(colouring, params).graph,
+                          build_engine(colouring, params,
+                                       device="cpu").graph),
+        "multi_bucket_arity_1_4": tuple(
+            ctx["graph_from_numpy"](*multi_bucket_arrays(
+                np.random.default_rng(11)), device=dev)
+            for dev in ("cuda", "cpu")),
+        "fold_D30": tuple(ctx["graph_from_numpy"](*fold_arrays(30),
+                                                  device=dev)
+                          for dev in ("cuda", "cpu")),
+    }
+    out = {}
+    for label, (card, cpu) in cases.items():
+        s = tiny_state_arrays(cpu, seed=40)
+        for damping in (0.5, 0.7):
+            kw = dict(damping=damping, stop_on_convergence=False)
+            runs = []
+            for graph, dev in ((card, "cuda"), (cpu, "cpu")):
+                state, values = ops.run_maxsum_from(
+                    graph, state_from_numpy(**s, device=dev), 60, **kw)
+                runs.append((ctx["state_to_numpy"](state),
+                             values.cpu().numpy()))
+            (a, va), (b, vb) = runs
+            for field in ("v2f", "f2v", "v2f_count", "f2v_count"):
+                for x, y in zip(a[field], b[field]):
+                    if not np.array_equal(x.view(np.int32) if x.dtype ==
+                                          np.float32 else x,
+                                          y.view(np.int32) if y.dtype ==
+                                          np.float32 else y):
+                        fail(f"subnormal state {label} damping {damping}:"
+                             f" card != CPU in {field}")
+            if not np.array_equal(va, vb) or a["stable"] != b["stable"]:
+                fail(f"subnormal state {label}: card != CPU in values")
+            zeros = int(sum(int(np.sum(m == 0)) for m in a["f2v"]))
+            out[f"{label}_damping_{damping}"] = dict(
+                cycles=60, card_equals_cpu=True, f2v_zeros=zeros)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def run_segmented_phases(ctx):
     """Emit the four phases of the segmented solve.  ``ctx`` holds the
     card's device name (``dev``) and synchronise, the flagship's DCOP,
@@ -1271,6 +1525,219 @@ def run_segmented_phases(ctx):
     emit("checkpoint_scale", **phase_checkpoint_scale(ctx))
     emit("recovery", **phase_recovery(ctx))
     emit("decimation", **phase_decimation(ctx))
+
+
+HAND_KERNELS = ("binary_factor_update", "segment_sum", "var_update")
+
+
+def kernel_profile(entry):
+    """Kernels per cycle and the device time and count of each hand
+    kernel (matched by name) in a profiler entry of the port."""
+    if not entry.get("available"):
+        fail(f"profiler entry unavailable on the card: {entry}")
+    out = {"kernels_per_cycle": entry["kernels_per_cycle"],
+           "device_ms_per_cycle": entry["device_ms_per_cycle"],
+           "cycles": entry["cycles"], "peak_bytes": entry["peak_bytes"],
+           "source": entry["source"], "hand_kernels": {}}
+    for name in HAND_KERNELS:
+        rows = [v for k, v in entry["kernels"].items() if name in k]
+        if not rows:
+            fail(f"profiler saw no {name} kernel: {sorted(entry['kernels'])}")
+        out["hand_kernels"][name] = {
+            "count": sum(r["count"] for r in rows),
+            "device_us": sum(r["device_us"] for r in rows)}
+    return out
+
+
+def phase_observed_flagship(ctx, tmp):
+    """api.solve on the flagship, 200 cycles, with trace, metrics_file
+    and metrics_every=50: the same assignment, cost and cycles as the
+    unobserved solve; the cost curve ends at the cost; the trace
+    parses and nests; four JSONL snapshots and a .prom file; the
+    profiler's entry of the first segment (kernels per cycle, the three
+    hand kernels by name).  ms/cycle observed against plain (warm)."""
+    from pydcop_tpu_torch.observability.trace import (
+        check_well_nested,
+        load_trace_file,
+    )
+
+    api, dcop = ctx["api"], ctx["dcop"]
+    t_phase = time.perf_counter()
+    plain = api.solve(dcop, "maxsum", max_cycles=FIXED_CYCLES)
+    trace = os.path.join(tmp, "flagship_trace.json")
+    metrics = os.path.join(tmp, "flagship_metrics.jsonl")
+    observed = api.solve(dcop, "maxsum", max_cycles=FIXED_CYCLES,
+                         trace=trace, metrics_file=metrics,
+                         metrics_every=50)
+    for key in ("assignment", "cost", "cycles", "status"):
+        if observed[key] != plain[key]:
+            fail(f"observed flagship solve differs from the plain one in "
+                 f"{key}: {observed[key]!r} vs {plain[key]!r}"[:300])
+    m = observed["metrics"]
+    if m["cost_curve"][-1] != (observed["cycles"], observed["cost"]):
+        fail(f"cost curve ends at {m['cost_curve'][-1]}, solve "
+             f"{observed['cycles']}, {observed['cost']}")
+    events = load_trace_file(trace)
+    check_well_nested(events)
+    names = collections.Counter(e["name"] for e in events)
+    with open(metrics) as f:
+        rows = [json.loads(line) for line in f]
+    want_rows = -(-observed["cycles"] // 50)
+    if len(rows) != want_rows or not os.path.exists(metrics + ".prom"):
+        fail(f"observed flagship: {len(rows)} snapshots (want "
+             f"{want_rows}), .prom exists: "
+             f"{os.path.exists(metrics + '.prom')}")
+    entries = list(m["xla_cost"].values())
+    profile = kernel_profile(entries[0])
+    # Warm timings, plain then observed (trace only: no profiler run).
+    plain_w = api.solve(dcop, "maxsum", max_cycles=FIXED_CYCLES)
+    obs_w = api.solve(dcop, "maxsum", max_cycles=FIXED_CYCLES,
+                      trace=os.path.join(tmp, "warm_trace.json"),
+                      metrics_every=50)
+    return dict(
+        cycles=observed["cycles"], cost=observed["cost"],
+        equals_plain=["assignment", "cost", "cycles", "status"],
+        cost_curve=m["cost_curve"],
+        convergence_curve=m["convergence_curve"],
+        trace_events=dict(names), snapshots=len(rows),
+        ms_per_cycle_plain=plain_w["time"] / plain_w["cycles"] * 1e3,
+        ms_per_cycle_observed=obs_w["time"] / obs_w["cycles"] * 1e3,
+        total_s_plain=plain_w["total_time"],
+        total_s_observed=obs_w["total_time"],
+        profiler=profile, seconds=time.perf_counter() - t_phase)
+
+
+def phase_observed_scale(ctx):
+    """The 1M-variable engine, 60 cycles in segments of 20, with the
+    engine probe: its final messages equal the unprobed (unsegmented)
+    run's bit for bit; per segment the residual, flip rate and the
+    probe's host ms; the roofline's hbm_util at the measured rate
+    (fails above 1.0)."""
+    torch, ops = ctx["torch"], ctx["ops"]
+    from pydcop_tpu_torch.engine.roofline import roofline_report
+    from pydcop_tpu_torch.observability.engine_probe import EngineProbe
+    from pydcop_tpu_torch.observability.metrics import MetricsRegistry
+
+    t_phase = time.perf_counter()
+    engine = scale_engine(ctx, CKPT_SCALE_VARS)
+
+    class FinalState(EngineProbe):
+        def on_segment(self, state, values, seconds, compile_s):
+            super().on_segment(state, values, seconds, compile_s)
+            self.final = state
+
+    engine.run_checkpointed(max_cycles=20, segment_cycles=20,
+                            stop_on_convergence=False)        # warm keys
+    probe = FinalState(engine, registry=MetricsRegistry())
+    torch.cuda.synchronize()
+    res = engine.run_checkpointed(max_cycles=60, segment_cycles=20,
+                                  stop_on_convergence=False, probe=probe)
+    plain, _ = ops.run_maxsum(engine.graph, 60, stop_on_convergence=False)
+    a, b = ctx["state_to_numpy"](probe.final), ctx["state_to_numpy"](plain)
+    for field in ("v2f", "f2v", "v2f_count", "f2v_count"):
+        for x, y in zip(a[field], b[field]):
+            if not np.array_equal(x, y):
+                fail(f"observed scale: final {field} != unprobed run's")
+    ms_per_cycle = res.time_s / res.cycles * 1e3
+    roof = roofline_report(engine.graph, res.cycles / res.time_s, "cuda")
+    if roof["hbm_util"] is None or roof["hbm_util"] > 1.0:
+        fail(f"observed scale: hbm_util {roof['hbm_util']}")
+    return dict(
+        cycles=res.cycles, segments=res.metrics["segments"],
+        final_messages_equal_unprobed=True,
+        residual_flip_rate=[list(p) for p in probe.convergence],
+        probe_host_ms=[s * 1e3 for s in probe.host_seconds],
+        ms_per_cycle=ms_per_cycle, roofline=roof,
+        seconds=time.perf_counter() - t_phase)
+
+
+def phase_serve_metrics(ctx):
+    """During a flagship solve with serve_metrics=0, GET /metrics and
+    /healthz on localhost (from the probe's first segment boundary)."""
+    import urllib.request
+
+    from pydcop_tpu_torch.observability.engine_probe import EngineProbe
+    from pydcop_tpu_torch.observability.server import TelemetryServer
+
+    api, dcop = ctx["api"], ctx["dcop"]
+    t_phase = time.perf_counter()
+    seen, servers = {}, []
+    real_segment, real_start = EngineProbe.on_segment, TelemetryServer.start
+
+    def start(self):
+        servers.append(self)
+        return real_start(self)
+
+    def scrape(self, *a, **k):
+        real_segment(self, *a, **k)
+        if seen:
+            return
+        for route in ("metrics", "healthz"):
+            with urllib.request.urlopen(f"{servers[0].url}/{route}",
+                                        timeout=30) as resp:
+                seen[route] = (resp.status, resp.read().decode())
+
+    EngineProbe.on_segment, TelemetryServer.start = scrape, start
+    try:
+        res = api.solve(dcop, "maxsum", max_cycles=FIXED_CYCLES,
+                        metrics_every=50, serve_metrics=0)
+    finally:
+        EngineProbe.on_segment, TelemetryServer.start = (real_segment,
+                                                         real_start)
+    status, text = seen.get("metrics", (None, ""))
+    hstatus, hbody = seen.get("healthz", (None, "{}"))
+    if status != 200 or "pydcop_cycles_total" not in text:
+        fail(f"serve_metrics: /metrics answered {status}")
+    if hstatus != 200 or json.loads(hbody).get("status") != "ok":
+        fail(f"serve_metrics: /healthz answered {hstatus} {hbody[:200]}")
+    return dict(cycles=res["cycles"], metrics_status=status,
+                metrics_lines=len(text.splitlines()),
+                healthz=json.loads(hbody),
+                seconds=time.perf_counter() - t_phase)
+
+
+def phase_trace_cli(tmp):
+    """``python -m pydcop_tpu_torch trace summary`` and ``profile
+    report --trace`` on the observed flagship's trace, as a user runs
+    them (child processes)."""
+    t_phase = time.perf_counter()
+    trace = os.path.join(tmp, "flagship_trace.json")
+    env = dict(os.environ, PYTHONPATH=HERE)
+    out = {}
+    for label, argv in (
+            ("trace_summary", ["trace", "summary", "--json", trace]),
+            ("profile_report", ["profile", "report", "--json", "--trace",
+                                trace])):
+        proc = subprocess.run(
+            [sys.executable, "-m", "pydcop_tpu_torch", *argv], cwd=HERE,
+            env=env, capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            fail(f"{label}: rc {proc.returncode}: {proc.stderr[-500:]}")
+        out[label] = json.loads(proc.stdout)
+    rows = {r["name"]: r["count"] for r in out["trace_summary"]["rows"]}
+    if not rows.get("engine_segment") or not rows.get("solve"):
+        fail(f"trace summary rows: {rows}")
+    spans = {c["span"] for c in out["profile_report"]["trace"]["components"]}
+    if not {"engine_segment", "jit_compile"} <= spans:
+        fail(f"profile report components: {spans}")
+    return dict(summary_rows=rows,
+                profile_components=sorted(spans),
+                seconds=time.perf_counter() - t_phase)
+
+
+def run_observability_phases(ctx):
+    """Emit this slice's observability phases (temp files under
+    TMPDIR, removed)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as tmp:
+        flagship = phase_observed_flagship(ctx, tmp)
+        profile = flagship.pop("profiler")
+        emit("observed_flagship", **flagship)
+        emit("profiler", **profile)
+        emit("observed_scale", **phase_observed_scale(ctx))
+        emit("serve_metrics", **phase_serve_metrics(ctx))
+        emit("trace_cli", **phase_trace_cli(tmp))
 
 
 def main() -> int:
@@ -1320,7 +1787,8 @@ def main() -> int:
 
     # 3a. binary_factor_update vs its plain version on the card:
     # bit-equal (same add order, no multiply to contract into an FMA).
-    max_err = {"binary_factor_update": 0.0, "segment_sum": 0.0}
+    max_err = {"binary_factor_update": 0.0, "segment_sum": 0.0,
+               "var_update": 0.0}
     cases = [(f, d, False) for f, d in CHECK_SHAPES] + [
         (f, d, True) for f, d in CHECK_VIEWS]
     for idx, (f, d, view) in enumerate(cases):
@@ -1432,8 +1900,8 @@ def main() -> int:
             return graph.var_costs + sums
 
         bound_ms, bound_by = segment_bound(n_edges, n_seg, d)
-        k_ms, p_ms, l_ms = (graph_ms(torch, fn, reps)
-                            for fn in (kernel, plain, library))
+        k_ms, l_ms = (graph_ms(torch, fn, reps) for fn in (kernel, library))
+        p_ms = eager_ms(torch, plain, 2)
         timing["segment_sum"][label] = dict(
             V1=n_seg, E=n_edges, D=d, max_degree=agg[label]["max_degree"],
             ms=k_ms[2], plain_ms=p_ms[2],
@@ -1488,6 +1956,20 @@ def main() -> int:
     scale_graph = graphs["scale"]
     del graphs, graph, f2v
 
+    # 4b. var_update (this slice): kernel vs plain bit for bit at every
+    # shape, timed at the flagship and scale shapes; then the card
+    # against the CPU on ROADMAP Queue C's subnormal state.
+    ctx = dict(torch=torch, ops=ops, api=api, _build=_build,
+               graph_from_numpy=graph_from_numpy,
+               state_to_numpy=state_to_numpy, build_engine=build_engine,
+               dcop=dcop, params=params)
+    vu = phase_var_update(ctx, engine.graph, scale_graph)
+    max_err["var_update"] = vu["max_abs_err"]
+    timing["var_update"] = vu.pop("timing")
+    emit("kernel_check", kernel="var_update", **vu)
+    emit("kernel_timing", kernel="var_update", **timing["var_update"])
+    emit("subnormal_state", **phase_subnormal_state(ctx))
+
     # 5. Main path, full size: api.solve with NO device argument.  Each
     # superstep launches each kernel once; the final value selection
     # launches segment_sum once more.
@@ -1496,7 +1978,8 @@ def main() -> int:
     res = api.solve(dcop, "maxsum", max_cycles=FIXED_CYCLES)
     launches = dict(_build.launch_counts)
     want = {"binary_factor_update": res["cycles"],
-            "segment_sum": res["cycles"] + 1}
+            "segment_sum": res["cycles"] + 1,
+            "var_update": 2 * res["cycles"]}
     if launches != want:
         fail(f"main path launched {launches}, expected {want} for "
              f"{res['cycles']} supersteps")
@@ -1538,7 +2021,8 @@ def main() -> int:
         grew = {k: _build.launch_counts[k] - before.get(k, 0)
                 for k in want}
         if (grew != {"binary_factor_update": FIXED_CYCLES,
-                     "segment_sum": FIXED_CYCLES + 1}
+                     "segment_sum": FIXED_CYCLES + 1,
+                     "var_update": 2 * FIXED_CYCLES}
                 or fixed.cycles != FIXED_CYCLES):
             fail(f"fixed run: {fixed.cycles} cycles, launches {grew}")
         repeat_s.append(fixed.time_s)
@@ -1599,7 +2083,8 @@ def main() -> int:
     grew = dict(_build.launch_counts)
     scale_cost = float(ops.assignment_constraint_cost(graph, values))
     if (grew != {"binary_factor_update": SCALE_CYCLES,
-                 "segment_sum": SCALE_CYCLES + 1}
+                 "segment_sum": SCALE_CYCLES + 1,
+                 "var_update": 2 * SCALE_CYCLES}
             or int(state.cycle) != SCALE_CYCLES):
         fail(f"scale leg: {int(state.cycle)} cycles, launches {grew}")
     if not (np.isfinite(scale_cost) and int(values.min()) >= 0
@@ -1641,10 +2126,7 @@ def main() -> int:
     # boundary aggregations, aggregation="auto" and the CLI's per-cycle
     # metrics.  Each path is driven with the launch counts set to 0
     # just before it and read just after.
-    ctx = dict(torch=torch, ops=ops, api=api, _build=_build,
-               graph_from_numpy=graph_from_numpy,
-               state_to_numpy=state_to_numpy, build_engine=build_engine,
-               dcop=dcop, params=params, kw=kw)
+    ctx["kw"] = kw
     ttc = phase_prune_ttc(ctx)
     timing["binary_factor_update"]["ttc_D128"] = ttc.pop(
         "binary_factor_update")
@@ -1665,6 +2147,11 @@ def main() -> int:
                cpu_engine=cpu_engine, flagship_scatter=flagship_scatter)
     run_segmented_phases(ctx)
 
+    # 10. This slice's observability: observed solves equal the plain
+    # ones, the probe at scale, the profiler, the live endpoint and the
+    # trace/profile commands.
+    run_observability_phases(ctx)
+
     # 7. Fixture parity: the verify oracle.
     fixture = os.path.join(HERE, "tests", "instances", "coloring_12_3.yml")
     fres = api.solve(load_dcop_from_file(fixture), "maxsum", max_cycles=60)
@@ -1680,6 +2167,8 @@ def main() -> int:
                                  "pydcop_tpu/ops/pallas_maxsum.py:54"),
         "segment_sum": ("pydcop_tpu_torch/csrc/segment_sum.cu",
                         "pydcop_tpu/ops/maxsum.py:389"),
+        "var_update": ("pydcop_tpu_torch/csrc/var_update.cu",
+                       "pydcop_tpu/ops/maxsum.py:463"),
     }
     rows = []
     for name, (source, replaces) in sources.items():
@@ -1713,5 +2202,20 @@ def main() -> int:
     return 0
 
 
+def run() -> int:
+    """:func:`main` with the flight recorder's postmortem bundles (the
+    recovery phase trips guards on purpose) in a temporary directory
+    under TMPDIR, removed on the way out."""
+    import shutil
+    import tempfile
+
+    bundles = tempfile.mkdtemp(prefix="chip_smoke_bundles_")
+    os.environ["PYDCOP_FLIGHT_DIR"] = bundles
+    try:
+        return main()
+    finally:
+        shutil.rmtree(bundles, ignore_errors=True)
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(run())

@@ -14,8 +14,10 @@
 // Reassociating these adds drifts MaxSum trajectories within ~15
 // cycles even on integer tables (damping and mean-normalisation
 // accrete mantissa bits), so the order is part of the contract.  Only
-// adds, mins and subtracts: there is no multiply for nvcc to contract
-// into an FMA, and the result equals the plain torch version bit for
+// adds, mins and subtracts, each a PTX instruction with .ftz (a
+// subnormal result flushed to zero, as XLA:CPU flushes the reference's):
+// there is no multiply for nvcc to contract into an FMA, and the result
+// equals the plain torch version (which flushes after each op) bit for
 // bit.  The min keeps NaN like jnp.min / torch.amin (fminf would drop
 // it, hiding a diverged message from the NaN guards).
 //
@@ -59,6 +61,20 @@
 namespace {
 
 constexpr int kFactors = 128;  // factors (and threads) per block
+
+// Float adds and subtracts as PTX with .ftz: a subnormal result (or
+// input) is flushed to a zero of its sign, as XLA:CPU and the TPU do for
+// the reference; inline asm is never contracted or reordered by nvcc.
+__device__ __forceinline__ float fadd_ftz(float a, float b) {
+  float r;
+  asm("add.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float fsub_ftz(float a, float b) {
+  float r;
+  asm("sub.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
 
 __device__ __forceinline__ float min_keep_nan(float a, float b) {
   // a if a < b or a is NaN, else b (which is NaN whenever b is NaN).
@@ -190,15 +206,15 @@ __global__ void __launch_bounds__(kFactors)
     for (int i = 0; i < D; ++i) {
 #pragma unroll
       for (int j = 0; j < D; ++j) {
-        const float v = __fadd_rn(__fadd_rn(c[i * D + j], m0[i]), m1[j]);
+        const float v = fadd_ftz(fadd_ftz(c[i * D + j], m0[i]), m1[j]);
         row[i] = j == 0 ? v : min_keep_nan(row[i], v);
         col[j] = i == 0 ? v : min_keep_nan(col[j], v);
       }
     }
 #pragma unroll
     for (int i = 0; i < D; ++i) {
-      m[i] = __fsub_rn(row[i], m0[i]);
-      m[D + i] = __fsub_rn(col[i], m1[i]);
+      m[i] = fsub_ftz(row[i], m0[i]);
+      m[D + i] = fsub_ftz(col[i], m1[i]);
     }
   }
   __syncthreads();
@@ -226,19 +242,19 @@ __global__ void binary_factor_update_generic(const float* __restrict__ costs,
     // To scope position 0: reduce row i over j.
     own = m0[i];
     const float* row = c + i * d;
-    acc = __fadd_rn(__fadd_rn(row[0], own), m1[0]);
+    acc = fadd_ftz(fadd_ftz(row[0], own), m1[0]);
     for (int j = 1; j < d; ++j) {
-      acc = min_keep_nan(acc, __fadd_rn(__fadd_rn(row[j], own), m1[j]));
+      acc = min_keep_nan(acc, fadd_ftz(fadd_ftz(row[j], own), m1[j]));
     }
   } else {
     // To scope position 1: reduce column i over the rows.
     own = m1[i];
-    acc = __fadd_rn(__fadd_rn(c[i], m0[0]), own);
+    acc = fadd_ftz(fadd_ftz(c[i], m0[0]), own);
     for (int r = 1; r < d; ++r) {
-      acc = min_keep_nan(acc, __fadd_rn(__fadd_rn(c[r * d + i], m0[r]), own));
+      acc = min_keep_nan(acc, fadd_ftz(fadd_ftz(c[r * d + i], m0[r]), own));
     }
   }
-  out[t] = __fsub_rn(acc, own);
+  out[t] = fsub_ftz(acc, own);
 }
 
 template <int D>

@@ -19,10 +19,11 @@
 // (the reference's `sorted` aggregation: one
 // segment_sum over the edges gathered into CSR order) adds every edge of
 // every bucket into the one running sum instead.  Then beliefs =
-// var_costs + sums.  Every add is one __fadd_rn
-// in that order, so the sums equal the CPU's index_add_ form
-// (segment_sum_reference) and the reference's jitted superstep bit for
-// bit.  No tree or shuffle reduction and no atomics touch a sum.
+// var_costs + sums.  Every add is one fadd_ftz (add.rn.ftz.f32: a
+// subnormal result is flushed to zero, as XLA:CPU flushes the
+// reference's) in that order, so the sums equal the plain version
+// (segment_sum_reference, the same walk with each add flushed) and the
+// reference's jitted superstep bit for bit.  No tree or shuffle reduction and no atomics touch a sum.
 //
 // A variable's edges are perm[offsets[v]] .. perm[offsets[v + 1] - 1]
 // (a stable sort of the edges by variable, built at placement by
@@ -65,7 +66,7 @@
 //      memory, so the SM has as many misses in flight as the block has
 //      edges instead of one dependent chain per thread;
 //   2. add: thread (v, d) adds its variable's edges of this pass from
-//      shared memory, one __fadd_rn at a time, carrying the running
+//      shared memory, one fadd_ftz at a time, carrying the running
 //      sum, the separate bucket's own sum and the bucket index in
 //      registers from one pass to the next, so the order is the one-pass
 //      order.
@@ -92,6 +93,15 @@ constexpr int kMaxBuckets = 64;
 constexpr int kUnroll = 4;         // edges a thread gathers per round
 constexpr int kMaxTiledD = 8;
 
+// Float adds as PTX with .ftz: a subnormal result (or
+// input) is flushed to a zero of its sign, as XLA:CPU and the TPU do for
+// the reference; inline asm is never contracted or reordered by nvcc.
+__device__ __forceinline__ float fadd_ftz(float a, float b) {
+  float r;
+  asm("add.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 struct Buckets {
   const float* base[kMaxBuckets];
   int start[kMaxBuckets + 1];
@@ -109,13 +119,16 @@ template <> struct Vec<2> { using T = float2; };
 template <> struct Vec<4> { using T = float4; };
 
 // Leave buckets until `to` (edges come in bucket order): leaving a
-// separate bucket adds its own sum into the running sum.
+// separate bucket adds its own sum into the running sum.  After the last
+// edge every remaining bucket is left, so each separate bucket's sum is
+// added to every variable (+0.0 where it has no edge there), as the
+// reference adds whole arrays: a flushed -0.0 sum then becomes +0.0.
 __device__ __forceinline__ void leave_buckets(int& b, int to, float& acc,
                                               float& part,
                                               unsigned long long sep) {
   while (b < to) {
     if (separate(sep, b)) {
-      acc = __fadd_rn(acc, part);
+      acc = fadd_ftz(acc, part);
       part = 0.0f;
     }
     ++b;
@@ -127,19 +140,19 @@ __device__ __forceinline__ void add_edge(float m, int eb, float& acc,
                                          float& part, int& b,
                                          unsigned long long sep) {
   if (!kMulti) {
-    acc = __fadd_rn(acc, m);
+    acc = fadd_ftz(acc, m);
     return;
   }
   if (eb != b) leave_buckets(b, eb, acc, part, sep);
   if (separate(sep, b)) {
-    part = __fadd_rn(part, m);
+    part = fadd_ftz(part, m);
   } else {
-    acc = __fadd_rn(acc, m);
+    acc = fadd_ftz(acc, m);
   }
 }
 
 // Add edges [e, e_end) of a pass out of shared memory (m: this slot's
-// column, stride D; bkt: each edge's bucket), one __fadd_rn at a time
+// column, stride D; bkt: each edge's bucket), one fadd_ftz at a time
 // in edge order.  With several buckets the per-edge bucket test would
 // keep each edge's two shared loads from running ahead of the adds, so
 // the loads go in batches of kBatch, the next batch's issued before
@@ -276,9 +289,9 @@ segment_sum_tiled(const Buckets bk, const int* __restrict__ perm,
     }
   }
   if (!active) return;
-  if (kSplit && separate(bk.sep, b)) acc = __fadd_rn(acc, part);
+  if (kSplit) leave_buckets(b, bk.n, acc, part, bk.sep);
   __stcs(sums + out, acc);
-  __stcs(beliefs + out, __fadd_rn(cost, acc));
+  __stcs(beliefs + out, fadd_ftz(cost, acc));
 }
 
 // D > kMaxTiledD: one thread per (variable, d), walking its edges.
@@ -308,26 +321,26 @@ __global__ void segment_sum_generic(const Buckets bk,
   for (int e = offsets[v]; e < end; ++e) {
     const int p = perm[e];
     if (!kMulti) {
-      acc = __fadd_rn(acc, bk.base[0][p * d + k]);
+      acc = fadd_ftz(acc, bk.base[0][p * d + k]);
       continue;
     }
     int q = kSplit ? b : 0;
     while (p >= s_start[q + 1]) ++q;
     if (!kSplit) {
-      acc = __fadd_rn(acc, s_base[q][(p - s_start[q]) * d + k]);
+      acc = fadd_ftz(acc, s_base[q][(p - s_start[q]) * d + k]);
       continue;
     }
     leave_buckets(b, q, acc, part, bk.sep);
     const float m = s_base[b][(p - s_start[b]) * d + k];
     if (separate(bk.sep, b)) {
-      part = __fadd_rn(part, m);
+      part = fadd_ftz(part, m);
     } else {
-      acc = __fadd_rn(acc, m);
+      acc = fadd_ftz(acc, m);
     }
   }
-  if (kSplit && separate(bk.sep, b)) acc = __fadd_rn(acc, part);
+  if (kSplit) leave_buckets(b, bk.n, acc, part, bk.sep);
   sums[t] = acc;
-  beliefs[t] = __fadd_rn(var_costs[t], acc);
+  beliefs[t] = fadd_ftz(var_costs[t], acc);
 }
 
 struct Args {

@@ -5,11 +5,22 @@
 [--run_metrics FILE.csv] [--end_metrics FILE.csv] [--checkpoint_dir DIR
 [--checkpoint_every N] [--[no-]checkpoint_async] [--checkpoint_keep N]
 [--resume]] [--recovery [--recovery_max_restarts N] [--recovery_noise S]
-[--recovery_damping_bump B]] FILE.yaml`` solves a DCOP on one torch
-device and prints the JSON result ``pydcop solve`` prints for a device
-solve (status, assignment, cost, violation, time, msg_count, msg_size,
-cycle, compile_time, backend).  The resilience flags are the
-reference's, with its defaults.
+[--recovery_damping_bump B]] [--trace FILE [--trace_format chrome|jsonl]]
+[--metrics FILE.jsonl] [--metrics_every N] [--serve_metrics PORT]
+FILE.yaml`` solves a DCOP on one torch device and prints the JSON
+result ``pydcop solve`` prints for a device solve (status, assignment,
+cost, violation, time, msg_count, msg_size, cycle, compile_time,
+backend).  The resilience and observability flags are the reference's,
+with its defaults (``--metrics_file`` is accepted for ``--metrics``).
+With ``--device cuda`` the command first checks, in a child process,
+that CUDA initialises and runs a tiny launch
+(``utils/cleanenv.ensure_live_backend``), and exits with an error if
+not.
+
+``python -m pydcop_tpu_torch trace summary|query|merge|diff`` and
+``python -m pydcop_tpu_torch profile report [--url URL] [--trace FILE]
+[--metrics FILE]`` read trace and metrics files of either package
+(``commands/trace.py``, ``commands/profile.py``).
 
 The metrics files are the reference's CSV (``commands/metrics_io.py``):
 with ``--collect_on cycle_change``, ``--run_metrics`` gets one row per
@@ -20,6 +31,7 @@ then gets the final summary row.
 
 import argparse
 import json
+import os
 import sys
 from typing import Dict, List, Optional
 
@@ -93,7 +105,49 @@ def make_parser() -> argparse.ArgumentParser:
                        default=0.2,
                        help="damping increase of the second recovery "
                             "escalation")
+    solve.add_argument("--trace", default=None,
+                       help="trace file for the run; format chosen by "
+                            "--trace_format")
+    solve.add_argument("--trace_format", "--trace-format",
+                       default="chrome", choices=["chrome", "jsonl"],
+                       help="chrome: trace_event JSON for "
+                            "chrome://tracing / Perfetto; jsonl: one "
+                            "event per line")
+    solve.add_argument("--metrics", "--metrics_file", dest="metrics",
+                       default=None,
+                       help="JSONL metrics-snapshot file; a Prometheus "
+                            "text dump is written next to it "
+                            "(<file>.prom)")
+    solve.add_argument("--metrics_every", "--metrics-every", type=int,
+                       default=100,
+                       help="cycles between metrics snapshots (also the "
+                            "engine segment size)")
+    solve.add_argument("--serve_metrics", "--serve-metrics", type=int,
+                       default=None, metavar="PORT",
+                       help="serve live telemetry over HTTP while the "
+                            "solve runs (/metrics, /healthz, /events, "
+                            "/profile; 0 = OS-assigned port)")
+    from pydcop_tpu_torch.commands import profile as profile_cmd
+    from pydcop_tpu_torch.commands import trace as trace_cmd
+
+    trace_cmd.set_parser(sub)
+    profile_cmd.set_parser(sub)
     return parser
+
+
+def _guard_backend(args) -> None:
+    """Before a solve on the card, check in a child process that CUDA
+    initialises and one tiny launch completes, so a wedged card fails
+    the command at once instead of hanging it; raises otherwise (there
+    is no CPU fallback).  ``PYDCOP_CLI_PROBE_TIMEOUT`` (seconds,
+    default 60) bounds the probe."""
+    if args.command != "solve" or args.device != "cuda":
+        return
+    from pydcop_tpu_torch.utils.cleanenv import ensure_live_backend
+
+    ensure_live_backend(tag="cli_solve", retries=1,
+                        probe_timeout=float(os.environ.get(
+                            "PYDCOP_CLI_PROBE_TIMEOUT", "60")))
 
 
 def run_solve(args) -> int:
@@ -121,6 +175,10 @@ def run_solve(args) -> int:
                 checkpoint_async=args.checkpoint_async,
                 checkpoint_keep=args.checkpoint_keep,
                 resume=args.resume, recovery=recovery,
+                trace=args.trace, trace_format=args.trace_format,
+                metrics_file=args.metrics,
+                metrics_every=args.metrics_every,
+                serve_metrics=args.serve_metrics,
                 device=args.device)
     result = {
         "status": res["status"],
@@ -160,6 +218,9 @@ def run_solve(args) -> int:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = make_parser().parse_args(argv)
+    if args.command != "solve":
+        return args.func(args)
+    _guard_backend(args)
     return run_solve(args)
 
 

@@ -43,6 +43,7 @@ from pydcop_tpu_torch.engine.compile import (
     FactorBucket,
     build_aggregation_arrays,
 )
+from pydcop_tpu_torch.ops.ell import multi_bucket_form
 
 logger = logging.getLogger("pydcop_tpu_torch.engine.autotune")
 
@@ -170,6 +171,9 @@ def apply_aggregation(graph: CompiledFactorGraph,
     perm, sorted_seg, starts, ends, ell = build_aggregation_arrays(
         graph.buckets, graph.n_vars + 1, aggregation
     )
+    if ell is not None:
+        # Refuses an ell shape whose sum order is unknown (Queue C).
+        multi_bucket_form(len(graph.buckets), graph.dmax, ell.shape[1])
     return graph._replace(
         agg_perm=perm, agg_sorted_seg=sorted_seg,
         agg_starts=starts, agg_ends=ends, agg_ell=ell,
@@ -264,8 +268,8 @@ def autotune_aggregation(graph: CompiledFactorGraph, *,
         try:
             variant = apply_aggregation(graph, strategy)
         except ValueError as e:
-            # A builder's refusal (the ell hub guard): drop the
-            # candidate and say why.
+            # A builder's refusal (the ell hub guard, an ell shape of
+            # unknown sum order): drop the candidate and say why.
             notes[strategy] = str(e).split(":")[0]
             continue
         timings[strategy] = _time_strategy(variant, f2v, reps, dev)

@@ -23,9 +23,11 @@ holds every array to ``np.array_equal``).
   :func:`build_aggregation_arrays`); ``scatter`` leaves them None.
 - **Structure cache.** The padded ``var_ids`` and the ``agg_*`` arrays
   depend only on the graph's structure, so :class:`CompileCache` keeps
-  them across compiles of same-shaped problems.  The reference's
-  metrics-registry and tracer hooks on the cache are not ported: they
-  come with the observability modules.
+  them across compiles of same-shaped problems.  As in the reference,
+  a compile runs inside a ``compile_graph`` span and, while the metrics
+  registry is active, counts its cache lookups
+  (``pydcop_compile_cache_total{outcome}``) and layout builds
+  (``pydcop_layout_builds_total``).
 """
 
 import os
@@ -38,6 +40,9 @@ import numpy as np
 from pydcop_tpu_torch.dcop.dcop import DCOP
 from pydcop_tpu_torch.dcop.objects import Variable, _stable_noise
 from pydcop_tpu_torch.dcop.relations import Constraint
+from pydcop_tpu_torch.observability.metrics import registry as metrics_registry
+from pydcop_tpu_torch.observability.trace import tracer
+from pydcop_tpu_torch.ops.ell import multi_bucket_form
 
 BIG = np.float32(1e9)
 
@@ -210,11 +215,14 @@ def validated_aggregation(params: dict, pad_to: int) -> str:
 
 
 def build_aggregation_arrays(buckets: Sequence[FactorBucket],
-                             n_segments: int, aggregation: str):
+                             n_segments: int, aggregation: str,
+                             d: Optional[int] = None):
     """Compile-time edge indexing of the non-scatter aggregations, the
     reference's arrays byte for byte.  Edges are the flattened (bucket,
     factor, position) slots in bucket order.  Returns the five
-    ``agg_*`` field values (perm, sorted_seg, starts, ends, ell)."""
+    ``agg_*`` field values (perm, sorted_seg, starts, ends, ell).  With
+    the domain size ``d`` given, ``ell`` raises ValueError at a shape
+    whose sum order is unknown (``ops.ell.multi_bucket_form``)."""
     if aggregation == "scatter":
         return None, None, None, None, None
     if aggregation not in AGGREGATIONS:
@@ -252,6 +260,9 @@ def build_aggregation_arrays(buckets: Sequence[FactorBucket],
             "GiB): the max variable degree is far above the mean "
             f"({n_edges / max(n_segments - 1, 1):.1f}) — use "
             "aggregation='scatter' for hub-dominated graphs")
+    if d is not None:
+        # Refuses the shapes whose sum order is unknown (Queue C).
+        multi_bucket_form(len(buckets), d, k_max)
     ell = np.full((n_segments, k_max), n_edges, np.int32)
     k_pos = np.arange(n_edges) - starts[sorted_seg]
     real = sorted_seg < (n_segments - 1)
@@ -295,6 +306,17 @@ def compile_factor_graph(
         use_cache = os.environ.get("PYDCOP_COMPILE_CACHE") != "0"
     variables = list(variables)
     constraints = list(constraints)
+    with tracer.span("compile_graph", "engine",
+                     n_vars=len(variables),
+                     n_constraints=len(constraints)):
+        return _compile_factor_graph(
+            variables, constraints, mode, noise_level, noise_seed,
+            pad_to, dtype, aggregation, use_cache)
+
+
+def _compile_factor_graph(variables, constraints, mode, noise_level,
+                          noise_seed, pad_to, dtype, aggregation,
+                          use_cache):
     var_index = {v.name: i for i, v in enumerate(variables)}
     for c in constraints:
         for v in c.dimensions:
@@ -348,8 +370,21 @@ def compile_factor_graph(
             tuple((a, scope_ids[a].tobytes()) for a in arities),
         )
         layout = compile_cache.get(cache_key)
+        # registry.active gate: an unobserved solve must not leave
+        # samples that a later observed solve's dump would show.
+        if metrics_registry.active:
+            metrics_registry.counter(
+                "pydcop_compile_cache_total",
+                "Structure-cache lookups by outcome",
+            ).inc(outcome="hit" if layout is not None else "miss")
     if layout is None:
         compile_cache.layout_builds += 1
+        if metrics_registry.active:
+            metrics_registry.counter(
+                "pydcop_layout_builds_total",
+                "Factor-graph layout constructions (cache misses + "
+                "uncached compiles)",
+            ).inc()
         var_ids_by_arity = {}
         for arity in arities:
             n_facs = scope_ids[arity].shape[0]
@@ -366,6 +401,10 @@ def compile_factor_graph(
         if use_cache:
             compile_cache.put(cache_key, layout)
     var_ids_by_arity, (perm, sorted_seg, starts, ends, ell) = layout
+    if ell is not None:
+        # After the layout cache, which is keyed on structure: the
+        # refusal of ell shapes of unknown order depends on D too.
+        multi_bucket_form(len(var_ids_by_arity), dmax, ell.shape[1])
 
     buckets = []
     factor_names: List[str] = []

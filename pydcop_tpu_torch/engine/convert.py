@@ -39,7 +39,7 @@ def graph_from_numpy(var_costs, var_valid,
     fb = tuple(FactorBucket(np.asarray(c), np.asarray(ids))
                for c, ids in buckets)
     perm, sorted_seg, starts, ends, ell = build_aggregation_arrays(
-        fb, var_costs.shape[0], aggregation)
+        fb, var_costs.shape[0], aggregation, d=var_costs.shape[1])
     graph = CompiledFactorGraph(
         var_costs=var_costs,
         var_valid=np.asarray(var_valid),

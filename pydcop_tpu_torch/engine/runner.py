@@ -11,6 +11,14 @@ the superstep loop of ``ops/maxsum.py`` and end their timing with
 not enqueue time.  ``run_checkpointed`` waits on the current stream
 only, never on the whole device, so the asynchronous checkpoint
 writer's copies on their own stream overlap the next segment.
+
+Every engine call goes through ``engine.timing.timed_engine_call``
+under the reference's keys — ``(max_cycles, stop_on_convergence)``,
+``("trace", ...)`` and ``("segment", extra, stop, damping, damp_vars,
+damp_factors)`` — so the ``jit_compile``/``engine_call`` spans, the
+per-key call counters and the profiler's ``metrics['xla_cost']``
+entries are the reference's; segments run inside an ``engine_segment``
+span and a decimation clamp records a ``decimation_clamp`` instant.
 """
 
 import sys
@@ -27,6 +35,9 @@ from pydcop_tpu_torch.engine.compile import (
     CompiledFactorGraph,
     FactorGraphMeta,
 )
+from pydcop_tpu_torch.engine.timing import timed_engine_call
+from pydcop_tpu_torch.observability.profiler import key_str, profiler
+from pydcop_tpu_torch.observability.trace import tracer
 from pydcop_tpu_torch.ops import _build
 from pydcop_tpu_torch.ops import maxsum as maxsum_ops
 from pydcop_tpu_torch.utils.tree import tree_leaves
@@ -92,13 +103,6 @@ def sync(device: torch.device):
     """Wait for the device's queued work (no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def _stream_sync(device: torch.device):
-    """Wait for the current stream's queued work (no-op on the CPU);
-    other streams, such as the checkpoint writer's, run on."""
-    if device.type == "cuda":
-        torch.cuda.current_stream(device).synchronize()
 
 
 class _DecimationRun:
@@ -262,6 +266,8 @@ class MaxSumEngine:
         self.stability = stability
         self.prune = prune
         self.extra_metrics: Dict[str, Any] = {}
+        # Keys already called once: the next call of a key is warm.
+        self._warm: set = set()
 
     def init_state(self) -> maxsum_ops.MaxSumState:
         """Fresh solver state on this engine's device."""
@@ -272,16 +278,35 @@ class MaxSumEngine:
                     damp_factors=self.damp_factors,
                     stability=self.stability, prune=self.prune)
 
-    def _timed(self, fn):
-        """``(out, run seconds, build seconds)`` of ``fn()``, the window
-        closed by a synchronise on the card."""
+    def _call(self, key, fn, cycles: int):
+        """``timed_engine_call`` of ``fn()`` under ``key``: (out,
+        compile_s, run_s) by the first-call convention.  While the
+        profiler is on, a cold key's profile entry is folded into
+        ``extra_metrics['xla_cost']``, as the reference does."""
+        out = timed_engine_call(self._warm, key, fn, self.device, cycles)
+        if profiler.enabled and out[1] > 0:
+            entry = profiler.get(key)
+            if entry is not None:
+                self.extra_metrics.setdefault(
+                    "xla_cost", {})[key_str(key)] = entry
+        return out
+
+    def _segment_key(self, extra_cycles: int,
+                     stop_on_convergence: bool):
+        """Key of one segment call (the reference's segment program
+        key: damping is part of it, so a recovery damping bump makes a
+        new, cold key)."""
+        return ("segment", extra_cycles, stop_on_convergence,
+                self.damping, self.damp_vars, self.damp_factors)
+
+    def _timed(self, key, fn, cycles: int):
+        """``(out, run seconds, build seconds)`` of ``fn()`` through
+        :meth:`_call`, the window closed by a synchronise on the
+        card."""
         build_before = _build.build_seconds
         sync(self.device)
-        t0 = time.perf_counter()
-        out = fn()
-        sync(self.device)
-        return (out, time.perf_counter() - t0,
-                _build.build_seconds - build_before)
+        out, _, run_s = self._call(key, fn, cycles)
+        return out, run_s, _build.build_seconds - build_before
 
     def _metrics(self, compile_s: float, stats: Dict[str, int]
                  ) -> Dict[str, Any]:
@@ -298,10 +323,11 @@ class MaxSumEngine:
         with an identical call before timing a steady state."""
         stats: Dict[str, int] = {}
         (state, values), run_s, compile_s = self._timed(
+            (max_cycles, stop_on_convergence),
             lambda: maxsum_ops.run_maxsum(
                 self.graph, max_cycles,
                 stop_on_convergence=stop_on_convergence, stats=stats,
-                **self._kwargs()))
+                **self._kwargs()), max_cycles)
         values = values.cpu().numpy()
         cycle, stable = int(state.cycle), bool(state.stable)
         n_msgs = sum(
@@ -333,10 +359,11 @@ class MaxSumEngine:
             base, dtype=torch.float32, device=self.device)
         stats: Dict[str, int] = {}
         (state, values, costs), run_s, compile_s = self._timed(
+            ("trace", max_cycles, stop_on_convergence),
             lambda: maxsum_ops.run_maxsum_trace(
                 self.graph, max_cycles, var_base_costs=base,
                 stop_on_convergence=stop_on_convergence, stats=stats,
-                **self._kwargs()))
+                **self._kwargs()), max_cycles)
         values = values.cpu().numpy()
         sign = 1.0 if self.meta.mode == "min" else -1.0
         return DeviceRunResult(
@@ -475,11 +502,27 @@ class MaxSumEngine:
         stats: Dict[str, int] = {}
 
         def segment(extra):
+            """One segment through :meth:`_call` (its span, counters and
+            profile); returns ((state, values), compile_s, run_s)."""
             seg_stats: Dict[str, int] = {}
-            out = maxsum_ops.run_maxsum_from(
-                graph, state, extra,
-                stop_on_convergence=stop_on_convergence, stats=seg_stats,
-                **self._kwargs())
+            kw = self._kwargs()
+
+            def call():
+                seg_stats.clear()
+                return maxsum_ops.run_maxsum_from(
+                    graph, state, extra,
+                    stop_on_convergence=stop_on_convergence,
+                    stats=seg_stats, **kw)
+
+            key = self._segment_key(extra, stop_on_convergence)
+            if tracer.active:
+                with tracer.span("engine_segment", "engine",
+                                 segment=segments,
+                                 from_cycle=int(state.cycle),
+                                 extra_cycles=extra):
+                    out = self._call(key, call, extra)
+            else:
+                out = self._call(key, call, extra)
             for k, v in seg_stats.items():
                 stats[k] = stats.get(k, 0) + v
             return out
@@ -500,9 +543,7 @@ class MaxSumEngine:
                 # A resume at or past the cycle budget still needs the
                 # value selection: a zero-extra segment computes it.
                 extra = min(every, max(max_cycles - cycle, 0))
-                seg_t0 = time.perf_counter()
-                seg_build = _build.build_seconds
-                state, values = segment(extra)
+                (state, values), seg_compile_s, seg_run_s = segment(extra)
                 segments += 1
                 if rec is not None:
                     finite, g_cost = self._guard(
@@ -525,16 +566,20 @@ class MaxSumEngine:
                     if decim is not None:
                         decim.retain(graph)
                 if probe is not None:
-                    _stream_sync(self.device)
-                    probe.on_segment(
-                        state, values, time.perf_counter() - seg_t0,
-                        _build.build_seconds - seg_build)
+                    probe.on_segment(state, values, seg_run_s,
+                                     seg_compile_s)
                 if decim is not None:
                     # Clamp BEFORE the checkpoint: the snapshot carries
                     # the post-clamp set, so a resume replays the
                     # uninterrupted boundary sequence.
-                    _, graph, state = decim.clamp(
+                    newly, graph, state = decim.clamp(
                         graph, state, values, self._margin(graph, state))
+                    if newly and tracer.active:
+                        tracer.instant(
+                            "decimation_clamp", "engine",
+                            newly_clamped=newly,
+                            decimated_vars=int(decim.fixed.sum()),
+                            cycle=int(state.cycle))
                 if manager is not None:
                     payload = (decim.snapshot_payload(state)
                                if decim is not None else state)
@@ -562,7 +607,7 @@ class MaxSumEngine:
         if values is None:
             # A guard trip on the first segment met a max_segments
             # break: the restored initial state has no selection yet.
-            state, values = segment(0)
+            (state, values), _, _ = segment(0)
         values_host = values.cpu().numpy()
         cycle, stable = int(state.cycle), bool(state.stable)
         total = time.perf_counter() - t0
@@ -615,10 +660,13 @@ class MaxSumEngine:
             if remaining <= 0 and values is not None:
                 break
             extra = min(cycles_per_round, max(remaining, 1))
-            state, values = maxsum_ops.run_maxsum_from(
-                graph, state, extra, damping=self.damping,
-                damp_vars=self.damp_vars, damp_factors=self.damp_factors,
-                stability=self.stability, stop_on_convergence=True)
+            (state, values), _, _ = self._call(
+                ("decim", extra), lambda: maxsum_ops.run_maxsum_from(
+                    graph, state, extra, damping=self.damping,
+                    damp_vars=self.damp_vars,
+                    damp_factors=self.damp_factors,
+                    stability=self.stability, stop_on_convergence=True),
+                extra)
             if bool(np.all(fixed)) or int(state.cycle) >= max_cycles:
                 break
             margin = _host(self._margin(graph, state))

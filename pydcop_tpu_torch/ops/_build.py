@@ -26,9 +26,14 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
+# -ftz=true: single-precision arithmetic flushes subnormals to zero, as
+# XLA:CPU and the TPU do for the reference.  The kernels also write
+# their float operations as PTX instructions with .ftz (inline asm,
+# which nvcc neither contracts into an FMA nor reorders); division stays
+# IEEE (-prec-div=true is the default without --use_fast_math).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-ftz=true", "-shared", "-Xcompiler", "-fPIC",
 )
 
 # Launches per kernel, counted by each wrapper where it launches its

@@ -16,6 +16,7 @@ import functools
 import torch
 
 from pydcop_tpu_torch.ops import _build
+from pydcop_tpu_torch.ops.flush import ftz
 
 KERNEL = "binary_factor_update"
 
@@ -24,12 +25,13 @@ def binary_factor_update_reference(costs: torch.Tensor,
                                    v2f: torch.Tensor) -> torch.Tensor:
     """All f2v messages of one arity-2 bucket, in the dense path's add
     order: ``(costs + m0) + m1``, min over the other axis, minus the
-    receiver's own message.  costs [F, D, D], v2f [F, 2, D] -> [F, 2, D].
+    receiver's own message, each add and subtract flushed to zero like
+    the reference's.  costs [F, D, D], v2f [F, 2, D] -> [F, 2, D].
     """
     m0, m1 = v2f[:, 0], v2f[:, 1]
-    total = (costs + m0[:, :, None]) + m1[:, None, :]
+    total = ftz(ftz(costs + m0[:, :, None]) + m1[:, None, :])
     return torch.stack(
-        [total.amin(dim=2) - m0, total.amin(dim=1) - m1], dim=1)
+        [ftz(total.amin(dim=2) - m0), ftz(total.amin(dim=1) - m1)], dim=1)
 
 
 def _check(costs: torch.Tensor, v2f: torch.Tensor):

@@ -26,8 +26,11 @@ order, because damping and mean-normalisation accrete mantissa bits
 cycle after cycle and a reassociated sum drifts the trajectory; where
 XLA:CPU computes another form than the one written in the reference
 (damping as ``(o + n) * 0.5`` or one fused multiply-add, the domain
-mean vectorised after a fused fold, subnormals flushed to zero), the
-port computes that form.
+mean vectorised after a fused fold, every subnormal result flushed to
+zero), the port computes that form.  The per-edge update of both sides
+(damping, flush, approx-match, counts, ``stable``) is
+``ops/var_update.py``: a hand-written CUDA kernel on the card, its plain
+version on the CPU.
 
 The reference runs the solve loop on the device (``lax.while_loop``);
 here it is a host loop of supersteps that reads ``stable`` once per
@@ -47,21 +50,18 @@ import numpy as np
 import torch
 
 from pydcop_tpu_torch.device import TorchFactorGraph
-from pydcop_tpu_torch.engine.compile import (
-    BIG,
-    PRUNE_MIN_DOMAIN,
-    prune_width,
-)
+from pydcop_tpu_torch.engine.compile import PRUNE_MIN_DOMAIN, prune_width
 from pydcop_tpu_torch.ops.binary_factor import binary_factor_update
-from pydcop_tpu_torch.ops.ell import WINDOW, gather_reduce, window_sum
+from pydcop_tpu_torch.ops.ell import gather_reduce
+from pydcop_tpu_torch.ops.flush import ftz
 from pydcop_tpu_torch.ops.segment_sum import segment_sum, separate_buckets
+from pydcop_tpu_torch.ops.var_update import (
+    send_update,
+    v2f_update,
+    var_messages,
+)
 
 Msgs = Tuple[torch.Tensor, ...]  # one [F, arity, D] tensor per bucket
-
-# Reference maxsum.py:106 SAME_COUNT: a message that approx-matches the
-# previously sent one is re-sent at most this many times, then the edge
-# goes quiet (the receiver keeps the last value).
-SAME_COUNT = 4
 
 
 class MaxSumState(NamedTuple):
@@ -75,7 +75,7 @@ class MaxSumState(NamedTuple):
 
 def init_state(graph: TorchFactorGraph) -> MaxSumState:
     """Zero messages and counts, one tensor per field and bucket
-    (int8 counts: they saturate at SAME_COUNT + 1)."""
+    (int8 counts: they saturate at ``var_update.SAME_COUNT`` + 1)."""
     d = graph.var_costs.shape[1]
     dev = graph.var_costs.device
     dtype = graph.var_costs.dtype
@@ -102,35 +102,6 @@ def init_state(graph: TorchFactorGraph) -> MaxSumState:
         stable=torch.tensor(False, device=dev),
         cycle=torch.tensor(0, dtype=torch.int32, device=dev),
     )
-
-
-def _edge_match(new: torch.Tensor, old: torch.Tensor, stability: float,
-                valid: torch.Tensor) -> torch.Tensor:
-    """Per-edge approx_match (reference maxsum.py:688): relative change
-    ``2|d|/|a+b|`` below ``stability`` on every valid domain slot, exact
-    equality always matching.  Returns [F, arity] bool."""
-    delta = torch.abs(new - old)
-    s = torch.abs(new + old)
-    ok = (2 * delta < stability * s) | (delta == 0)
-    return torch.all(ok | ~valid, dim=-1)
-
-
-def _send_or_suppress(cand: torch.Tensor, prev: torch.Tensor,
-                      count: torch.Tensor, stability: float,
-                      valid: torch.Tensor, first: torch.Tensor
-                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Reference send-suppression (maxsum.py:366-377): a candidate that
-    approx-matches the last sent message is re-sent at most SAME_COUNT
-    times, then the edge freezes on the last sent value.
-
-    Returns (sent messages, new counts, per-edge match flags)."""
-    match = _edge_match(cand, prev, stability, valid) & ~first
-    send = ~match | (count < SAME_COUNT)
-    sent = torch.where(send[..., None], cand, prev)
-    new_count = torch.where(
-        match, torch.clamp(count + 1, max=SAME_COUNT + 1),
-        torch.ones_like(count))
-    return sent, new_count, match
 
 
 class PruneTable(NamedTuple):
@@ -195,11 +166,11 @@ def _survivors(msgs: torch.Tensor, pt: PruneTable, p: int
     ``min_e(m_q[e] + row_max[e])`` by more than the slack."""
     mq = msgs[:, 1 - p]
     vq = pt.valid[1 - p]
-    lb = mq + pt.row_min[p]
-    ub = torch.amin(torch.where(vq, mq + pt.row_max[p], torch.inf),
+    lb = ftz(mq + pt.row_min[p])
+    ub = torch.amin(torch.where(vq, ftz(mq + pt.row_max[p]), torch.inf),
                     dim=1, keepdim=True)
-    tau = PRUNE_SLACK * (1.0 + torch.abs(ub))
-    return vq & (lb <= ub + tau)
+    tau = ftz(PRUNE_SLACK * ftz(1.0 + torch.abs(ub)))
+    return vq & (lb <= ftz(ub + tau))
 
 
 def prune_fits(v2f: Msgs,
@@ -257,13 +228,13 @@ def _pruned_binary_update(bucket, msgs: torch.Tensor,
         if p == 0:
             c_g = pt.costs_t[rows, idx]                     # [F, K, D]
             m1_g = torch.gather(m1, 1, idx)
-            total = (c_g + m0[:, None, :]) + m1_g[:, :, None]
-            outs.append(torch.amin(total, dim=1) - m0)
+            total = ftz(ftz(c_g + m0[:, None, :]) + m1_g[:, :, None])
+            outs.append(ftz(torch.amin(total, dim=1) - m0))
         else:
             c_g = costs[rows, idx]                          # [F, K, D]
             m0_g = torch.gather(m0, 1, idx)
-            total = (c_g + m0_g[:, :, None]) + m1[:, None, :]
-            outs.append(torch.amin(total, dim=1) - m1)
+            total = ftz(ftz(c_g + m0_g[:, :, None]) + m1[:, None, :])
+            outs.append(ftz(torch.amin(total, dim=1) - m1))
     return torch.stack(outs, dim=1)
 
 
@@ -272,7 +243,8 @@ def factor_to_var(graph: TorchFactorGraph, v2f: Msgs,
                   ) -> Msgs:
     """All factor->variable messages for one superstep.  ``prune``
     (from :func:`prune_tables`) sends the prunable binary buckets
-    through the branch-and-bound update — the same values."""
+    through the branch-and-bound update — the same values.  Every add
+    and subtract is flushed to zero, as the reference's are."""
     out = []
     for bi, (bucket, msgs) in enumerate(zip(graph.buckets, v2f)):
         if prune is not None and prune[bi] is not None:
@@ -286,12 +258,12 @@ def factor_to_var(graph: TorchFactorGraph, v2f: Msgs,
         for q in range(arity):
             shape = [f] + [1] * arity
             shape[q + 1] = d
-            total = total + msgs[:, q].reshape(shape)
+            total = ftz(total + msgs[:, q].reshape(shape))
         outs_p = []
         for p in range(arity):
             axes = tuple(i + 1 for i in range(arity) if i != p)
             reduced = torch.amin(total, dim=axes) if axes else total
-            outs_p.append(reduced - msgs[:, p])
+            outs_p.append(ftz(reduced - msgs[:, p]))
         out.append(torch.stack(outs_p, dim=1))  # [F, arity, D]
     return tuple(out)
 
@@ -315,8 +287,9 @@ def aggregate_beliefs(graph: TorchFactorGraph, f2v: Msgs
       message);
     - ``boundary`` (experiment-only, as in the reference): a prefix sum
       over the edges in CSR order and boundary differences.  Its
-      cumsum adds in another order than XLA's, so it agrees with the
-      reference only within a tolerance.
+      cumsum adds in another order than XLA's, and cannot flush inside
+      the scan, so it agrees with the reference only within a
+      tolerance (the differences and the belief add are flushed).
 
     Returns (beliefs [V+1, D] = own costs + sums, sums).  ``scatter``
     and ``sorted`` give the same bits on the card and on the CPU: the
@@ -332,7 +305,8 @@ def aggregate_beliefs(graph: TorchFactorGraph, f2v: Msgs
         flats = [m.reshape(-1, d) for m in f2v]
         flat = flats[0] if len(flats) == 1 else torch.cat(flats)
         if strategy == "ell":
-            sums = gather_reduce(graph.agg_ell, flat)
+            sums = gather_reduce(graph.agg_ell, flat,
+                                 n_buckets=len(graph.buckets))
         else:
             # The prefix sum runs along the last axis ([D, E]): a scan
             # over the first axis of [E, D] is serial over E on the card.
@@ -340,56 +314,11 @@ def aggregate_beliefs(graph: TorchFactorGraph, f2v: Msgs
             cum = torch.cumsum(in_order, dim=1)
             cz = torch.cat([torch.zeros_like(cum[:, :1]), cum], dim=1)
             bounds = graph.agg_offsets.to(torch.int64)
-            sums = (cz[:, bounds[1:]] - cz[:, bounds[:-1]]).t().contiguous()
-        return graph.var_costs + sums, sums
+            sums = ftz(cz[:, bounds[1:]] - cz[:, bounds[:-1]]).t().contiguous()
+        return ftz(graph.var_costs + sums), sums
     return segment_sum(f2v, graph.agg_perm, graph.agg_offsets,
                        graph.agg_buckets, graph.var_costs, graph.agg_tiles,
                        one_sum=strategy == "sorted")
-
-
-def _lane_sum(x: torch.Tensor, width: int, head: int) -> torch.Tensor:
-    """LLVM's vectorised form of a sum over the last axis: ``width``
-    lanes from zero, lane j adding slots j, j + width, ... below
-    ``head``; the lanes folded by halves; then slots ``head`` onward
-    added one by one.  The axis is kept with length 1."""
-    lanes = []
-    for j in range(width):
-        acc = torch.zeros_like(x[..., :1])
-        for k in range(j, head, width):
-            acc = acc + x[..., k:k + 1]
-        lanes.append(acc)
-    while len(lanes) > 1:
-        half = len(lanes) // 2
-        lanes = [lanes[i] + lanes[i + half] for i in range(half)]
-    acc = lanes[0]
-    for k in range(head, x.shape[-1]):
-        acc = acc + x[..., k:k + 1]
-    return acc
-
-
-def _sum_last(x: torch.Tensor, vectorised: bool = False) -> torch.Tensor:
-    """Sum over the last (domain) axis, keeping the axis, in the order
-    XLA reduces in: left to right up to 32 slots, and above 32 in
-    windows of 32 (``ops.ell.window_sum``, XLA's tree-reduction
-    rewrite).  ``torch.sum`` vectorises some widths (D=5 on the CPU)
-    into another order, which changes the last bit.
-
-    ``vectorised``: the reference's sums come out of an add that XLA
-    fuses into the gather feeding this reduction (a scatter fold that
-    ends with a bucket summed on its own), and LLVM then vectorises the
-    sum of 28 to 32 slots: lanes of 8 over the first 24 slots and the
-    rest one by one (D = 28..31), or lanes of 16 over all 32."""
-    d = x.shape[-1]
-    if d > WINDOW:
-        return window_sum(x, x.dim() - 1)
-    if vectorised and d == WINDOW:
-        return _lane_sum(x, 16, WINDOW)
-    if vectorised and d >= 28:
-        return _lane_sum(x, 8, 24)
-    acc = x[..., :1]
-    for k in range(1, d):
-        acc = acc + x[..., k:k + 1]
-    return acc
 
 
 def _sums_fused(graph: TorchFactorGraph) -> bool:
@@ -407,21 +336,14 @@ def _sums_fused(graph: TorchFactorGraph) -> bool:
 
 def var_to_factor(graph: TorchFactorGraph, f2v: Msgs,
                   beliefs: torch.Tensor, sums: torch.Tensor) -> Msgs:
-    """All variable->factor messages: belief minus own contribution,
-    mean-normalized over valid slots (reference maxsum.py:670-674)."""
-    out = []
+    """All variable->factor candidates: belief minus own contribution,
+    mean-normalized over valid slots (reference maxsum.py:670-674),
+    each operation flushed (``ops.var_update.var_messages``).  The
+    superstep computes them inside :func:`ops.var_update.v2f_update`."""
     fused = _sums_fused(graph)
-    for bucket, msgs in zip(graph.buckets, f2v):
-        valid = graph.var_valid[bucket.var_ids]        # [F, a, D]
-        raw = beliefs[bucket.var_ids] - msgs           # own cost + others
-        factor_sum = sums[bucket.var_ids] - msgs       # others only
-        n_valid = torch.clamp(
-            torch.sum(valid, dim=-1, keepdim=True, dtype=torch.int32),
-            min=1)
-        avg = _sum_last(torch.where(valid, factor_sum, 0.0),
-                        fused) / n_valid
-        out.append(torch.where(valid, raw - avg, float(BIG)))
-    return tuple(out)
+    return tuple(var_messages(beliefs, sums, msgs, bucket.var_ids,
+                              graph.var_valid, fused)
+                 for bucket, msgs in zip(graph.buckets, f2v))
 
 
 def select_values(graph: TorchFactorGraph,
@@ -432,112 +354,48 @@ def select_values(graph: TorchFactorGraph,
     return torch.argmin(masked[:-1], dim=1).to(torch.int32)
 
 
-# Smallest normal float32.  XLA:CPU runs the reference with subnormals
-# flushed to zero (FTZ/DAZ), and so does the TPU; torch keeps them.
-FLT_MIN = float(np.finfo(np.float32).tiny)
-
-
-def _ftz(x: torch.Tensor) -> torch.Tensor:
-    """``x`` with every subnormal value replaced by a zero of its sign
-    (NaN and infinities kept), as the reference's arithmetic leaves a
-    subnormal result."""
-    return x * (torch.abs(x) >= FLT_MIN)
-
-
-def _fma(a: float, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """``a * x + y`` for float32 ``x`` and ``y``, rounded once (a fused
-    multiply-add).  The product is exact in float64; the sum's float64
-    rounding error is recovered exactly (TwoSum), and it decides the
-    float32 rounding where the float64 sum lies exactly halfway between
-    two float32 values — everywhere else rounding the float64 sum is
-    already correct.  The same bits on the CPU and on the card."""
-    p = x.double() * float(np.float32(a))
-    q = y.double()
-    s = p + q
-    bq = s - p
-    err = (p - (s - bq)) + (q - bq)
-    t = s.float()
-    d = s - t.double()
-    toward = torch.nextafter(t, torch.where(d > 0, torch.inf, -torch.inf)
-                             .to(t.dtype))
-    tie = (d != 0) & (toward.double() - t.double() == 2 * d)
-    return torch.where(tie & (err != 0) & ((err > 0) == (d > 0)), toward, t)
-
-
-def _damp(new: Msgs, old: Msgs, damping: float,
-          first: torch.Tensor) -> Msgs:
-    """damped = damping * prev + (1-damping) * new; no damping on the
-    first cycle (reference maxsum.py:679), in the forms XLA:CPU gives
-    the reference's ``damping * o + (1 - damping) * n``: at damping 0.5
-    (the default) ``(o + n) * 0.5``, otherwise one fused multiply-add,
-    ``fma(damping, o, (1 - damping) * n)`` (:func:`_fma`).  The forms
-    agree with the plain expression on normal numbers and differ from it
-    where a product would be subnormal, which the reference flushes to
-    zero."""
-    if damping == 0.5:
-        damped = [(o + n) * 0.5 for n, o in zip(new, old)]
-    else:
-        damped = [_fma(damping, o, _ftz((1.0 - damping) * n))
-                  for n, o in zip(new, old)]
-    return tuple(torch.where(first, n, d) for n, d in zip(new, damped))
-
-
-def _flush_subnormals(msgs: Msgs) -> Msgs:
-    """:func:`_ftz` of each message.  A message that decays toward zero
-    (damping halves it every cycle) passes through the subnormal range,
-    where the reference sends 0: the candidates are flushed before they
-    are compared and sent."""
-    return tuple(_ftz(m) for m in msgs)
-
-
 def superstep(state: MaxSumState, graph: TorchFactorGraph, *,
               damping: float, damp_vars: bool, damp_factors: bool,
               stability: float, prune=None) -> MaxSumState:
     """One synchronous MaxSum cycle: in cycle k BOTH sides fire from
-    the messages sent in cycle k-1, with per-edge damping, subnormal
-    candidates flushed to zero and SAME_COUNT send-suppression."""
-    first = state.cycle == 0
-    valids = tuple(
-        graph.var_valid[b.var_ids] for b in graph.buckets
-    )
+    the messages sent in cycle k-1, with per-edge damping, every float
+    operation flushed to zero and SAME_COUNT send-suppression.
 
+    Per bucket the factor side's candidates go through
+    :func:`ops.var_update.send_update` and the variable side is one
+    :func:`ops.var_update.v2f_update` (one launch each on the card);
+    both AND the bucket's all-match into ``stable``, which starts as
+    ``cycle != 0`` (the reference's ``all_match & ~first``)."""
+    stable = state.cycle != 0
     f2v_cand = factor_to_var(graph, state.v2f, prune=prune)
-    if damp_factors and damping > 0:
-        f2v_cand = _damp(f2v_cand, state.f2v, damping, first)
-    f2v_cand = _flush_subnormals(f2v_cand)
-
     # Variable side uses the factor messages from the PREVIOUS cycle.
     beliefs, sums = aggregate_beliefs(graph, state.f2v)
-    v2f_cand = var_to_factor(graph, state.f2v, beliefs, sums)
-    if damp_vars and damping > 0:
-        v2f_cand = _damp(v2f_cand, state.v2f, damping, first)
-    v2f_cand = _flush_subnormals(v2f_cand)
+    fused = _sums_fused(graph)
+    f_damping = damping if damp_factors and damping > 0 else 0.0
+    v_damping = damping if damp_vars and damping > 0 else 0.0
 
     f2v_new, f2v_count = [], []
     v2f_new, v2f_count = [], []
-    all_match = torch.ones((), dtype=torch.bool,
-                           device=graph.var_costs.device)
-    for i, valid in enumerate(valids):
-        edge_live = torch.any(valid, dim=-1)
-        sent, cnt, match = _send_or_suppress(
-            f2v_cand[i], state.f2v[i], state.f2v_count[i],
-            stability, valid, first)
+    for i, bucket in enumerate(graph.buckets):
+        sent, cnt = send_update(
+            f2v_cand[i], state.f2v[i], state.f2v_count[i], bucket.var_ids,
+            graph.var_valid, state.cycle, stable, damping=f_damping,
+            stability=stability)
         f2v_new.append(sent)
         f2v_count.append(cnt)
-        all_match = all_match & torch.all(match | ~edge_live)
-        sent, cnt, match = _send_or_suppress(
-            v2f_cand[i], state.v2f[i], state.v2f_count[i],
-            stability, valid, first)
+        sent, cnt = v2f_update(
+            beliefs, sums, state.f2v[i], state.v2f[i], state.v2f_count[i],
+            bucket.var_ids, graph.var_valid, state.cycle, stable,
+            damping=v_damping, stability=stability, fused=fused)
         v2f_new.append(sent)
         v2f_count.append(cnt)
-        all_match = all_match & torch.all(match | ~edge_live)
 
     return MaxSumState(
         v2f=tuple(v2f_new),
         f2v=tuple(f2v_new),
         v2f_count=tuple(v2f_count),
         f2v_count=tuple(f2v_count),
-        stable=all_match & ~first,
+        stable=stable,
         cycle=state.cycle + 1,
     )
 

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from pydcop_tpu_torch.ops import _build
+from pydcop_tpu_torch.ops.flush import ftz
 
 KERNEL = "segment_sum"
 
@@ -126,48 +127,75 @@ def segment_sum_reference(msgs: torch.Tensor, perm: torch.Tensor,
                           offsets: torch.Tensor, buckets: torch.Tensor,
                           var_costs: torch.Tensor, one_sum: bool = False
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The definition, in ``index_add_`` calls (each sequential in edge
-    order on the CPU): bucket 0's edges are added into zeros; then,
-    bucket by bucket, a bucket that :func:`separate_buckets` marks is
-    summed into zeros of its own and added, and any other is added into
-    the running sums — the form XLA gives the reference's jitted sum of
-    per-bucket segment_sums.
-    With ``one_sum`` every edge is added into the one running sum in
-    edge order (the reference's ``sorted`` aggregation: its single
-    segment_sum over the edges gathered into CSR order).  Then
-    ``var_costs + sums``.  Each edge's variable is read back from the
-    CSR arrays.  ``msgs`` is [E, D], every bucket's edges in bucket
-    order.  Returns (beliefs, sums), both [V+1, D]."""
+    """The definition, walked edge rank by edge rank: each variable's
+    running sum starts at +0.0 and takes its edges in CSR (edge) order,
+    each add flushed to zero like the reference's (``ops/flush.py``).
+    Across buckets it is the form XLA gives the reference's jitted sum
+    of per-bucket segment_sums: a bucket that :func:`separate_buckets`
+    marks is summed on its own from +0.0 and added to the running sum
+    when the walk leaves it — every marked bucket is left, so its sum
+    (+0.0 where the variable has no edge there) is added to every
+    variable, as the reference adds whole arrays; any other bucket is
+    added into the running sum edge by edge.  With ``one_sum`` every
+    edge goes into the one running sum (the reference's ``sorted``
+    aggregation: its single segment_sum over the edges gathered into CSR
+    order).  Then ``var_costs + sums``, flushed.  ``msgs`` is [E, D],
+    every bucket's edges in bucket order.  Returns (beliefs, sums), both
+    [V+1, D].
+
+    Rank r of the walk adds the r-th edge of every variable of degree
+    above r at once; the variables are taken in decreasing degree, so
+    those are a prefix.  The walk reads the degrees on the host."""
     n_seg, d = var_costs.shape
     dev = perm.device
-    counts = (offsets[1:] - offsets[:-1]).to(torch.int64)
-    seg = torch.empty(perm.shape, dtype=torch.int64, device=dev)
-    seg[perm.to(torch.int64)] = torch.repeat_interleave(
-        torch.arange(n_seg, device=dev), counts, output_size=perm.shape[0])
-    if one_sum:
-        sums = torch.zeros((n_seg, d), dtype=var_costs.dtype, device=dev)
-        sums.index_add_(0, seg, msgs)
-        return var_costs + sums, sums
-    edge_bucket = torch.searchsorted(
-        buckets, torch.arange(perm.shape[0], dtype=torch.int32, device=dev),
-        right=True) - 1
-    # Row n_seg takes the edges of the other buckets and is dropped.
-    sums = torch.zeros((n_seg + 1, d), dtype=var_costs.dtype, device=dev)
-    # Bucket 0 is never summed on its own: one bucket needs no host
-    # read of the starts (so the plain version stays capturable in a
-    # CUDA graph there).
+    offsets = offsets.to(torch.int64)
+    counts = offsets[1:] - offsets[:-1]
+    order = torch.argsort(-counts, stable=True)
+    per_rank = torch.bincount(counts, minlength=1).flip(0).cumsum(0).flip(0)
+    active = per_rank[1:].tolist()          # variables of degree > r
+    starts = offsets[:-1][order]
+    perm = perm.to(torch.int64)
     n_buckets = buckets.shape[0] - 1
-    sep = separate_buckets(buckets.tolist(), n_seg) if n_buckets > 1 else 0
-    for b in range(n_buckets):
-        rows = torch.where(edge_bucket == b, seg, n_seg)
-        if (sep >> b) & 1:
-            part = torch.zeros_like(sums)
-            part.index_add_(0, rows, msgs)
-            sums = sums + part
-        else:
-            sums.index_add_(0, rows, msgs)
-    sums = sums[:-1]
-    return var_costs + sums, sums
+    sep = (0 if one_sum or n_buckets < 2
+           else separate_buckets(buckets.tolist(), n_seg))
+    acc = torch.zeros((n_seg, d), dtype=var_costs.dtype, device=dev)
+    part = torch.zeros_like(acc)
+    at = torch.zeros((n_seg,), dtype=torch.int64, device=dev)
+    sep_rows = torch.tensor([(sep >> b) & 1 for b in range(n_buckets)],
+                            dtype=torch.bool, device=dev)
+
+    def leave(rows, to):
+        # Leave buckets below ``to`` (per row): a separate bucket's own
+        # sum goes into the running sum.
+        a, p, b = acc[:rows], part[:rows], at[:rows]
+        for bb in range(n_buckets - 1 if to is not None else n_buckets):
+            go = b == bb
+            if to is not None:
+                go &= to > bb
+            if (sep >> bb) & 1:
+                a.copy_(torch.where(go[:, None], ftz(a + p), a))
+                p.masked_fill_(go[:, None], 0.0)
+            b.masked_fill_(go, bb + 1)
+
+    for r, n in enumerate(active):
+        edge = perm[starts[:n] + r]
+        m = msgs[edge]
+        a = acc[:n]
+        if not sep:
+            a.copy_(ftz(a + m))
+            continue
+        eb = torch.searchsorted(buckets, edge.to(buckets.dtype),
+                                right=True) - 1
+        leave(n, eb)
+        own = sep_rows[eb][:, None]
+        p = part[:n]
+        p.copy_(torch.where(own, ftz(p + m), p))
+        a.copy_(torch.where(own, a, ftz(a + m)))
+    if sep:
+        leave(n_seg, None)
+    sums = torch.empty_like(acc)
+    sums[order] = acc
+    return ftz(var_costs + sums), sums
 
 
 def _check(parts, flat, perm, offsets, buckets, var_costs, tiles):

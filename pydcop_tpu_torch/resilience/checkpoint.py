@@ -81,7 +81,26 @@ def _save_arrays(path: str, arrays: Dict[str, np.ndarray], *, cycle: int,
                  extra: Optional[Dict[str, Any]] = None
                  ) -> Tuple[float, float]:
     """Atomically write host leaves; returns (checksum seconds, write
-    seconds)."""
+    seconds).  Every write (the synchronous path's and the
+    asynchronous writer thread's) runs inside the tracer's
+    ``checkpoint_write`` span and counts in ``pydcop_checkpoints_total``
+    and, while the registry is active, ``pydcop_checkpoint_write_seconds``
+    (the reference's names).  A failed write raises through the span;
+    nothing here swallows it."""
+    from pydcop_tpu_torch.observability.trace import tracer
+
+    if tracer.enabled:
+        with tracer.span("checkpoint_write", "resilience",
+                         path=path, cycle=int(cycle)):
+            return _write_arrays(path, arrays, cycle=cycle, extra=extra)
+    return _write_arrays(path, arrays, cycle=cycle, extra=extra)
+
+
+def _write_arrays(path: str, arrays: Dict[str, np.ndarray], *, cycle: int,
+                  extra: Optional[Dict[str, Any]] = None
+                  ) -> Tuple[float, float]:
+    from pydcop_tpu_torch.observability.metrics import registry
+
     t0 = time.perf_counter()
     meta = {
         "version": CHECKPOINT_VERSION,
@@ -106,6 +125,14 @@ def _save_arrays(path: str, arrays: Dict[str, np.ndarray], *, cycle: int,
         except OSError:
             pass
         raise
+    registry.counter(
+        "pydcop_checkpoints_total", "Checkpoint snapshots written"
+    ).inc()
+    if registry.active:
+        registry.histogram(
+            "pydcop_checkpoint_write_seconds",
+            "Wall seconds per checkpoint write",
+        ).observe(time.perf_counter() - t0)
     return t1 - t0, time.perf_counter() - t1
 
 

@@ -17,10 +17,15 @@ is ``jax.random``'s, bit for bit (``utils/prng.py``), so a recovered
 run equals the reference's on the same inputs, on the CPU and on the
 card.  With no trips the guarded run equals the unguarded one.
 
+Every trip and every attempt is a trace instant/span and a registry
+counter, as in the reference: a ``guard_trip`` instant and
+``pydcop_guard_trips_total{kind}`` per trip, a ``recovery_rollback``
+span and ``pydcop_recovery_attempts_total{action}`` per attempt, and
+the flight recorder's ``guard_trip`` / ``recovery_exhausted``
+triggers (postmortem bundles).
+
 Not ported yet: device-loss recovery on a partitioned engine
-(``trip_shard``; it comes with multi-GPU runs) and the flight-recorder,
-metrics-registry and tracer hooks (they come with the observability
-slice).
+(``trip_shard``; it comes with multi-GPU runs).
 """
 
 import logging
@@ -30,6 +35,9 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from pydcop_tpu_torch.observability import flight
+from pydcop_tpu_torch.observability.metrics import registry as metrics_registry
+from pydcop_tpu_torch.observability.trace import tracer
 from pydcop_tpu_torch.utils import prng
 from pydcop_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -187,6 +195,12 @@ class RecoveryRun:
         # trips at cycle c.
         self._pending_injections = sorted(policy.trip_cycles)
         self.shard_losses = 0
+        self._m_trips = metrics_registry.counter(
+            "pydcop_guard_trips_total",
+            "Engine segment guard trips")
+        self._m_attempts = metrics_registry.counter(
+            "pydcop_recovery_attempts_total",
+            "Recovery rollback attempts by escalation action")
         self._snap_state = None
         self._snap_values = None
 
@@ -259,43 +273,67 @@ class RecoveryRun:
         (state, values) to continue from.  Raises RecoveryExhausted
         past the restart budget."""
         self.trips.append(violation)
+        self._m_trips.inc(kind=violation.kind)
+        if tracer.active:
+            tracer.instant("guard_trip", "resilience",
+                           kind=violation.kind,
+                           cycle=int(violation.cycle),
+                           detail=violation.detail)
         self.attempts += 1
+        # Flight-recorder anomaly: the escalation is black-box evidence
+        # whether or not the run survives it.
+        flight.trigger("guard_trip", trip_kind=violation.kind,
+                       cycle=int(violation.cycle),
+                       attempt=self.attempts,
+                       detail=violation.detail)
         if self.attempts > self.policy.max_restarts:
+            partial = self._partial()
+            flight.trigger(
+                "recovery_exhausted", force=True,
+                trip_kind=violation.kind,
+                cycle=int(violation.cycle),
+                attempts=self.attempts,
+                last_valid_cycle=self.snapshot_cycle)
             raise RecoveryExhausted(
                 f"recovery budget exhausted after "
                 f"{self.policy.max_restarts} restarts; last trip: "
                 f"{violation.kind} at cycle {violation.cycle}",
                 violations=self.trips, attempts=self.attempts,
-                partial=self._partial(),
+                partial=partial,
             )
         action = self.policy.action_for(self.attempts)
         self.actions.append(action)
+        self._m_attempts.inc(action=action)
         logger.warning(
             "Guard trip (%s at cycle %d): rollback to cycle %s, "
             "attempt %d/%d, action=%s",
             violation.kind, violation.cycle, self.snapshot_cycle,
             self.attempts, self.policy.max_restarts, action,
         )
-        # A copy: a later trip must be able to roll back to this same
-        # snapshot again whatever the continuing loop does.
-        restored = tree_map(torch.clone, self._snap_state)
-        if self.policy.verify_restore:
-            _assert_bit_identical(restored, self._snap_state)
-        if "reseed_noise" in action and self.policy.noise_scale:
-            restored = perturb_state(
-                restored, self.policy.noise_scale,
-                self.policy.noise_seed + self.attempts,
-            )
-        if "damping_bump" in action:
-            engine = self.engine
-            bumped = min(
-                engine.damping + self.policy.damping_bump,
-                self.policy.damping_cap,
-            )
-            logger.warning(
-                "Recovery damping bump: %.3f -> %.3f",
-                engine.damping, bumped)
-            engine.damping = bumped
+        with tracer.span("recovery_rollback", "resilience",
+                         attempt=self.attempts, action=action,
+                         kind=violation.kind,
+                         to_cycle=self.snapshot_cycle):
+            # A copy: a later trip must be able to roll back to this
+            # same snapshot again whatever the continuing loop does.
+            restored = tree_map(torch.clone, self._snap_state)
+            if self.policy.verify_restore:
+                _assert_bit_identical(restored, self._snap_state)
+            if "reseed_noise" in action and self.policy.noise_scale:
+                restored = perturb_state(
+                    restored, self.policy.noise_scale,
+                    self.policy.noise_seed + self.attempts,
+                )
+            if "damping_bump" in action:
+                engine = self.engine
+                bumped = min(
+                    engine.damping + self.policy.damping_bump,
+                    self.policy.damping_cap,
+                )
+                logger.warning(
+                    "Recovery damping bump: %.3f -> %.3f",
+                    engine.damping, bumped)
+                engine.damping = bumped
         # The diverged branch's costs must not poison the next
         # window's verdict.
         self._window.clear()

@@ -53,6 +53,18 @@ from pydcop_tpu_torch.ops.segment_sum import (
 )
 from test_torch_compile import load_both
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op torch thread: the suite runs in several worker
+    processes on one host, and torch's default of one thread per core
+    in each of them oversubscribes it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 PAD_TO = 8
 
 

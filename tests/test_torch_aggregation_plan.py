@@ -40,6 +40,17 @@ from pydcop_tpu_torch.ops.segment_sum import (
 from test_torch_aggregation import _both, _messages, array_graphs
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op torch thread: the suite runs in several worker
+    processes on one host, and torch's default of one thread per core
+    in each of them oversubscribes it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def powerlaw_graph(n_vars=400, d=3, seed=5, hub_rows=(60, 300, 100)):
     """Buckets of arity 1, 2 and 3 whose endpoints are drawn with weight
     (i + 1) ** -0.5; variable 0 is a hub in every bucket (``hub_rows``

@@ -18,6 +18,7 @@ import json
 import jax  # noqa: F401  (imported first: JAX stays on the CPU)
 import numpy as np
 import pytest
+import torch
 
 import pydcop_tpu.engine.autotune as JA
 import pydcop_tpu_torch.engine.autotune as TA
@@ -25,6 +26,17 @@ from pydcop_tpu.engine.compile import compile_dcop as jax_compile
 from pydcop_tpu_torch.algorithms.maxsum import build_engine
 from pydcop_tpu_torch.engine.compile import compile_dcop as torch_compile
 from test_torch_compile import MIXED_YAML, build_coloring_both, load_both
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op torch thread: the suite runs in several worker
+    processes on one host, and torch's default of one thread per core
+    in each of them oversubscribes it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 @pytest.fixture

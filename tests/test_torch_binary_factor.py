@@ -29,6 +29,18 @@ from pydcop_tpu_torch.ops.binary_factor import (
     binary_factor_update_reference,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op torch thread: the suite runs in several worker
+    processes on one host, and torch's default of one thread per core
+    in each of them oversubscribes it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 CASES = [
     (7, 3, 0),        # smaller than one lane block
     (128, 3, 1),      # exactly one block

@@ -16,6 +16,7 @@ import os
 import jax  # noqa: F401  (imported first: JAX stays on the CPU)
 import numpy as np
 import pytest
+import torch
 
 import pydcop_tpu.engine.compile as JC
 import pydcop_tpu_torch.engine.compile as TC
@@ -23,6 +24,18 @@ from pydcop_tpu.dcop import yamldcop as jax_yaml
 from pydcop_tpu.engine.compile import compile_dcop as jax_compile
 from pydcop_tpu_torch.dcop import yamldcop as torch_yaml
 from pydcop_tpu_torch.engine.compile import compile_dcop as torch_compile
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op torch thread: the suite runs in several worker
+    processes on one host, and torch's default of one thread per core
+    in each of them oversubscribes it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 
 INSTANCES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "instances")

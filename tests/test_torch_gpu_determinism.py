@@ -32,6 +32,14 @@ repository's root conftest imports JAX, so where JAX is missing run:
   the dense run on the card and the pruned run on the CPU, values and
   every final message, with the binary kernel launched once per dense
   cycle.
+- ``var_update.cu`` (both entry points) equals its plain version bit
+  for bit on messages half of which lie in 1.2e-38 .. 1e-36 (ROADMAP
+  Queue C's state), on a four-bucket arity 1-4 graph and on the D = 30
+  graph whose domain mean is vectorised, at damping 0, 0.5 and 0.7 and
+  cycles 0 and 3; 60 cycles on the card from that state equal 60 on
+  the CPU, every message and count.
+- An observed solve's profiler entry on the card lists the three hand
+  kernels by name (``torch.profiler``).
 """
 
 import numpy as np
@@ -55,6 +63,18 @@ from pydcop_tpu_torch.ops.segment_sum import (
     segment_sum,
     segment_sum_reference,
 )
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op torch thread: the suite runs in several worker
+    processes on one host, and torch's default of one thread per core
+    in each of them oversubscribes it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 
 CYCLES = 200
 
@@ -374,3 +394,158 @@ def test_pruned_run_on_card_equals_dense_and_cpu():
         for field in ("v2f", "f2v", "v2f_count", "f2v_count"):
             for a, b in zip(state[field], s0[field]):
                 np.testing.assert_array_equal(a, b, err_msg=field)
+
+
+FLT_MIN = float(np.finfo(np.float32).tiny)
+
+
+def tiny_state(graph, seed):
+    """A cycle-3 state of ``graph`` as numpy, about half of all message
+    slots of magnitude 1.2e-38 .. 1e-36 (ROADMAP Queue C)."""
+    rng = np.random.default_rng(seed)
+    valid = graph.var_valid.cpu().numpy()
+    d = valid.shape[1]
+    out = {"v2f": [], "f2v": [], "v2f_count": [], "f2v_count": []}
+    for b in graph.buckets:
+        ids = b.var_ids.cpu().numpy()
+        shape = ids.shape + (d,)
+        for field in ("v2f", "f2v"):
+            m = rng.normal(size=shape)
+            tiny = rng.random(shape) < 0.5
+            m[tiny] = np.sign(m[tiny]) * 10.0 ** rng.uniform(
+                np.log10(FLT_MIN), -36, int(tiny.sum()))
+            out[field].append(np.where(valid[ids], m.astype(np.float32),
+                                       np.float32(1e9)))
+        for field in ("v2f_count", "f2v_count"):
+            out[field].append(rng.integers(0, 6, size=ids.shape)
+                              .astype(np.int8))
+    return dict(out, stable=False, cycle=3)
+
+
+def fold_arrays(d, n_vars=120, seed=17):
+    """A unary and a binary bucket, the binary one with more edges than
+    V + 1 (its belief sum taken on its own: the fused domain mean)."""
+    rng = np.random.default_rng(seed)
+    unary = rng.integers(0, 40, size=(n_vars, d)).astype(np.float32)
+    ids2 = rng.integers(0, n_vars, size=(2 * n_vars, 2)).astype(np.int32)
+    same = ids2[:, 0] == ids2[:, 1]
+    ids2[same, 1] = (ids2[same, 0] + 1) % n_vars
+    eye = np.ascontiguousarray(np.broadcast_to(
+        np.eye(d, dtype=np.float32), (2 * n_vars, d, d)))
+    var_costs = np.zeros((n_vars + 1, d), np.float32)
+    var_valid = np.ones((n_vars + 1, d), bool)
+    var_valid[-1] = False
+    return var_costs, var_valid, [
+        (unary, np.arange(n_vars, dtype=np.int32)[:, None]), (eye, ids2)]
+
+
+PARAMS = AlgorithmDef.build_with_default_param("maxsum").params
+
+
+def multi_bucket_arrays(rng, n_vars=500, d=4):
+    """Buckets of arity 1-4 over ``n_vars`` variables, D = 4, a tenth
+    of each bucket's rows padding (the sentinel row)."""
+    var_costs = rng.normal(size=(n_vars + 1, d)).astype(np.float32)
+    buckets = []
+    for arity, f in ((1, 300), (2, 800), (3, 400), (4, 200)):
+        ids = rng.integers(0, n_vars, size=(f, arity)).astype(np.int32)
+        ids[-f // 10:] = n_vars
+        buckets.append((np.zeros((f,) + (d,) * arity, np.float32), ids))
+    return var_costs, np.ones_like(var_costs, bool), buckets
+
+
+def _subnormal_graphs():
+    yield "multi_bucket", multi_bucket_arrays(np.random.default_rng(11))
+    yield "fold_D30", fold_arrays(30)
+
+
+def _bits(a):
+    return a.view(np.int32) if a.dtype == np.float32 else a
+
+
+@pytest.mark.gpu
+def test_var_update_kernel_equals_plain_version():
+    _need_card()
+    from pydcop_tpu_torch.ops import var_update as vu
+
+    for label, arrays in _subnormal_graphs():
+        graph = graph_from_numpy(*arrays, device="cuda")
+        s = tiny_state(graph, 3)
+        f2v = [torch.tensor(m, device="cuda") for m in s["f2v"]]
+        v2f = [torch.tensor(m, device="cuda") for m in s["v2f"]]
+        cnt = [torch.tensor(c, device="cuda") for c in s["v2f_count"]]
+        beliefs, sums = ops.aggregate_beliefs(graph, tuple(f2v))
+        fused = ops._sums_fused(graph)
+        for cycle in (0, 3):
+            cyc = torch.tensor(cycle, dtype=torch.int32, device="cuda")
+            for damping in (0.0, 0.5, 0.7):
+                for i, b in enumerate(graph.buckets):
+                    for side in ("v2f", "send"):
+                        if side == "v2f":
+                            args = (beliefs, sums, f2v[i], v2f[i], cnt[i],
+                                    b.var_ids, graph.var_valid, cyc)
+                            pair = (vu.v2f_update, vu.v2f_update_reference)
+                            kw = dict(damping=damping, stability=0.1,
+                                      fused=fused)
+                        else:
+                            args = (f2v[i], v2f[i], cnt[i], b.var_ids,
+                                    graph.var_valid, cyc)
+                            pair = (vu.send_update,
+                                    vu.send_update_reference)
+                            kw = dict(damping=damping, stability=0.1)
+                        flags = [cyc != 0, cyc != 0]
+                        before = _build.launch_counts[vu.KERNEL]
+                        got = pair[0](*args, flags[0], **kw)
+                        want = pair[1](*args, flags[1], **kw)
+                        assert _build.launch_counts[vu.KERNEL] == before + 1
+                        assert torch.equal(got[0].view(torch.int32),
+                                           want[0].view(torch.int32)), (
+                            label, side, cycle, damping, i)
+                        assert torch.equal(got[1], want[1])
+                        assert bool(flags[0]) == bool(flags[1])
+
+
+@pytest.mark.gpu
+def test_card_equals_cpu_on_the_subnormal_state():
+    _need_card()
+    from pydcop_tpu_torch.engine.convert import state_from_numpy
+
+    cases = [("colouring", build_engine(coloring(300), PARAMS).graph,
+              build_engine(coloring(300), PARAMS, device="cpu").graph)]
+    for label, arrays in _subnormal_graphs():
+        cases.append((label, graph_from_numpy(*arrays, device="cuda"),
+                      graph_from_numpy(*arrays, device="cpu")))
+    for label, card, cpu in cases:
+        s = tiny_state(cpu, 1)
+        for damping in (0.5, 0.7):
+            runs = []
+            for graph, dev in ((card, "cuda"), (cpu, "cpu")):
+                state, values = ops.run_maxsum_from(
+                    graph, state_from_numpy(**s, device=dev), 60,
+                    damping=damping, stop_on_convergence=False)
+                runs.append((state_to_numpy(state), values.cpu().numpy()))
+            (a, va), (b, vb) = runs
+            np.testing.assert_array_equal(va, vb)
+            for field in ("v2f", "f2v", "v2f_count", "f2v_count"):
+                for x, y in zip(a[field], b[field]):
+                    np.testing.assert_array_equal(
+                        _bits(x), _bits(y), err_msg=f"{label} {field}")
+
+
+@pytest.mark.gpu
+def test_profiler_on_the_card_lists_the_hand_kernels(tmp_path):
+    """The first segment of an observed solve is profiled on the card:
+    the three hand kernels appear by name, and the entry says its
+    source."""
+    _need_card()
+    from pydcop_tpu_torch.api import solve
+
+    res = solve(coloring(300), "maxsum", max_cycles=20, metrics_every=10,
+                metrics_file=str(tmp_path / "m.jsonl"))
+    (entry,) = res["metrics"]["xla_cost"].values()
+    assert entry["available"] is True
+    assert entry["source"] == "torch.profiler"
+    names = " ".join(entry["kernels"])
+    for kernel in ("binary_factor_update", "segment_sum", "var_update"):
+        assert kernel in names, names
+    assert entry["kernels_per_cycle"] > 0

@@ -42,6 +42,18 @@ from pydcop_tpu_torch.utils import prng
 from pydcop_tpu_torch.utils.tree import tree_leaves
 from test_torch_gpu_determinism import coloring
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op torch thread: the suite runs in several worker
+    processes on one host, and torch's default of one thread per core
+    in each of them oversubscribes it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 CYCLES = 100
 EVERY = 25
 

@@ -2,8 +2,9 @@
 
 Checked in a fresh interpreter (this test process already imported jax
 through the root conftest): every module of pydcop_tpu_torch is
-imported (among them the resilience modules, the PRNG and the
-delegating algorithms), then ``sys.modules`` must hold no ``jax*``
+imported (among them the resilience modules, the PRNG, the
+delegating algorithms, the fused per-edge update and the observability
+modules), then ``sys.modules`` must hold no ``jax*``
 module and no ``pydcop_tpu``/``pydcop_tpu.*`` module.  The sources of
 the package, of chip_smoke.py and of chip_compare.py are also scanned
 for such imports.
@@ -18,6 +19,19 @@ from pathlib import Path
 
 import jax  # noqa: F401  (imported first: JAX stays on the CPU)
 import pytest
+import torch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op torch thread: the suite runs in several worker
+    processes on one host, and torch's default of one thread per core
+    in each of them oversubscribes it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -42,6 +56,20 @@ REQUIRED = [
     "pydcop_tpu_torch.utils.tree",
     "pydcop_tpu_torch.algorithms.amaxsum",
     "pydcop_tpu_torch.algorithms.maxsum_dynamic",
+    "pydcop_tpu_torch.ops.var_update",
+    "pydcop_tpu_torch.ops.flush",
+    "pydcop_tpu_torch.observability",
+    "pydcop_tpu_torch.observability.trace",
+    "pydcop_tpu_torch.observability.metrics",
+    "pydcop_tpu_torch.observability.flight",
+    "pydcop_tpu_torch.observability.profiler",
+    "pydcop_tpu_torch.observability.engine_probe",
+    "pydcop_tpu_torch.observability.efficiency",
+    "pydcop_tpu_torch.observability.server",
+    "pydcop_tpu_torch.engine.roofline",
+    "pydcop_tpu_torch.utils.cleanenv",
+    "pydcop_tpu_torch.commands.trace",
+    "pydcop_tpu_torch.commands.profile",
 ]
 
 

@@ -30,7 +30,21 @@ from pydcop_tpu_torch.engine.convert import (
     state_to_numpy,
 )
 from pydcop_tpu_torch.ops import maxsum as T
+from pydcop_tpu_torch.ops import var_update as V
+from pydcop_tpu_torch.ops.flush import ftz
 from test_torch_compile import MIXED_YAML, build_coloring_both, load_both
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op torch thread: the suite runs in several worker
+    processes on one host, and torch's default of one thread per core
+    in each of them oversubscribes it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 
 KW = dict(damping=0.5, damp_vars=True, damp_factors=True, stability=0.1)
 
@@ -139,9 +153,8 @@ def test_damp(first, damping):
     old = tuple(b["v2f"])
     damp = jax.jit(partial(J._damp, damping=damping))
     _eq(damp(new, old, first=jnp.asarray(first)),
-        T._damp(tuple(torch.from_numpy(x) for x in new),
-                tuple(torch.from_numpy(x) for x in old), damping,
-                torch.tensor(first)))
+        tuple(V.damp(torch.from_numpy(n), torch.from_numpy(o), damping,
+                     torch.tensor(first)) for n, o in zip(new, old)))
 
 
 @pytest.mark.parametrize("damping", [0.5, 0.7, 0.25])
@@ -165,10 +178,10 @@ def test_damped_messages_decaying_to_zero_flush_like_the_reference(damping):
     new, old = msgs
     damp = jax.jit(partial(J._damp, damping=damping))
     ref = damp(new, old, first=jnp.asarray(False))
-    out = T._flush_subnormals(T._damp(
-        tuple(torch.from_numpy(x) for x in new),
-        tuple(torch.from_numpy(x) for x in old), damping,
-        torch.tensor(False)))
+    out = tuple(
+        ftz(V.damp(torch.from_numpy(n), torch.from_numpy(o), damping,
+                   torch.tensor(False)))
+        for n, o in zip(new, old))
     for a, b in zip(ref, out):
         np.testing.assert_array_equal(np.asarray(a).view(np.uint32),
                                       b.numpy().view(np.uint32))
@@ -190,7 +203,7 @@ def test_send_or_suppress(first):
     count = s["v2f_count"][0]
     ref = J._send_or_suppress(cand, prev, count, 0.1, valid,
                               jnp.asarray(first))
-    out = T._send_or_suppress(
+    out = V.send_or_suppress(
         torch.from_numpy(cand), torch.from_numpy(prev),
         torch.from_numpy(count), 0.1, torch.from_numpy(valid),
         torch.tensor(first))

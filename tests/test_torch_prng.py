@@ -16,6 +16,18 @@ from pydcop_tpu.resilience.recovery import perturb_state as jax_perturb
 from pydcop_tpu_torch.resilience.recovery import perturb_state
 from pydcop_tpu_torch.utils import prng
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op torch thread: the suite runs in several worker
+    processes on one host, and torch's default of one thread per core
+    in each of them oversubscribes it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 SEEDS = [0, 1, 7, 2 ** 31 - 1]
 SHAPES = [(1,), (7,), (3, 5), (4, 2, 3), (2, 1, 3, 2), (1001,)]
 

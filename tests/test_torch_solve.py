@@ -25,6 +25,18 @@ from pydcop_tpu_torch.api import solve as torch_solve
 from test_torch_compile import INSTANCES, build_coloring_both, load_both
 from test_torch_prune import loopy_both
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op torch thread: the suite runs in several worker
+    processes on one host, and torch's default of one thread per core
+    in each of them oversubscribes it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
