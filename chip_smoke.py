@@ -22,8 +22,11 @@ CPU, resumed on the card), guard-and-recover through the whole
 escalation ladder, and decimation, each held equal to the plain or the
 CPU run in every final message.  It also holds the fused
 per-edge kernel ``csrc/var_update.cu`` against its plain version at
-every shape, the card's run of a state full of subnormal-producing
-messages against the CPU's, and drives the observability paths: a
+every shape (every D = 1..8 on buckets no tile divides, and on views
+off a 16-byte boundary), times both its entry points against one bound
+that counts the work, and its tile sizes at scale, holds the card's
+run of a state full of subnormal-producing messages against the CPU's,
+and drives the observability paths: a
 traced, metered flagship solve equal to the plain one (with its
 profiler entry: kernels per cycle and the three hand kernels), the
 engine probe at the 1M-variable scale (with the roofline's
@@ -1322,12 +1325,16 @@ def fold_arrays(d: int, n_vars: int = 200, seed: int = 17):
     return var_costs, var_valid, [(unary, ids1), (eye, ids2)]
 
 
-def var_update_bound(n_edges: int, n_rows: int, d: int):
-    """(bound_ms, bound_by) of v2f_update: per edge its f2v and last
-    sent rows, var_ids (int64) and count read once, the sent row and
-    count written once; per variable row beliefs, sums and var_valid
-    read once; against ~16 f32 operations per edge slot."""
-    bytes_moved = (n_edges * (4 * d * 3 + 8 + 2) + n_rows * (2 * 4 * d + d))
+def var_update_bound(n_edges: int, n_rows: int, d: int, var_side: bool):
+    """(bound_ms, bound_by) of one var_update call, counting the work,
+    not an implementation: per edge its message row and last sent row
+    read (2 * 4D bytes), the sent row written (4D), its count read and
+    written (2), its validity (1) and, for v2f_update, its variable's
+    index (4); per variable row, for v2f_update, beliefs and sums read
+    once (2 * 4D); against ~16 f32 operations per edge slot."""
+    per_edge = 3 * 4 * d + 2 + 1 + (4 if var_side else 0)
+    bytes_moved = n_edges * per_edge + (n_rows * 2 * 4 * d if var_side
+                                        else 0)
     ops = 16 * n_edges * d
     bytes_ms = bytes_moved / H100_BYTES_PER_S * 1e3
     ops_ms = ops / H100_F32_OPS_PER_S * 1e3
@@ -1335,27 +1342,78 @@ def var_update_bound(n_edges: int, n_rows: int, d: int):
                                                            "operations")
 
 
+def random_validity_arrays(d: int, seed: int, n_vars: int = 700):
+    """(var_costs, var_valid, buckets): buckets of arity 1-3 whose edge
+    counts (333, 3,002 and 771) are no multiple of any tile of the
+    var_update kernel, over variables with random valid slots (any
+    subset), a tenth of each bucket padding (the sentinel row)."""
+    rng = np.random.default_rng(seed)
+    var_valid = rng.random((n_vars + 1, d)) < 0.7
+    var_valid[-1] = False
+    var_costs = rng.normal(size=(n_vars + 1, d)).astype(np.float32)
+    buckets = []
+    for arity, f in ((1, 333), (2, 1_501), (3, 257)):
+        ids = rng.integers(0, n_vars, size=(f, arity)).astype(np.int32)
+        ids[-f // 10:] = n_vars
+        buckets.append((np.zeros((f,) + (d,) * arity, np.float32), ids))
+    return var_costs, var_valid, buckets
+
+
 def var_update_graphs(ctx, flagship_graph, scale_graph):
     """(label, graph on the card) at the shapes var_update is checked
     at: the flagship, the scale graph, the four-bucket arity 1-4 graph,
-    the fold graphs at D = 28..33 and the D = 128 time-to-cost graph."""
+    random valid slots at every D = 1..8 on ragged buckets, the fold
+    graphs at D = 28..33 and the D = 128 time-to-cost graph."""
     g = ctx["graph_from_numpy"]
     yield "flagship", flagship_graph
     yield "scale", scale_graph
     yield "multi_bucket_arity_1_4", g(
         *multi_bucket_arrays(np.random.default_rng(11)), device="cuda")
+    for d in range(1, 9):
+        yield f"ragged_D{d}", g(*random_validity_arrays(d, 90 + d),
+                                device="cuda")
     for d in (28, 29, 30, 31, 32, 33):
         yield f"fold_D{d}", g(*fold_arrays(d), device="cuda")
     yield "ttc_D128", g(*ttc_arrays(TTC_VARS), device="cuda")
+
+
+def unaligned_copy(torch, t):
+    """A copy of ``t`` as a contiguous view one element into a larger
+    buffer: its base off a 16-byte boundary."""
+    buf = torch.zeros(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def var_update_calls(vu, graph, beliefs, sums, f2v, v2f, cnt, i, cyc,
+                     stable, damping, fused, arrays=None):
+    """{side: (kernel call, plain call)} of bucket ``i``: zero-argument
+    functions, the kernel's with the bucket's arrays (or ``arrays``)."""
+    b = graph.buckets[i]
+    arrays = arrays or dict(var_ids32=b.var_ids32, edge_valid=b.edge_valid)
+    v_args = (beliefs, sums, f2v, v2f, cnt, b.var_ids, graph.var_valid,
+              cyc, stable)
+    s_args = (f2v, v2f, cnt, b.var_ids, graph.var_valid, cyc, stable)
+    kw = dict(damping=damping, stability=0.1)
+    return {
+        "v2f": (lambda: vu.v2f_update(*v_args, fused=fused, **kw, **arrays),
+                lambda: vu.v2f_update_reference(*v_args, fused=fused, **kw)),
+        "send": (lambda: vu.send_update(*s_args, **kw, **arrays),
+                 lambda: vu.send_update_reference(*s_args, **kw)),
+    }
 
 
 def phase_var_update(ctx, flagship_graph, scale_graph):
     """var_update.cu against its plain version on the card, bit for
     bit (messages as int32 bit patterns, counts, the stable flag), at
     every shape of :func:`var_update_graphs`, from Queue C's tiny-
-    message state, at cycles 0 and 3 and damping 0, 0.5 and 0.7; then
-    both entry points timed at the flagship and scale shapes."""
-    torch, ops, _build = ctx["torch"], ctx["ops"], ctx["_build"]
+    message state, at cycles 0 and 3 and damping 0, 0.5 and 0.7, with
+    the bucket's inputs as they are and (D <= 8) as views off a 16-byte
+    boundary; then both entry points timed at the flagship, scale and
+    D = 128 shapes against their bounds, and the scale shape at every
+    tile size the D <= 8 kernel has."""
+    torch, ops = ctx["torch"], ctx["ops"]
     from pydcop_tpu_torch.ops import var_update as vu
 
     t_phase = time.perf_counter()
@@ -1364,82 +1422,92 @@ def phase_var_update(ctx, flagship_graph, scale_graph):
     for label, graph in var_update_graphs(ctx, flagship_graph, scale_graph):
         s = tiny_state_arrays(graph, seed=len(checked))
         dev = graph.var_costs.device
+        d = int(graph.var_costs.shape[1])
         f2v = [torch.tensor(m, device=dev) for m in s["f2v"]]
         v2f = [torch.tensor(m, device=dev) for m in s["v2f"]]
         cnt = [torch.tensor(c, device=dev) for c in s["v2f_count"]]
         beliefs, sums = ops.aggregate_beliefs(graph, tuple(f2v))
         fused = ops._sums_fused(graph)
         n = 0
-        for cycle in (0, 3):
-            cyc = torch.tensor(cycle, dtype=torch.int32, device=dev)
-            for damping in (0.0, 0.5, 0.7):
-                for i, b in enumerate(graph.buckets):
-                    for side in ("v2f", "send"):
-                        if side == "v2f":
-                            args = (beliefs, sums, f2v[i], v2f[i], cnt[i],
-                                    b.var_ids, graph.var_valid, cyc)
-                            kernel, plain = vu.v2f_update, \
-                                vu.v2f_update_reference
-                            kw = dict(damping=damping, stability=0.1,
-                                      fused=fused)
-                        else:
-                            args = (f2v[i], v2f[i], cnt[i], b.var_ids,
-                                    graph.var_valid, cyc)
-                            kernel, plain = vu.send_update, \
-                                vu.send_update_reference
-                            kw = dict(damping=damping, stability=0.1)
-                        flag_k = cyc != 0
-                        flag_p = cyc != 0
-                        out_k, cnt_k = kernel(*args, flag_k, **kw)
-                        out_p, cnt_p = plain(*args, flag_p, **kw)
-                        torch.cuda.synchronize()
-                        err = float((out_k - out_p).abs().max())
-                        max_err = max(max_err, err)
-                        if not (torch.equal(out_k.view(torch.int32),
-                                            out_p.view(torch.int32))
-                                and torch.equal(cnt_k, cnt_p)
-                                and bool(flag_k) == bool(flag_p)):
-                            fail(f"var_update {side} != plain on {label} "
-                                 f"bucket {i} cycle {cycle} damping "
-                                 f"{damping}: max |err| {err}")
-                        if not torch.isfinite(out_k).all():
-                            fail(f"var_update: non-finite output on {label}")
-                        n += 1
+        for i, b in enumerate(graph.buckets):
+            layouts = [("as placed", f2v[i], v2f[i], cnt[i], None)]
+            if b.edge_valid is not None:
+                layouts.append(("unaligned", *(
+                    unaligned_copy(torch, t) for t in (f2v[i], v2f[i],
+                                                       cnt[i])),
+                    {k: unaligned_copy(torch, getattr(b, k))
+                     for k in ("var_ids32", "edge_valid")}))
+            for layout, m, o, c, arrays in layouts:
+                for cycle in (0, 3):
+                    cyc = torch.tensor(cycle, dtype=torch.int32, device=dev)
+                    for damping in (0.0, 0.5, 0.7):
+                        flags = [cyc != 0, cyc != 0]
+                        calls = [var_update_calls(
+                            vu, graph, beliefs, sums, m, o, c, i, cyc, flag,
+                            damping, fused, arrays) for flag in flags]
+                        for side in ("v2f", "send"):
+                            out_k, cnt_k = calls[0][side][0]()
+                            out_p, cnt_p = calls[1][side][1]()
+                            torch.cuda.synchronize()
+                            err = float((out_k - out_p).abs().max())
+                            max_err = max(max_err, err)
+                            if not (torch.equal(out_k.view(torch.int32),
+                                                out_p.view(torch.int32))
+                                    and torch.equal(cnt_k, cnt_p)
+                                    and bool(flags[0]) == bool(flags[1])):
+                                fail(f"var_update {side} != plain on {label}"
+                                     f" bucket {i} ({layout}) cycle {cycle} "
+                                     f"damping {damping}: max |err| {err}")
+                            if not torch.isfinite(out_k).all():
+                                fail(f"var_update: non-finite output on "
+                                     f"{label}")
+                            n += 1
         checked[label] = dict(
-            V1=int(graph.var_costs.shape[0]), D=int(graph.var_costs.shape[1]),
+            V1=int(graph.var_costs.shape[0]), D=d,
             buckets=[list(b.var_ids.shape) for b in graph.buckets],
             fused=fused, calls_compared=n)
-        if label in ("flagship", "scale"):
-            b = graph.buckets[0]
+        if label in ("flagship", "scale", "ttc_D128"):
             stable = torch.ones((), dtype=torch.bool, device=dev)
             cyc = torch.tensor(3, dtype=torch.int32, device=dev)
-            args = (beliefs, sums, f2v[0], v2f[0], cnt[0], b.var_ids,
-                    graph.var_valid, cyc, stable)
-            kw = dict(damping=0.5, stability=0.1, fused=fused)
-            reps = 200 if label == "flagship" else 50
-            k_ms = graph_ms(torch, lambda: vu.v2f_update(*args, **kw), reps)
-            p_ms = graph_ms(torch, lambda: vu.v2f_update_reference(
-                *args, **kw), reps)
-            s_args = (f2v[0], v2f[0], cnt[0], b.var_ids, graph.var_valid,
-                      cyc, stable)
-            s_ms = graph_ms(torch, lambda: vu.send_update(
-                *s_args, damping=0.5, stability=0.1), reps)
-            sp_ms = graph_ms(torch, lambda: vu.send_update_reference(
-                *s_args, damping=0.5, stability=0.1), reps)
-            n_edges = b.var_ids.numel()
-            d = int(graph.var_costs.shape[1])
-            bound_ms, bound_by = var_update_bound(
-                n_edges, int(graph.var_costs.shape[0]), d)
-            timing[label] = dict(
-                E=n_edges, D=d, ms=k_ms[2], plain_ms=p_ms[2],
-                ms_spread=[k_ms[0], k_ms[-1]],
-                plain_ms_spread=[p_ms[0], p_ms[-1]],
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                send_update_ms=s_ms[2], send_update_plain_ms=sp_ms[2])
+            calls = var_update_calls(vu, graph, beliefs, sums, f2v[0],
+                                     v2f[0], cnt[0], 0, cyc, stable, 0.5,
+                                     fused)
+            reps = 50 if label == "scale" else 200
+            n_edges = graph.buckets[0].var_ids.numel()
+            for side in ("v2f", "send"):
+                k_ms, p_ms = (graph_ms(torch, fn, reps)
+                              for fn in calls[side])
+                bound_ms, bound_by = var_update_bound(
+                    n_edges, int(graph.var_costs.shape[0]), d, side == "v2f")
+                key = label if side == "v2f" else f"send_{label}"
+                timing[key] = dict(
+                    entry=f"{side}_update", E=n_edges, D=d, ms=k_ms[2],
+                    plain_ms=p_ms[2], ms_spread=[k_ms[0], k_ms[-1]],
+                    plain_ms_spread=[p_ms[0], p_ms[-1]],
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+            if label == "scale":
+                timing["scale_tile_items"] = tile_items_sweep(
+                    torch, vu, calls, d, reps)
         del graph, f2v, v2f, cnt, beliefs, sums
     return dict(shapes=checked, tolerance="exact (int32 bit patterns)",
                 max_abs_err=max_err, timing=timing,
                 phase_s=time.perf_counter() - t_phase)
+
+
+def tile_items_sweep(torch, vu, calls, d: int, reps: int):
+    """Device ms (median of five replays) of both entry points at every
+    tile size of the D <= 8 kernel: {side: {edges a thread: ms}}."""
+    chosen = vu.TILE_ITEMS[d]
+    out = {"chosen": chosen}
+    try:
+        for side in ("v2f", "send"):
+            out[side] = {}
+            for items in (1, 2, 4, 8):
+                vu.TILE_ITEMS[d] = items
+                out[side][items] = graph_ms(torch, calls[side][0], reps)[2]
+    finally:
+        vu.TILE_ITEMS[d] = chosen
+    return out
 
 
 def phase_subnormal_state(ctx):
@@ -1956,9 +2024,9 @@ def main() -> int:
     scale_graph = graphs["scale"]
     del graphs, graph, f2v
 
-    # 4b. var_update (this slice): kernel vs plain bit for bit at every
-    # shape, timed at the flagship and scale shapes; then the card
-    # against the CPU on ROADMAP Queue C's subnormal state.
+    # 4b. var_update: kernel vs plain bit for bit at every shape, both
+    # entry points timed at the flagship, scale and D = 128 shapes; then
+    # the card against the CPU on ROADMAP Queue C's subnormal state.
     ctx = dict(torch=torch, ops=ops, api=api, _build=_build,
                graph_from_numpy=graph_from_numpy,
                state_to_numpy=state_to_numpy, build_engine=build_engine,
@@ -2007,7 +2075,8 @@ def main() -> int:
     tensors = [engine.graph.var_costs, engine.graph.var_valid,
                engine.graph.agg_perm, engine.graph.agg_offsets,
                engine.graph.agg_buckets,
-               *[t for b in engine.graph.buckets for t in b],
+               *[t for b in engine.graph.buckets for t in b
+                 if t is not None],
                *state.v2f, *state.f2v, *state.v2f_count, *state.f2v_count,
                state.stable, state.cycle]
     if not all(t.is_cuda for t in tensors):

@@ -31,9 +31,23 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     return dev
 
 
+# Widest domain whose per-edge validity fits one byte (``edge_valid``).
+EDGE_VALID_MAX_D = 8
+
+
 class TorchFactorBucket(NamedTuple):
+    """One bucket on the device.  ``var_ids32`` holds ``var_ids``'s
+    values as int32 and ``edge_valid`` each edge's valid slots as bits
+    (bit k of ``[f, p]`` is ``var_valid[var_ids[f, p], k]``), ``None``
+    above ``EDGE_VALID_MAX_D``: what ``ops/var_update.py``'s kernel
+    reads instead of int64 indices and ``var_valid`` rows.  Both are
+    built from the host arrays in :func:`to_device_graph`, the one place
+    a bucket is placed; ``var_valid`` never changes on a placed graph."""
+
     costs: torch.Tensor    # [F, Dmax]*arity float32
     var_ids: torch.Tensor  # [F, arity] int64 (sentinel V on padding)
+    var_ids32: torch.Tensor  # [F, arity] int32, the same values
+    edge_valid: Optional[torch.Tensor]  # [F, arity] uint8 bits (D <= 8)
 
 
 class TorchFactorGraph(NamedTuple):
@@ -102,6 +116,17 @@ def aggregation_arrays(buckets, n_segments: int
     return perm, offsets, starts
 
 
+def edge_valid_bits(var_valid: np.ndarray,
+                    var_ids: np.ndarray) -> Optional[np.ndarray]:
+    """[F, arity] uint8 whose bit k is ``var_valid[var_ids[f, p], k]``,
+    or ``None`` when the domain is wider than ``EDGE_VALID_MAX_D``."""
+    var_valid = np.asarray(var_valid, bool)
+    if var_valid.shape[1] > EDGE_VALID_MAX_D:
+        return None
+    rows = np.packbits(var_valid, axis=1, bitorder="little")[:, 0]
+    return rows[np.asarray(var_ids)]
+
+
 def to_device_graph(graph: CompiledFactorGraph,
                     device: DeviceLike = "cuda") -> TorchFactorGraph:
     """Move a host-compiled graph onto ``device`` (resolved by the
@@ -115,13 +140,18 @@ def to_device_graph(graph: CompiledFactorGraph,
     perm, offsets, starts = aggregation_arrays(
         [b.var_ids for b in graph.buckets], graph.var_costs.shape[0])
     tiles = aggregation_plan(offsets, graph.var_costs.shape[1])
+
+    def bucket(b):
+        bits = edge_valid_bits(graph.var_valid, b.var_ids)
+        return TorchFactorBucket(
+            put(b.costs, torch.float32), put(b.var_ids, torch.int64),
+            put(b.var_ids, torch.int32),
+            None if bits is None else put(bits, torch.uint8))
+
     return TorchFactorGraph(
         var_costs=put(graph.var_costs, torch.float32),
         var_valid=put(graph.var_valid, torch.bool),
-        buckets=tuple(
-            TorchFactorBucket(put(b.costs, torch.float32),
-                              put(b.var_ids, torch.int64))
-            for b in graph.buckets),
+        buckets=tuple(bucket(b) for b in graph.buckets),
         agg_perm=put(perm, torch.int32),
         agg_offsets=put(offsets, torch.int32),
         agg_buckets=put(starts, torch.int32),

@@ -380,13 +380,15 @@ def superstep(state: MaxSumState, graph: TorchFactorGraph, *,
         sent, cnt = send_update(
             f2v_cand[i], state.f2v[i], state.f2v_count[i], bucket.var_ids,
             graph.var_valid, state.cycle, stable, damping=f_damping,
-            stability=stability)
+            stability=stability, var_ids32=bucket.var_ids32,
+            edge_valid=bucket.edge_valid)
         f2v_new.append(sent)
         f2v_count.append(cnt)
         sent, cnt = v2f_update(
             beliefs, sums, state.f2v[i], state.v2f[i], state.v2f_count[i],
             bucket.var_ids, graph.var_valid, state.cycle, stable,
-            damping=v_damping, stability=stability, fused=fused)
+            damping=v_damping, stability=stability, fused=fused,
+            var_ids32=bucket.var_ids32, edge_valid=bucket.edge_valid)
         v2f_new.append(sent)
         v2f_count.append(cnt)
 

@@ -18,21 +18,34 @@ Every floating-point operation flushes a subnormal result to zero, as
 XLA:CPU and the TPU do (``ops/flush.py``).  On a CUDA tensor the
 wrappers launch ``csrc/var_update.cu`` and raise if the launch fails; on
 a CPU tensor they run the plain version.
+
+The kernel reads the bucket's placement arrays (``device.py``):
+``var_ids32``, the int32 copy of ``var_ids``, and at D <= 8
+``edge_valid``, each edge's valid slots as bits.  The plain versions
+take validity from ``var_valid[var_ids]``, the reference's form; on a
+CPU tensor the new arrays are only checked.
 """
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from pydcop_tpu_torch.device import EDGE_VALID_MAX_D
 from pydcop_tpu_torch.engine.compile import BIG
 from pydcop_tpu_torch.ops import _build
 from pydcop_tpu_torch.ops.ell import WINDOW, window_sum
 from pydcop_tpu_torch.ops.flush import ftz
 
 KERNEL = "var_update"
+
+# Edges a thread of the D <= 8 kernel takes at most (1, 2, 4 or 8), by
+# D; a block of BLOCK_THREADS takes that many times as many.  Chosen on
+# the H100 (PERF.md §6).
+TILE_ITEMS = {1: 4, 2: 4, 3: 4, 4: 4, 5: 2, 6: 2, 7: 2, 8: 2}
+BLOCK_THREADS = 256
 
 # Reference maxsum.py:106 SAME_COUNT: a message that approx-matches the
 # previously sent one is re-sent at most this many times, then the edge
@@ -203,6 +216,8 @@ def v2f_update_reference(beliefs: torch.Tensor, sums: torch.Tensor,
 
 def _check(named, dev):
     for name, t, dtype in named:
+        if t is None:
+            continue
         if t.dtype != dtype:
             raise TypeError(f"var_update: {name} must be {dtype}, "
                             f"got {t.dtype}")
@@ -215,30 +230,62 @@ def _check(named, dev):
         raise ValueError(f"unsupported device {dev}")
 
 
-def _check_edges(prev, count, var_ids, var_valid, cycle, stable):
+def _check_edges(prev, count, var_ids, var_valid, cycle, stable,
+                 var_ids32, edge_valid, var_side):
     if var_ids.dim() != 2 or tuple(prev.shape[:2]) != tuple(var_ids.shape):
         raise ValueError(
             f"messages must be [F, arity, D] over var_ids [F, arity], got "
             f"{tuple(prev.shape)} and {tuple(var_ids.shape)}")
-    if count.shape != var_ids.shape:
-        raise ValueError(f"counts must be {tuple(var_ids.shape)}, got "
-                         f"{tuple(count.shape)}")
-    if var_valid.dim() != 2 or var_valid.shape[1] != prev.shape[2]:
-        raise ValueError(f"var_valid must be [V+1, D={prev.shape[2]}], "
+    for name, t in (("counts", count), ("var_ids32", var_ids32),
+                    ("edge_valid", edge_valid)):
+        if t is not None and t.shape != var_ids.shape:
+            raise ValueError(f"{name} must be {tuple(var_ids.shape)}, got "
+                             f"{tuple(t.shape)}")
+    d = prev.shape[2]
+    if var_valid.dim() != 2 or var_valid.shape[1] != d:
+        raise ValueError(f"var_valid must be [V+1, D={d}], "
                          f"got {tuple(var_valid.shape)}")
     if cycle.numel() != 1 or stable.numel() != 1:
         raise ValueError("cycle and stable must be 0-d tensors")
+    small = d <= EDGE_VALID_MAX_D
+    if edge_valid is not None and not small:
+        raise ValueError(f"edge_valid is for D <= {EDGE_VALID_MAX_D}, "
+                         f"got D={d}")
+    if prev.device.type == "cuda":
+        missing = [name for name, t, need in (
+            ("var_ids32", var_ids32, var_side or not small),
+            ("edge_valid", edge_valid, small)) if need and t is None]
+        if missing:
+            raise ValueError(
+                f"var_update on the card needs the bucket's "
+                f"{' and '.join(missing)} (device.to_device_graph)")
 
 
 @functools.lru_cache(maxsize=None)
 def _launcher():
     lib = _build.load(KERNEL)
     fn = lib.var_update_launch
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
-                   + [ctypes.c_float] * 3 + [ctypes.c_int] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 3
+                   + [ctypes.c_float] * 3 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def tile_items(n_edges: int, d: int, n_sms: int) -> int:
+    """Edges a thread of the D <= 8 kernel takes for a bucket of
+    ``n_edges``: ``TILE_ITEMS[d]``, halved while that leaves fewer
+    blocks than the card has SMs (a small bucket is spread over more
+    of them)."""
+    items = TILE_ITEMS.get(d, 1)
+    while items > 1 and -(-n_edges // (BLOCK_THREADS * items)) < n_sms:
+        items //= 2
+    return items
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _damp_mode(damping: float) -> int:
@@ -246,8 +293,8 @@ def _damp_mode(damping: float) -> int:
     return 0 if damping <= 0 else 1 if damping == 0.5 else 2
 
 
-def _launch(beliefs, sums, f2v, prev, count, var_ids, var_valid, cycle,
-            stable, damping, stability, fused):
+def _launch(beliefs, sums, f2v, prev, count, var_ids32, edge_valid,
+            var_valid, cycle, stable, damping, stability, fused):
     """One kernel launch; ``beliefs is None`` takes ``f2v`` as the
     candidates (the epilogue alone)."""
     f, arity, d = prev.shape
@@ -256,9 +303,9 @@ def _launch(beliefs, sums, f2v, prev, count, var_ids, var_valid, cycle,
                          f"arity={arity}, D={d}")
     if prev.device.index != torch.cuda.current_device():
         with torch.cuda.device(prev.device):
-            return _launch(beliefs, sums, f2v, prev, count, var_ids,
-                           var_valid, cycle, stable, damping, stability,
-                           fused)
+            return _launch(beliefs, sums, f2v, prev, count, var_ids32,
+                           edge_valid, var_valid, cycle, stable, damping,
+                           stability, fused)
     out = torch.empty_like(prev)
     out_count = torch.empty_like(count)
     if f * arity == 0:
@@ -266,12 +313,14 @@ def _launch(beliefs, sums, f2v, prev, count, var_ids, var_valid, cycle,
     ptr = (lambda t: None if t is None else t.data_ptr())
     err = _launcher()(
         ptr(beliefs), ptr(sums), f2v.data_ptr(), prev.data_ptr(),
-        count.data_ptr(), var_ids.data_ptr(), var_valid.data_ptr(),
-        cycle.data_ptr(), out.data_ptr(), out_count.data_ptr(),
-        stable.data_ptr(), f * arity, d, _damp_mode(damping),
-        float(np.float32(damping)), float(np.float32(1.0 - damping)),
-        float(np.float32(stability)), int(beliefs is not None),
-        int(fused), torch.cuda.current_stream().cuda_stream)
+        count.data_ptr(), ptr(var_ids32), ptr(edge_valid),
+        var_valid.data_ptr(), cycle.data_ptr(), out.data_ptr(),
+        out_count.data_ptr(), stable.data_ptr(), f * arity, d,
+        _damp_mode(damping), float(np.float32(damping)),
+        float(np.float32(1.0 - damping)), float(np.float32(stability)),
+        int(beliefs is not None), int(fused),
+        tile_items(f * arity, d, _sm_count(prev.device.index)),
+        torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"var_update launch failed: CUDA error {err}")
     _build.launch_counts[KERNEL] += 1
@@ -282,7 +331,9 @@ def v2f_update(beliefs: torch.Tensor, sums: torch.Tensor, f2v: torch.Tensor,
                prev: torch.Tensor, count: torch.Tensor,
                var_ids: torch.Tensor, var_valid: torch.Tensor,
                cycle: torch.Tensor, stable: torch.Tensor, *,
-               damping: float, stability: float, fused: bool = False
+               damping: float, stability: float, fused: bool = False,
+               var_ids32: Optional[torch.Tensor] = None,
+               edge_valid: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One bucket's sent variable->factor messages [F, a, D] f32 and
     counts [F, a] int8 from the beliefs and sums [V+1, D] f32, the
@@ -290,7 +341,10 @@ def v2f_update(beliefs: torch.Tensor, sums: torch.Tensor, f2v: torch.Tensor,
     [F, a, D] f32, its counts, ``var_ids`` [F, a] int64, ``var_valid``
     [V+1, D] bool, the 0-d int32 ``cycle``; ANDs the bucket's all-match
     into the 0-d bool ``stable`` in place.  ``damping`` 0 damps
-    nothing; ``fused`` as :func:`sum_last`'s ``vectorised``.  Equal to
+    nothing; ``fused`` as :func:`sum_last`'s ``vectorised``.  The
+    bucket's ``var_ids32`` [F, a] int32 and, at D <= 8, ``edge_valid``
+    [F, a] uint8 (``device.TorchFactorBucket``) are what the kernel
+    reads: a CUDA call without them raises.  Equal to
     :func:`v2f_update_reference` bit for bit."""
     dev = prev.device
     _check([("beliefs", beliefs, torch.float32),
@@ -298,9 +352,11 @@ def v2f_update(beliefs: torch.Tensor, sums: torch.Tensor, f2v: torch.Tensor,
             ("prev", prev, torch.float32), ("count", count, torch.int8),
             ("var_ids", var_ids, torch.int64),
             ("var_valid", var_valid, torch.bool),
-            ("cycle", cycle, torch.int32), ("stable", stable, torch.bool)],
-           dev)
-    _check_edges(prev, count, var_ids, var_valid, cycle, stable)
+            ("cycle", cycle, torch.int32), ("stable", stable, torch.bool),
+            ("var_ids32", var_ids32, torch.int32),
+            ("edge_valid", edge_valid, torch.uint8)], dev)
+    _check_edges(prev, count, var_ids, var_valid, cycle, stable,
+                 var_ids32, edge_valid, var_side=True)
     if f2v.shape != prev.shape or beliefs.shape != var_valid.shape \
             or sums.shape != var_valid.shape:
         raise ValueError(
@@ -311,25 +367,31 @@ def v2f_update(beliefs: torch.Tensor, sums: torch.Tensor, f2v: torch.Tensor,
         return v2f_update_reference(
             beliefs, sums, f2v, prev, count, var_ids, var_valid, cycle,
             stable, damping=damping, stability=stability, fused=fused)
-    return _launch(beliefs, sums, f2v, prev, count, var_ids, var_valid,
-                   cycle, stable, damping, stability, fused)
+    return _launch(beliefs, sums, f2v, prev, count, var_ids32, edge_valid,
+                   var_valid, cycle, stable, damping, stability, fused)
 
 
 def send_update(cand: torch.Tensor, prev: torch.Tensor,
                 count: torch.Tensor, var_ids: torch.Tensor,
                 var_valid: torch.Tensor, cycle: torch.Tensor,
-                stable: torch.Tensor, *, damping: float, stability: float
+                stable: torch.Tensor, *, damping: float, stability: float,
+                var_ids32: Optional[torch.Tensor] = None,
+                edge_valid: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The epilogue alone for one bucket's factor->variable candidates
-    ``cand`` [F, a, D] f32 (arguments as :func:`v2f_update`).  Equal to
+    ``cand`` [F, a, D] f32 (arguments as :func:`v2f_update`; at
+    D <= 8 the kernel reads ``edge_valid`` and no index, above 8
+    ``var_ids32`` and ``var_valid``).  Equal to
     :func:`send_update_reference` bit for bit."""
     dev = prev.device
     _check([("cand", cand, torch.float32), ("prev", prev, torch.float32),
             ("count", count, torch.int8), ("var_ids", var_ids, torch.int64),
             ("var_valid", var_valid, torch.bool),
-            ("cycle", cycle, torch.int32), ("stable", stable, torch.bool)],
-           dev)
-    _check_edges(prev, count, var_ids, var_valid, cycle, stable)
+            ("cycle", cycle, torch.int32), ("stable", stable, torch.bool),
+            ("var_ids32", var_ids32, torch.int32),
+            ("edge_valid", edge_valid, torch.uint8)], dev)
+    _check_edges(prev, count, var_ids, var_valid, cycle, stable,
+                 var_ids32, edge_valid, var_side=False)
     if cand.shape != prev.shape:
         raise ValueError(f"cand {tuple(cand.shape)} must match prev "
                          f"{tuple(prev.shape)}")
@@ -337,5 +399,5 @@ def send_update(cand: torch.Tensor, prev: torch.Tensor,
         return send_update_reference(
             cand, prev, count, var_ids, var_valid, cycle, stable,
             damping=damping, stability=stability)
-    return _launch(None, None, cand, prev, count, var_ids, var_valid, cycle,
-                   stable, damping, stability, False)
+    return _launch(None, None, cand, prev, count, var_ids32, edge_valid,
+                   var_valid, cycle, stable, damping, stability, False)

@@ -36,8 +36,13 @@ repository's root conftest imports JAX, so where JAX is missing run:
   for bit on messages half of which lie in 1.2e-38 .. 1e-36 (ROADMAP
   Queue C's state), on a four-bucket arity 1-4 graph and on the D = 30
   graph whose domain mean is vectorised, at damping 0, 0.5 and 0.7 and
-  cycles 0 and 3; 60 cycles on the card from that state equal 60 on
-  the CPU, every message and count.
+  cycles 0 and 3; also with random valid slots at every D = 1..8, on
+  buckets whose edge counts are no multiple of any tile size (each
+  size run), and on views whose base is off a 16-byte boundary.  One
+  unmatched edge clears ``stable``, none leaves it set, and a call on
+  the card without the bucket's ``var_ids32``/``edge_valid`` raises.
+  60 cycles on the card from the Queue C state equal 60 on the CPU,
+  every message and count.
 - An observed solve's profiler entry on the card lists the three hand
   kernels by name (``torch.profiler``).
 """
@@ -463,46 +468,185 @@ def _bits(a):
     return a.view(np.int32) if a.dtype == np.float32 else a
 
 
-@pytest.mark.gpu
-def test_var_update_kernel_equals_plain_version():
-    _need_card()
+def _views(tensors, lead):
+    """Copies of the tensors as contiguous views ``lead`` elements into
+    larger buffers: each base off a 16-byte boundary for lead = 1, 3."""
+    out = []
+    for t in tensors:
+        buf = torch.zeros(t.numel() + lead, dtype=t.dtype, device=t.device)
+        view = buf[lead:].view(t.shape)
+        view.copy_(t)
+        out.append(view)
+    return out
+
+
+def _var_update_matches_plain(graph, seed, lead=0):
+    """Both entry points against their plain versions on ``graph``'s
+    buckets from :func:`tiny_state`, at cycles 0 and 3 and damping 0,
+    0.5 and 0.7: messages as int32 bit patterns, counts, the stable
+    flag, one launch a call.  With ``lead`` the per-edge inputs and the
+    bucket arrays are views that many elements into larger buffers."""
     from pydcop_tpu_torch.ops import var_update as vu
 
-    for label, arrays in _subnormal_graphs():
-        graph = graph_from_numpy(*arrays, device="cuda")
-        s = tiny_state(graph, 3)
-        f2v = [torch.tensor(m, device="cuda") for m in s["f2v"]]
-        v2f = [torch.tensor(m, device="cuda") for m in s["v2f"]]
-        cnt = [torch.tensor(c, device="cuda") for c in s["v2f_count"]]
-        beliefs, sums = ops.aggregate_beliefs(graph, tuple(f2v))
-        fused = ops._sums_fused(graph)
+    s = tiny_state(graph, seed)
+    f2v = [torch.tensor(m, device="cuda") for m in s["f2v"]]
+    v2f = [torch.tensor(m, device="cuda") for m in s["v2f"]]
+    cnt = [torch.tensor(c, device="cuda") for c in s["v2f_count"]]
+    beliefs, sums = ops.aggregate_beliefs(graph, tuple(f2v))
+    fused = ops._sums_fused(graph)
+    calls = 0
+    for i, b in enumerate(graph.buckets):
+        ids32, mask = b.var_ids32, b.edge_valid
+        m, o, c = f2v[i], v2f[i], cnt[i]
+        if lead:
+            m, o, c, ids32 = _views([m, o, c, ids32], lead)
+            if mask is not None:
+                (mask,) = _views([mask], lead)
+            assert all(t.data_ptr() % 16 for t in (m, o, c, ids32))
+        arrays = dict(var_ids32=ids32, edge_valid=mask)
         for cycle in (0, 3):
             cyc = torch.tensor(cycle, dtype=torch.int32, device="cuda")
             for damping in (0.0, 0.5, 0.7):
-                for i, b in enumerate(graph.buckets):
-                    for side in ("v2f", "send"):
-                        if side == "v2f":
-                            args = (beliefs, sums, f2v[i], v2f[i], cnt[i],
-                                    b.var_ids, graph.var_valid, cyc)
-                            pair = (vu.v2f_update, vu.v2f_update_reference)
-                            kw = dict(damping=damping, stability=0.1,
-                                      fused=fused)
-                        else:
-                            args = (f2v[i], v2f[i], cnt[i], b.var_ids,
-                                    graph.var_valid, cyc)
-                            pair = (vu.send_update,
-                                    vu.send_update_reference)
-                            kw = dict(damping=damping, stability=0.1)
-                        flags = [cyc != 0, cyc != 0]
-                        before = _build.launch_counts[vu.KERNEL]
-                        got = pair[0](*args, flags[0], **kw)
-                        want = pair[1](*args, flags[1], **kw)
-                        assert _build.launch_counts[vu.KERNEL] == before + 1
-                        assert torch.equal(got[0].view(torch.int32),
-                                           want[0].view(torch.int32)), (
-                            label, side, cycle, damping, i)
-                        assert torch.equal(got[1], want[1])
-                        assert bool(flags[0]) == bool(flags[1])
+                for side in ("v2f", "send"):
+                    if side == "v2f":
+                        args = (beliefs, sums, m, o, c, b.var_ids,
+                                graph.var_valid, cyc)
+                        pair = (vu.v2f_update, vu.v2f_update_reference)
+                        kw = dict(damping=damping, stability=0.1,
+                                  fused=fused)
+                    else:
+                        args = (m, o, c, b.var_ids, graph.var_valid, cyc)
+                        pair = (vu.send_update, vu.send_update_reference)
+                        kw = dict(damping=damping, stability=0.1)
+                    flags = [cyc != 0, cyc != 0]
+                    before = _build.launch_counts[vu.KERNEL]
+                    got = pair[0](*args, flags[0], **kw, **arrays)
+                    want = pair[1](*args, flags[1], **kw)
+                    assert _build.launch_counts[vu.KERNEL] == before + 1
+                    where = (side, cycle, damping, i, lead)
+                    assert torch.equal(got[0].view(torch.int32),
+                                       want[0].view(torch.int32)), where
+                    assert torch.equal(got[1], want[1]), where
+                    assert bool(flags[0]) == bool(flags[1]), where
+                    calls += 1
+    return calls
+
+
+@pytest.mark.gpu
+def test_var_update_kernel_equals_plain_version():
+    _need_card()
+    for label, arrays in _subnormal_graphs():
+        graph = graph_from_numpy(*arrays, device="cuda")
+        assert _var_update_matches_plain(graph, 3) > 0, label
+
+
+def random_validity_arrays(d, seed, n_vars=700, binary=1_501):
+    """Buckets of arity 1-3 whose edge counts (333, 2 * ``binary`` and
+    771) are no multiple of any tile, over variables with random valid
+    slots (any subset), a tenth of each bucket padding (the sentinel
+    row)."""
+    rng = np.random.default_rng(seed)
+    var_valid = rng.random((n_vars + 1, d)) < 0.7
+    var_valid[-1] = False
+    var_costs = rng.normal(size=(n_vars + 1, d)).astype(np.float32)
+    buckets = []
+    for arity, f in ((1, 333), (2, binary), (3, 257)):
+        ids = rng.integers(0, n_vars, size=(f, arity)).astype(np.int32)
+        ids[-f // 10:] = n_vars
+        buckets.append((np.zeros((f,) + (d,) * arity, np.float32), ids))
+    return var_costs, var_valid, buckets
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("items", [1, 2, 4, 8])
+def test_var_update_kernel_on_ragged_tiles(items, monkeypatch):
+    """Every tile size the kernel has, on buckets whose edge counts are
+    no multiple of it (the last tile ragged); the binary bucket is
+    large enough (300,002 edges) for the size to be taken on a card of
+    up to 146 SMs, the small ones take one edge a thread."""
+    _need_card()
+    from pydcop_tpu_torch.ops import var_update as vu
+
+    monkeypatch.setitem(vu.TILE_ITEMS, 3, items)
+    graph = graph_from_numpy(
+        *random_validity_arrays(3, 20 + items, binary=150_001),
+        device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert vu.tile_items(graph.buckets[1].var_ids.numel(), 3, sms) == items
+    assert all(b.var_ids.numel() % (256 * items) for b in graph.buckets)
+    assert _var_update_matches_plain(graph, items) == 36
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lead", [1, 3])
+def test_var_update_kernel_on_unaligned_views(lead):
+    """Messages, counts and bucket arrays that start off a 16-byte
+    boundary (views into larger buffers), while the sent rows land in
+    fresh, aligned tensors."""
+    _need_card()
+    graph = graph_from_numpy(*random_validity_arrays(3, 30 + lead),
+                             device="cuda")
+    assert _var_update_matches_plain(graph, 40 + lead, lead=lead) == 36
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", range(1, 9))
+def test_var_update_kernel_at_every_small_domain(d):
+    _need_card()
+    graph = graph_from_numpy(*random_validity_arrays(d, 50 + d),
+                             device="cuda")
+    assert _var_update_matches_plain(graph, d) == 36
+    assert _var_update_matches_plain(graph, 60 + d, lead=1) == 36
+
+
+@pytest.mark.gpu
+def test_var_update_stable_is_cleared_by_one_unmatched_edge():
+    """``stable`` stays set when every live edge matches, and one
+    unmatched edge in the ragged last tile clears it (each block
+    writes it at most once)."""
+    _need_card()
+    from pydcop_tpu_torch.ops import var_update as vu
+
+    graph = graph_from_numpy(*random_validity_arrays(3, 70), device="cuda")
+    b = graph.buckets[1]
+    prev = torch.randn(tuple(b.var_ids.shape) + (3,), device="cuda")
+    count = torch.zeros(b.var_ids.shape, dtype=torch.int8, device="cuda")
+    cyc = torch.tensor(3, dtype=torch.int32, device="cuda")
+    live = torch.nonzero(b.edge_valid.reshape(-1)).reshape(-1)
+    for change in (None, int(live[-1])):
+        cand = prev.clone()
+        if change is not None:
+            cand.reshape(-1, 3)[change] += 1.0
+        args = (cand, prev, count, b.var_ids, graph.var_valid, cyc)
+        kw = dict(damping=0.0, stability=0.1)
+        flags = [torch.ones((), dtype=torch.bool, device="cuda")
+                 for _ in range(2)]
+        vu.send_update(*args, flags[0], var_ids32=b.var_ids32,
+                       edge_valid=b.edge_valid, **kw)
+        vu.send_update_reference(*args, flags[1], **kw)
+        assert [bool(f) for f in flags] == [change is None] * 2, change
+
+
+@pytest.mark.gpu
+def test_var_update_on_card_refuses_missing_bucket_arrays():
+    _need_card()
+    from pydcop_tpu_torch.ops import var_update as vu
+
+    graph = graph_from_numpy(*random_validity_arrays(3, 80), device="cuda")
+    b = graph.buckets[1]
+    msgs = torch.zeros(tuple(b.var_ids.shape) + (3,), device="cuda")
+    count = torch.zeros(b.var_ids.shape, dtype=torch.int8, device="cuda")
+    cyc = torch.tensor(3, dtype=torch.int32, device="cuda")
+    flag = torch.ones((), dtype=torch.bool, device="cuda")
+    before = _build.launch_counts[vu.KERNEL]
+    with pytest.raises(ValueError, match="edge_valid"):
+        vu.send_update(msgs, msgs, count, b.var_ids, graph.var_valid, cyc,
+                       flag, damping=0.5, stability=0.1)
+    with pytest.raises(ValueError, match="var_ids32"):
+        vu.v2f_update(graph.var_costs, graph.var_costs, msgs, msgs, count,
+                      b.var_ids, graph.var_valid, cyc, flag, damping=0.5,
+                      stability=0.1, edge_valid=b.edge_valid)
+    assert _build.launch_counts[vu.KERNEL] == before
 
 
 @pytest.mark.gpu

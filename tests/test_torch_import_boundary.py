@@ -6,8 +6,8 @@ imported (among them the resilience modules, the PRNG, the
 delegating algorithms, the fused per-edge update and the observability
 modules), then ``sys.modules`` must hold no ``jax*``
 module and no ``pydcop_tpu``/``pydcop_tpu.*`` module.  The sources of
-the package, of chip_smoke.py and of chip_compare.py are also scanned
-for such imports.
+the package, of chip_smoke.py, chip_compare.py and
+chip_var_update_compare.py are also scanned for such imports.
 """
 
 import ast
@@ -98,7 +98,8 @@ def _imported_roots(path: Path):
 SOURCES = sorted(
     str(p.relative_to(REPO))
     for p in list((REPO / "pydcop_tpu_torch").rglob("*.py"))
-    + [REPO / "chip_smoke.py", REPO / "chip_compare.py"]
+    + [REPO / "chip_smoke.py", REPO / "chip_compare.py",
+       REPO / "chip_var_update_compare.py"]
 )
 
 

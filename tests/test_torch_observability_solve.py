@@ -41,9 +41,11 @@ import torch
 
 from pydcop_tpu import api as japi
 from pydcop_tpu.dcop.yamldcop import load_dcop_from_file as jload
+from pydcop_tpu.engine import compile as jcompile
 from pydcop_tpu.observability.metrics import registry as jregistry
 from pydcop_tpu_torch import api as tapi
 from pydcop_tpu_torch.dcop.yamldcop import load_dcop_from_file as tload
+from pydcop_tpu_torch.engine import compile as tcompile
 from pydcop_tpu_torch.observability.metrics import registry as tregistry
 from pydcop_tpu_torch.observability.trace import load_trace_file
 
@@ -90,12 +92,14 @@ def _flight_dir(tmp_path, monkeypatch):
 
 def _solve_both(tmp_path, name, **kw):
     """The same observed solve with each package (registries reset
-    first); returns {"jax"|"torch": (result, trace events, metrics
-    JSONL rows, Prometheus text)}."""
+    and structure caches emptied first, so both count the same compile
+    cache outcome whatever ran earlier in the process); returns
+    {"jax"|"torch": (result, trace events, metrics JSONL rows,
+    Prometheus text)}."""
     out = {}
-    for side, solve, load, reg in (
-            ("jax", japi.solve, jload, jregistry),
-            ("torch", tapi.solve, tload, tregistry)):
+    for side, solve, load, reg, cache in (
+            ("jax", japi.solve, jload, jregistry, jcompile.compile_cache),
+            ("torch", tapi.solve, tload, tregistry, tcompile.compile_cache)):
         d = tmp_path / f"{name}_{side}"
         d.mkdir()
         trace = str(d / "t.json")
@@ -106,6 +110,7 @@ def _solve_both(tmp_path, name, **kw):
         if side == "torch":
             extra["device"] = "cpu"
         reg.reset()
+        cache.clear()
         res = solve(load(FIXTURE), "maxsum", trace=trace,
                     metrics_file=metrics, **extra)
         rows = [json.loads(line) for line in open(metrics)]
