@@ -31,7 +31,19 @@ traced, metered flagship solve equal to the plain one (with its
 profiler entry: kernels per cycle and the three hand kernels), the
 engine probe at the 1M-variable scale (with the roofline's
 ``hbm_util``), the live telemetry endpoint during a solve, and the
-``trace summary`` / ``profile report`` commands.
+``trace summary`` / ``profile report`` commands.  The local-search
+slice adds four phases: ``threefry_check`` (both entry points of
+``csrc/threefry.cu`` bit for bit against their plain versions, timed
+beside their integer-work bounds, and the plain key-tensor draw's
+launches and host reads), ``positional_sum_check`` (``segment_sum.cu``'s
+positional mode bit for bit against its plain version on four graphs,
+timed beside its bound and ``index_add_``), ``localsearch_flagship``
+(dsa, adsa, dsatuto, mgm and mgm2 with their options through
+``api.solve`` on the flagship: card = CPU = second card run, the
+launch counts, and the ops loop under
+``torch.cuda.set_sync_debug_mode("error")``, timed and profiled) and
+``localsearch_scale`` (DSA-B and MGM at 1M variables: card = CPU state
+by state over 5 cycles, 30 timed cycles, the profile).
 Each phase prints one JSON line; any failure raises and the
 script exits non-zero without the final line.  On success the last
 three lines are the kernel table (JSON), the card's name and power
@@ -1808,6 +1820,441 @@ def run_observability_phases(ctx):
         emit("trace_cli", **phase_trace_cli(tmp))
 
 
+
+# --------------------------------------------------------------------------
+# The local-search slice: the threefry kernel, the positional sum, and
+# the dsa / adsa / dsatuto / mgm / mgm2 solves.
+
+# H100 SXM: 132 SMs x 64 INT32 lanes x 1.98 GHz (the Hopper white paper's
+# SM; the f32 peak above counts 128 FP32 lanes and two operations an FMA).
+H100_INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# 32-bit integer operations of one threefry-2x32 draw on the INT32
+# pipe: 20 rounds of add, funnel shift and xor (60), 5 key injections of
+# two adds (10) of which 5 merge with the next round's add into one
+# three-input add, the 2 initial adds, the final xor, and the shift and
+# or of the float conversion (2).  The subtract, fused multiply-add and
+# max run on the FP32 pipe beside it.
+THREEFRY_OPS = 60 + 10 - 5 + 2 + 1 + 2
+UNIFORM_SHAPES = [(1,), (7,), (10_001,), (10_001, 3), (1_000_001,),
+                  (1_000_001, 3), (241, 128)]
+BEST_CHOICE_KS = [1, 2, 3, 8, 9, 128]
+LS_CYCLES = 200
+LS_SCALE_CYCLES = 30
+LS_SCALE_COMPARE = 5
+# (label, algorithm, params) of the flagship solves; the first is the
+# slice's main path (api.solve(dcop, "dsa"), the default variant B).
+LS_CASES = [
+    ("dsa_B", "dsa", {}),
+    ("dsa_A", "dsa", {"variant": "A"}),
+    ("dsa_C_arity", "dsa", {"variant": "C", "p_mode": "arity"}),
+    ("dsa_B_arity", "dsa", {"p_mode": "arity"}),
+    ("adsa_staggered", "adsa", {"schedule": "staggered"}),
+    ("dsatuto", "dsatuto", {}),
+    ("mgm_lexic", "mgm", {}),
+    ("mgm_random", "mgm", {"break_mode": "random"}),
+    ("mgm2_unilateral", "mgm2", {}),
+    ("mgm2_no", "mgm2", {"favor": "no"}),
+    ("mgm2_coordinated", "mgm2", {"favor": "coordinated"}),
+    ("dsa_B_ell", "dsa", {"aggregation": "ell"}),
+]
+
+
+def threefry_bound(n_draws: int, bytes_moved: int):
+    """(bound_ms, bound_by): the draws' integer operations at the int32
+    rate against the bytes at the memory rate."""
+    ops_ms = n_draws * THREEFRY_OPS / H100_INT32_OPS_PER_S * 1e3
+    bytes_ms = bytes_moved / H100_BYTES_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
+def positional_bound(n_edges: int, n_seg: int, d: int):
+    """(bound_ms, bound_by) of the positional sum: contributions, perm,
+    offsets and init read once, the sums written once, against one add
+    per edge element."""
+    bytes_moved = 4 * (n_edges * d + n_edges + (n_seg + 1) + 2 * n_seg * d)
+    ops = n_edges * d
+    bytes_ms = bytes_moved / H100_BYTES_PER_S * 1e3
+    ops_ms = ops / H100_F32_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
+def best_choice_mask(rng, n: int, k: int):
+    """[n, k] bool with ~40 % True, and an empty, a full and a
+    single-slot row first."""
+    mask = rng.random((n, k)) < 0.4
+    mask[0] = False
+    mask[1] = True
+    mask[2] = False
+    mask[2, k - 1] = True
+    return mask
+
+
+def phase_threefry(ctx):
+    """Both entry points of csrc/threefry.cu against their plain
+    versions bit for bit, timed beside their bounds; the plain draw of a
+    straight translation (key tensor, int64 torch ops) timed once with
+    its launches and host reads counted."""
+    torch, threefry, prng = ctx["torch"], ctx["threefry"], ctx["prng"]
+    keys = [prng.key_words(0), prng.key_words(12345),
+            prng.fold_in_words(prng.key_words(2 ** 63 - 1), 7)]
+    for shape in UNIFORM_SHAPES:
+        for key in keys:
+            out = threefry.uniform(key, shape, "cuda")
+            ref = threefry.uniform_reference(key, shape, "cuda")
+            if not torch.equal(out.view(torch.int32), ref.view(torch.int32)):
+                fail(f"threefry uniform != plain at {shape} key {key}")
+            del out, ref
+    rng = np.random.default_rng(21)
+    masked = {}
+    for k in BEST_CHOICE_KS:
+        mask = torch.tensor(best_choice_mask(rng, 10_001, k), device="cuda")
+        for key in keys:
+            out = threefry.best_choice(key, mask)
+            ref = threefry.best_choice_reference(key, mask)
+            if not torch.equal(out, ref):
+                fail(f"threefry best_choice != plain at K={k} key {key}")
+        masked[k] = int(mask.sum())
+    key = keys[1]
+    timing = {"uniform_f32": {}, "best_choice": {}}
+    for label, shape in (("flagship", (10_001,)),
+                         ("flagship_D3", (10_001, 3)),
+                         ("scale", (1_000_001,)),
+                         ("scale_D3", (1_000_001, 3))):
+        n = int(np.prod(shape))
+        reps = 200 if n < 100_000 else 50
+        k_ms = graph_ms(torch, lambda: threefry.uniform(key, shape, "cuda"),
+                        reps)
+        p_ms = graph_ms(torch, lambda: threefry.uniform_reference(
+            key, shape, "cuda"), reps)
+        lib = cuda_ms(torch, lambda: torch.rand(shape, device="cuda"), reps)
+        bound_ms, bound_by = threefry_bound(n, 4 * n)
+        timing["uniform_f32"][label] = dict(
+            shape=list(shape), ms=k_ms[2], ms_spread=[k_ms[0], k_ms[-1]],
+            plain_ms=p_ms[2], bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None, philox_torch_rand_ms=lib)
+    for label, (n, k) in (("flagship", (10_001, 3)),
+                          ("scale", (1_000_001, 3)),
+                          ("mgm2_flagship_pairs", (15_000, 9))):
+        mask = torch.tensor(best_choice_mask(rng, n, k), device="cuda")
+        n_true = int(mask.sum())
+        reps = 200 if n < 100_000 else 50
+        k_ms = graph_ms(torch, lambda: threefry.best_choice(key, mask), reps)
+        p_ms = graph_ms(torch, lambda: threefry.best_choice_reference(
+            key, mask), reps)
+        bound_ms, bound_by = threefry_bound(n_true, n * k + 4 * n)
+        timing["best_choice"][label] = dict(
+            N=n, K=k, masked=n_true, ms=k_ms[2],
+            ms_spread=[k_ms[0], k_ms[-1]], plain_ms=p_ms[2],
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    # The straight translation: jax.random.uniform on a key tensor
+    # (utils/prng.py's uniform), which reads the key on the host.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    tkey = prng.PRNGKey(12345, device="cuda")
+    shape = (1_000_001, 3)
+    plain_ms = eager_ms(torch, lambda: prng.uniform(tkey, shape), 3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prng.uniform(tkey, shape)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    launches = sum(e.count for e in events
+                   if e.device_type == DeviceType.CUDA)
+    host_reads = sum(e.count for e in events
+                     if e.key == "aten::_local_scalar_dense")
+    aten_calls = sum(e.count for e in events if e.key.startswith("aten::")
+                     and e.device_type == DeviceType.CPU)
+    return {
+        "uniform_shapes": [list(s) for s in UNIFORM_SHAPES],
+        "best_choice_K": BEST_CHOICE_KS, "best_choice_masked": masked,
+        "keys": [list(k) for k in keys],
+        "tolerance": "exact (int32 views / torch.equal)",
+        "max_abs_err": 0.0, "timing": timing,
+        "plain_key_tensor_uniform_1000001x3": {
+            "ms": plain_ms[2], "ms_spread": [plain_ms[0], plain_ms[-1]],
+            "device_kernel_launches": launches, "host_reads": host_reads,
+            "aten_calls_nested_included": aten_calls},
+    }
+
+
+def unit_contributions(torch, graph, seed: int):
+    """Order-sensitive [F, D] contributions of every (bucket, position)
+    unit of ``graph`` on the card, and the same as one [E, D] tensor."""
+    d = graph.var_costs.shape[1]
+    units = [edge_messages(torch, b.var_ids.shape[0], d, seed + 10 * i + p)
+             for i, b in enumerate(graph.buckets)
+             for p in range(b.var_ids.shape[1])]
+    return units, torch.cat(units)
+
+
+def phase_positional_sum(ctx, graphs):
+    """segment_sum.cu's positional mode against its plain version bit
+    for bit on the flagship, scale, scale-free and arity 1-4 graphs,
+    timed beside its bound and the zeros + index_add_ call."""
+    torch, seg = ctx["torch"], ctx["segment_sum_mod"]
+    out = {"graphs": {}, "timing": {}}
+    for idx, (label, graph) in enumerate(graphs):
+        units, flat = unit_contributions(torch, graph, 300 + idx)
+        args = (graph.pos_perm, graph.agg_offsets, graph.pos_units,
+                graph.var_costs)
+        got = seg.positional_sum(units, *args, graph.agg_tiles)
+        ref = seg.positional_sum_reference(flat.cpu(),
+                                           *(t.cpu() for t in args))
+        if not torch.equal(got.cpu().view(torch.int32),
+                           ref.view(torch.int32)):
+            err = float((got.cpu() - ref).abs().max())
+            fail(f"positional sum kernel != plain on {label}: {err}")
+        n_edges, (n_seg, d) = int(flat.shape[0]), graph.var_costs.shape
+        out["graphs"][label] = dict(
+            V1=n_seg, E=n_edges, D=d, units=len(units),
+            sep=seg.separate_buckets(graph.pos_units.tolist(), n_seg))
+        if label == "multi_bucket_padded":
+            continue
+        pos_seg = torch.cat([b.var_ids[:, p] for b in graph.buckets
+                             for p in range(b.var_ids.shape[1])])
+        reps = 50 if n_edges > 1_000_000 else 200
+
+        def library():
+            res = graph.var_costs.clone()
+            res.index_add_(0, pos_seg, flat)
+            return res
+
+        k_ms = graph_ms(torch, lambda: seg.positional_sum(
+            units, *args, graph.agg_tiles), reps)
+        l_ms = graph_ms(torch, library, reps)
+        p_ms = eager_ms(torch, lambda: seg.positional_sum_reference(
+            flat, *args), 2)
+        bound_ms, bound_by = positional_bound(n_edges, n_seg, d)
+        out["timing"][f"positional_{label}"] = dict(
+            V1=n_seg, E=n_edges, D=d, ms=k_ms[2],
+            ms_spread=[k_ms[0], k_ms[-1]], plain_ms=p_ms[2],
+            library_ms=l_ms[2], bound_ms=bound_ms, bound_by=bound_by)
+        del units, flat, pos_seg
+    out["tolerance"] = "exact (int32 views, card vs CPU plain)"
+    out["max_abs_err"] = 0.0
+    return out
+
+
+def ls_launch_counts(_build):
+    from pydcop_tpu_torch.ops import threefry
+
+    return {k: _build.launch_counts.get(k, 0)
+            for k in ("segment_sum", threefry.UNIFORM,
+                      threefry.BEST_CHOICE)}
+
+
+def ls_runner(ctx, algo: str, params: dict, graph, meta, host):
+    """``run(n)``: ``n`` supersteps of the algorithm's ops loop on a
+    placed graph, its tensors placed first (so the loop itself reads
+    nothing from the card)."""
+    torch = ctx["torch"]
+    from pydcop_tpu_torch.algorithms.dsa import _arity_probabilities
+    from pydcop_tpu_torch.algorithms.mgm import lexic_ranks
+    from pydcop_tpu_torch.ops.dsa import greedy_classes, run_dsa
+    from pydcop_tpu_torch.ops.mgm import run_mgm
+    from pydcop_tpu_torch.ops.mgm2 import run_mgm2
+
+    dev = graph.var_costs.device
+    if algo in ("dsa", "adsa", "dsatuto"):
+        prob = params.get("probability", 0.7)
+        if params.get("p_mode") == "arity":
+            prob = torch.tensor(_arity_probabilities(host, prob), device=dev)
+        variant = "A" if algo == "dsatuto" else params.get("variant", "B")
+        classes, n_classes = None, 1
+        if params.get("schedule") == "staggered":
+            classes, n_classes = greedy_classes(host)
+            classes = torch.tensor(classes, device=dev)
+        return lambda n: run_dsa(graph, n, variant=variant,
+                                 probability=prob, classes=classes,
+                                 n_classes=n_classes,
+                                 seed=params.get("seed", 0))
+    ranks = torch.tensor(lexic_ranks(meta), device=dev)
+    if algo == "mgm":
+        return lambda n: run_mgm(graph, n, lexic_ranks=ranks,
+                                 break_mode=params.get("break_mode", "lexic"))
+    return lambda n: run_mgm2(graph, n, lexic_ranks=ranks,
+                              favor=params.get("favor", "unilateral"),
+                              threshold=params.get("threshold", 0.5))
+
+
+def sync_free(torch, fn):
+    """``fn()`` with torch's synchronisation check set to raise, then a
+    synchronise: a host read of a device value inside fails the run."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_localsearch_flagship(ctx):
+    """Every local-search algorithm on the 10k flagship through
+    api.solve with no device argument: card = CPU = second card run;
+    the launch counts; then the ops loop on the placed graph under the
+    synchronisation check, timed and profiled."""
+    torch, api, _build = ctx["torch"], ctx["api"], ctx["_build"]
+    from pydcop_tpu_torch.device import to_device_graph
+    from pydcop_tpu_torch.engine.compile import compile_dcop
+
+    dcop = ctx["dcop"]
+    rows = {}
+    main_launches = None
+    for label, algo, params in LS_CASES:
+        _build.launch_counts.clear()
+        res = api.solve(dcop, algo, max_cycles=LS_CYCLES,
+                        algo_params=params)
+        launches = ls_launch_counts(_build)
+        if main_launches is None:
+            main_launches = dict(launches)
+        if not res["metrics"]["device"].startswith("cuda"):
+            fail(f"{label} ran on {res['metrics']['device']}")
+        again = api.solve(dcop, algo, max_cycles=LS_CYCLES,
+                          algo_params=params)
+        cpu = api.solve(dcop, algo, max_cycles=LS_CYCLES,
+                        algo_params=params, device="cpu")
+        for name, other in (("second card run", again), ("CPU run", cpu)):
+            if (other["assignment"] != res["assignment"]
+                    or other["cycles"] != res["cycles"]
+                    or other["cost"] != res["cost"]):
+                fail(f"{label}: card run != {name} (cost {res['cost']} vs "
+                     f"{other['cost']})")
+        if launches["threefry:best_choice"] == 0 or (
+                params.get("aggregation") != "ell"
+                and launches["segment_sum"] == 0):
+            fail(f"{label}: launches {launches}")
+        host, meta = compile_dcop(dcop, aggregation=params.get(
+            "aggregation", "scatter"))
+        graph = to_device_graph(host, "cuda")
+        run = ls_runner(ctx, algo, params, graph, meta, host)
+        sync_free(torch, lambda: run(5))             # warm, checked
+        t0 = time.perf_counter()
+        sync_free(torch, lambda: run(LS_CYCLES))
+        loop_s = time.perf_counter() - t0
+        prof = profile_cycles(torch, lambda n: (run(n),
+                                                torch.cuda.synchronize()),
+                              20)
+        rows[label] = dict(
+            algo=algo, params=params, cycles=res["cycles"],
+            cost=res["cost"], cpu_cost=cpu["cost"], launches=launches,
+            solve_time_s=res["time"], cpu_time_s=cpu["time"],
+            loop_ms_per_cycle=loop_s / LS_CYCLES * 1e3,
+            device_ms_per_cycle=prof["device_ms_per_cycle"],
+            kernels_per_cycle=prof["device_kernels_per_cycle"],
+            device_busy_share=prof["device_busy_share"],
+            top=prof["top"][:6], sync_free=True,
+            equal=["second card run", "CPU run"])
+        if "n_classes" in res["metrics"]:
+            rows[label]["n_classes"] = res["metrics"]["n_classes"]
+        del graph
+    return {"n_vars": FLAGSHIP_VARS, "cycles": LS_CYCLES, "runs": rows,
+            "main_path_launches": main_launches}
+
+
+def phase_localsearch_scale(ctx, scale_graph):
+    """DSA-B and MGM on the 1M-variable scale arrays: 30 cycles timed
+    (under the synchronisation check) and profiled; the card's state
+    equal to the CPU's after each of the first 5 cycles."""
+    torch = ctx["torch"]
+    from pydcop_tpu_torch.algorithms.mgm import lexic_ranks
+    from pydcop_tpu_torch.engine.convert import localsearch_state_to_numpy
+    from pydcop_tpu_torch.ops import dsa, mgm
+
+    var_costs, var_valid, buckets = scale_arrays(SCALE_VARS)
+    cpu_graph = ctx["graph_from_numpy"](var_costs, var_valid, buckets,
+                                        device="cpu")
+    n = var_costs.shape[0]
+    ranks_np = np.arange(n, dtype=np.float32)
+    ranks_np[-1] = np.inf
+    ranks = torch.tensor(ranks_np, device="cuda")
+    runs = {
+        "dsa_B": (lambda g, s, r: dsa.dsa_step(s, g, variant="B",
+                                               probability=0.7),
+                  dsa.init_state,
+                  lambda n_: dsa.run_dsa(scale_graph, n_, variant="B")),
+        "mgm_lexic": (lambda g, s, r: mgm.mgm_step(
+            s, g, lexic_ranks=r, break_mode="lexic"), mgm.init_state,
+            lambda n_: mgm.run_mgm(scale_graph, n_, lexic_ranks=ranks)),
+    }
+    out = {"n_vars": SCALE_VARS, "cycles": LS_SCALE_CYCLES}
+    _build = ctx["_build"]
+    for label, (step, init, run) in runs.items():
+        card, cpu = init(scale_graph, 0), init(cpu_graph, 0)
+        for c in range(LS_SCALE_COMPARE):
+            card = step(scale_graph, card, ranks)
+            cpu = step(cpu_graph, cpu, torch.tensor(ranks_np))
+            a = localsearch_state_to_numpy(card)
+            b = localsearch_state_to_numpy(cpu)
+            if not (np.array_equal(a["values"], b["values"])
+                    and np.array_equal(a["key"], b["key"])):
+                fail(f"scale {label}: card != CPU after cycle {c + 1}")
+        sync_free(torch, lambda: run(3))
+        _build.launch_counts.clear()
+        t0 = time.perf_counter()
+        values, cost, _ = sync_free(torch, lambda: run(LS_SCALE_CYCLES))
+        loop_s = time.perf_counter() - t0
+        launches = ls_launch_counts(_build)
+        if not np.isfinite(float(cost)):
+            fail(f"scale {label}: cost {float(cost)}")
+        prof = profile_cycles(torch, lambda n_: (run(n_),
+                                                 torch.cuda.synchronize()),
+                              5)
+        out[label] = dict(
+            ms_per_cycle=loop_s / LS_SCALE_CYCLES * 1e3,
+            device_ms_per_cycle=prof["device_ms_per_cycle"],
+            kernels_per_cycle=prof["device_kernels_per_cycle"],
+            device_busy_share=prof["device_busy_share"],
+            top=prof["top"][:8], device_cost=float(cost),
+            launches=launches,
+            card_equals_cpu_cycles=LS_SCALE_COMPARE, sync_free=True)
+    return out
+
+
+def run_localsearch_phases(ctx, scale_graph):
+    """Emit the local-search slice's four phases; returns the kernel
+    timings and errors for the final kernels line."""
+    from pydcop_tpu_torch.ops import segment_sum as segment_sum_mod
+    from pydcop_tpu_torch.ops import threefry
+    from pydcop_tpu_torch.utils import prng
+
+    ctx.update(threefry=threefry, prng=prng,
+               segment_sum_mod=segment_sum_mod)
+    tf = phase_threefry(ctx)
+    emit("threefry_check", **tf)
+    rng = np.random.default_rng(11)
+    graphs = [("flagship", ctx["ls_flagship_graph"]),
+              ("scale", scale_graph)]
+    var_costs, var_valid, buckets = scalefree_arrays(SCALE_VARS)
+    graphs.append(("scale_free", ctx["graph_from_numpy"](
+        var_costs, var_valid, buckets, device="cuda")))
+    graphs.append(("multi_bucket_padded", ctx["graph_from_numpy"](
+        *multi_bucket_arrays(rng), device="cuda")))
+    pos = phase_positional_sum(ctx, graphs)
+    emit("positional_sum_check", **pos)
+    del graphs
+    flag = phase_localsearch_flagship(ctx)
+    emit("localsearch_flagship", **flag)
+    scale = phase_localsearch_scale(ctx, scale_graph)
+    emit("localsearch_scale", **scale)
+    # Launches of the paths that run each kernel at the timed shapes.
+    from pydcop_tpu_torch.ops import threefry
+
+    at_scale = scale["dsa_B"]["launches"]
+    pos["timing"]["positional_flagship"]["launches"] = flag[
+        "main_path_launches"]["segment_sum"]
+    pos["timing"]["positional_scale"]["launches"] = at_scale["segment_sum"]
+    tf["timing"]["uniform_f32"]["scale"]["launches"] = at_scale[
+        threefry.UNIFORM]
+    tf["timing"]["best_choice"]["scale"]["launches"] = at_scale[
+        threefry.BEST_CHOICE]
+    return tf, pos, flag["main_path_launches"]
+
+
 def main() -> int:
     import torch
 
@@ -2189,6 +2636,14 @@ def main() -> int:
         torch.cuda.synchronize()
 
     emit("scale_profile", **profile_cycles(torch, scale_run, 5))
+
+    # 6b. The local-search slice: the threefry kernel and the positional
+    # sum against their plain versions, then every local-search solve of
+    # the flagship (each with the launch counts set to 0 just before it)
+    # and DSA / MGM at scale.
+    ctx["ls_flagship_graph"] = engine.graph
+    ls_tf, ls_pos, ls_launches = run_localsearch_phases(ctx, graph)
+    timing["segment_sum"].update(ls_pos["timing"])
     del graph, scale_graph
 
     # 8. This slice's paths: pruning, the cost trace, the sorted / ell /
@@ -2262,6 +2717,26 @@ def main() -> int:
                     "launches") if key in row}
                 for label, row in timing[name].items()
                 if label != "flagship" and "ms" in row},
+        })
+    from pydcop_tpu_torch.ops import threefry
+
+    for entry, key, replaces in (
+            ("uniform_f32", threefry.UNIFORM, "pydcop_tpu/ops/dsa.py:164"),
+            ("best_choice", threefry.BEST_CHOICE,
+             "pydcop_tpu/ops/localsearch.py:316")):
+        rows_t = ls_tf["timing"][entry]
+        flag = rows_t["flagship"]
+        rows.append({
+            "name": f"threefry: {entry}", "route": "cuda",
+            "source": "pydcop_tpu_torch/csrc/threefry.cu",
+            "replaces": replaces, "launches": ls_launches[key],
+            "max_abs_err": ls_tf["max_abs_err"], "ms": flag["ms"],
+            "plain_ms": flag["plain_ms"], "bound_ms": flag["bound_ms"],
+            "bound_by": flag["bound_by"], "library_ms": None,
+            "shapes": {label: {k: row[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "launches") if k in row}
+                for label, row in rows_t.items() if label != "flagship"},
         })
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -25,6 +25,15 @@
 // (segment_sum_reference, the same walk with each add flushed) and the
 // reference's jitted superstep bit for bit.  No tree or shuffle reduction and no atomics touch a sum.
 //
+// The positional mode (init_first = 1) is the local search's
+// candidate-cost sum (pydcop_tpu/ops/localsearch.py:57 positional_sum:
+// init + one segment_sum per (bucket, position), the same jnp ops made a
+// hand kernel for the same reason).  Its "buckets" are the (bucket,
+// position) units of the position-major contributions, the running sum
+// starts at var_costs (XLA folds the first unit's scatter into `init`),
+// the separate/running form is the same fold over the units, and the
+// result is written to `sums` alone (no beliefs).
+//
 // A variable's edges are perm[offsets[v]] .. perm[offsets[v + 1] - 1]
 // (a stable sort of the edges by variable, built at placement by
 // device.aggregation_arrays); edge p belongs to bucket b when
@@ -208,7 +217,10 @@ __device__ __forceinline__ void add_edges(const float* m,
 // kMulti = true: several buckets, each edge's row read from its own
 // bucket; kSplit = true adds in the separate/running bucket form,
 // kSplit = false adds every edge into the one running sum (one_sum mode).
-template <int D, int W, bool kMulti, bool kSplit>
+// kInit = true is the positional mode: each running sum starts at
+// var_costs and only the sums are written (a template parameter, so the
+// belief sum's instantiations are the code they were without it).
+template <int D, int W, bool kMulti, bool kSplit, bool kInit>
 __global__ void __launch_bounds__(kThreads)
 segment_sum_tiled(const Buckets bk, const int* __restrict__ perm,
                   const int* __restrict__ offsets,
@@ -241,7 +253,7 @@ segment_sum_tiled(const Buckets bk, const int* __restrict__ perm,
     if (t <= bk.n) s_start[t] = bk.start[t];
     __syncthreads();
   }
-  float acc = 0.0f;   // the running sum
+  float acc = kInit ? cost : 0.0f;  // the running sum
   float part = 0.0f;  // the current separate bucket's own sum
   int b = 0;          // bucket of the last edge added
   for (int c = tile.z; c < tile.w; c += chunk) {
@@ -291,11 +303,11 @@ segment_sum_tiled(const Buckets bk, const int* __restrict__ perm,
   if (!active) return;
   if (kSplit) leave_buckets(b, bk.n, acc, part, bk.sep);
   __stcs(sums + out, acc);
-  __stcs(beliefs + out, fadd_ftz(cost, acc));
+  if (!kInit) __stcs(beliefs + out, fadd_ftz(cost, acc));
 }
 
 // D > kMaxTiledD: one thread per (variable, d), walking its edges.
-template <bool kMulti, bool kSplit>
+template <bool kMulti, bool kSplit, bool kInit>
 __global__ void segment_sum_generic(const Buckets bk,
                                     const int* __restrict__ perm,
                                     const int* __restrict__ offsets,
@@ -315,7 +327,7 @@ __global__ void segment_sum_generic(const Buckets bk,
   const int v = t / d;
   const int k = t - v * d;
   const int end = offsets[v + 1];
-  float acc = 0.0f;
+  float acc = kInit ? var_costs[t] : 0.0f;
   float part = 0.0f;
   int b = 0;
   for (int e = offsets[v]; e < end; ++e) {
@@ -340,7 +352,7 @@ __global__ void segment_sum_generic(const Buckets bk,
   }
   if (kSplit) leave_buckets(b, bk.n, acc, part, bk.sep);
   sums[t] = acc;
-  beliefs[t] = fadd_ftz(var_costs[t], acc);
+  if (!kInit) beliefs[t] = fadd_ftz(var_costs[t], acc);
 }
 
 struct Args {
@@ -354,14 +366,15 @@ struct Args {
   float* beliefs;
   int chunk;
   int one_sum;
+  int init_first;
   cudaStream_t stream;
 };
 
-template <int D, int W, bool kMulti, bool kSplit>
+template <int D, int W, bool kMulti, bool kSplit, bool kInit = false>
 void launch_tiled(const Args& a) {
   const size_t smem = static_cast<size_t>(a.chunk) *
                       (D * sizeof(float) + (kSplit ? 1 : 0));
-  segment_sum_tiled<D, W, kMulti, kSplit>
+  segment_sum_tiled<D, W, kMulti, kSplit, kInit>
       <<<a.n_tiles, kThreads, smem, a.stream>>>(
           a.bk, a.perm, a.offsets, a.tiles, a.var_costs, a.sums, a.beliefs,
           a.chunk);
@@ -388,6 +401,16 @@ int launch_width(const Args& a, int w) {
 
 template <int D>
 int launch_d(const Args& a, int w) {
+  if (a.init_first) {
+    // The positional mode loads rows a float at a time (D = 3, its
+    // common width, does anyway) and always folds separate units.
+    if (a.bk.n == 1) {
+      launch_tiled<D, 1, false, false, true>(a);
+    } else {
+      launch_tiled<D, 1, true, true, true>(a);
+    }
+    return 0;
+  }
   if (a.bk.n == 1) return launch_width<D, false, false>(a, w);
   if (a.one_sum) {
     // Rows of one float per load only: fewer instantiations to build,
@@ -404,8 +427,10 @@ int launch_d(const Args& a, int w) {
 // edge starts.  w: floats per load (1, 2 or 4; D and every base must
 // allow it).  chunk: edges per shared-memory pass.  one_sum: 1 adds
 // every bucket's edges into the one running sum (sorted), 0 in the
-// separate/running form of `sep` (scatter).  Returns a cudaError_t (0
-// when the launch was taken).
+// separate/running form of `sep` (scatter).  init_first: 1 starts each
+// running sum at var_costs and writes only `sums` (the positional mode;
+// beliefs may be null), 0 starts at +0.0 and writes both.  Returns a
+// cudaError_t (0 when the launch was taken).
 extern "C" int segment_sum_launch(const float* const* bases,
                                   const int* starts, int n_buckets,
                                   const int* perm, const int* offsets,
@@ -413,7 +438,7 @@ extern "C" int segment_sum_launch(const float* const* bases,
                                   const float* var_costs, float* sums,
                                   float* beliefs, int n_segments, int d,
                                   int w, int chunk, int one_sum,
-                                  unsigned long long sep,
+                                  unsigned long long sep, int init_first,
                                   cudaStream_t stream) {
   if (n_buckets < 1 || n_buckets > kMaxBuckets || d < 1 || chunk < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -433,20 +458,32 @@ extern "C" int segment_sum_launch(const float* const* bases,
   a.beliefs = beliefs;
   a.chunk = chunk;
   a.one_sum = one_sum;
+  a.init_first = init_first;
   a.stream = stream;
   int err = 0;
   if (d > kMaxTiledD) {
     const int n_out = n_segments * d;
     const int blocks = (n_out + kThreads - 1) / kThreads;
-    if (n_buckets == 1) {
-      segment_sum_generic<false, false><<<blocks, kThreads, 0, stream>>>(
-          a.bk, perm, offsets, var_costs, sums, beliefs, n_out, d);
+    if (init_first && n_buckets == 1) {
+      segment_sum_generic<false, false, true>
+          <<<blocks, kThreads, 0, stream>>>(a.bk, perm, offsets, var_costs,
+                                            sums, beliefs, n_out, d);
+    } else if (init_first) {
+      segment_sum_generic<true, true, true>
+          <<<blocks, kThreads, 0, stream>>>(a.bk, perm, offsets, var_costs,
+                                            sums, beliefs, n_out, d);
+    } else if (n_buckets == 1) {
+      segment_sum_generic<false, false, false>
+          <<<blocks, kThreads, 0, stream>>>(a.bk, perm, offsets, var_costs,
+                                            sums, beliefs, n_out, d);
     } else if (one_sum) {
-      segment_sum_generic<true, false><<<blocks, kThreads, 0, stream>>>(
-          a.bk, perm, offsets, var_costs, sums, beliefs, n_out, d);
+      segment_sum_generic<true, false, false>
+          <<<blocks, kThreads, 0, stream>>>(a.bk, perm, offsets, var_costs,
+                                            sums, beliefs, n_out, d);
     } else {
-      segment_sum_generic<true, true><<<blocks, kThreads, 0, stream>>>(
-          a.bk, perm, offsets, var_costs, sums, beliefs, n_out, d);
+      segment_sum_generic<true, true, false>
+          <<<blocks, kThreads, 0, stream>>>(a.bk, perm, offsets, var_costs,
+                                            sums, beliefs, n_out, d);
     }
   } else if (n_tiles > 0) {
     switch (d) {

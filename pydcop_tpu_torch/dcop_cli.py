@@ -1,14 +1,15 @@
 """Command-line interface of the port.
 
-``python -m pydcop_tpu_torch solve --algo maxsum [--algo_params k:v]
+``python -m pydcop_tpu_torch solve --algo ALGO [--algo_params k:v]
 [-c MAX_CYCLES] [--device cuda|cpu] [--collect_on MOMENT]
 [--run_metrics FILE.csv] [--end_metrics FILE.csv] [--checkpoint_dir DIR
 [--checkpoint_every N] [--[no-]checkpoint_async] [--checkpoint_keep N]
 [--resume]] [--recovery [--recovery_max_restarts N] [--recovery_noise S]
 [--recovery_damping_bump B]] [--trace FILE [--trace_format chrome|jsonl]]
 [--metrics FILE.jsonl] [--metrics_every N] [--serve_metrics PORT]
-FILE.yaml`` solves a DCOP on one torch device and prints the JSON
-result ``pydcop solve`` prints for a device solve (status, assignment,
+FILE.yaml`` solves a DCOP on one torch device with ALGO (maxsum,
+amaxsum, maxsum_dynamic, dsa, adsa, dsatuto, mgm, mgm2) and prints the
+JSON result ``pydcop solve`` prints for a device solve (status, assignment,
 cost, violation, time, msg_count, msg_size, cycle, compile_time,
 backend).  The resilience and observability flags are the reference's,
 with its defaults (``--metrics_file`` is accepted for ``--metrics``).
@@ -59,7 +60,8 @@ def make_parser() -> argparse.ArgumentParser:
     solve.add_argument("dcop_files", nargs="+", help="dcop yaml file(s)")
     solve.add_argument("-a", "--algo", required=True,
                        help="algorithm name (maxsum, amaxsum, "
-                            "maxsum_dynamic)")
+                            "maxsum_dynamic, dsa, adsa, dsatuto, mgm, "
+                            "mgm2)")
     solve.add_argument("-p", "--algo_params", action="append",
                        help="algorithm parameter as name:value")
     solve.add_argument("-c", "--cycles", type=int, default=1000,

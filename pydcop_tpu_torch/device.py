@@ -71,7 +71,15 @@ class TorchFactorGraph(NamedTuple):
     one running sum per variable over every bucket, whose edge order is
     the compiled graph's ``agg_perm``: the same array as ``agg_perm``
     here); ``boundary`` takes its starts and ends from ``agg_offsets``;
-    ``ell`` reads ``agg_ell``, the compiled graph's [V+1, K] lists."""
+    ``ell`` reads ``agg_ell``, the compiled graph's [V+1, K] lists.
+
+    ``pos_perm`` orders the same edges by variable in the local search's
+    positional order — (bucket, position, factor) — for its
+    candidate-cost sum (``segment_sum.positional_sum``): a variable's
+    edges are ``pos_perm[agg_offsets[v]:agg_offsets[v + 1]]`` (the same
+    count as in edge order, so the offsets and the tile plan serve
+    both).  ``pos_units`` holds the positional index at which each
+    (bucket, position) unit starts, then E."""
 
     var_costs: torch.Tensor   # [V+1, Dmax] float32
     var_valid: torch.Tensor   # [V+1, Dmax] bool
@@ -82,6 +90,8 @@ class TorchFactorGraph(NamedTuple):
     agg_tiles: torch.Tensor    # [T, 4] int32
     agg_strategy: str = "scatter"
     agg_ell: Optional[torch.Tensor] = None  # [V+1, K] int32 (ell only)
+    pos_perm: Optional[torch.Tensor] = None   # [E] int32
+    pos_units: Optional[torch.Tensor] = None  # [n_units + 1] int32
 
 
 def aggregation_strategy(graph: CompiledFactorGraph) -> str:
@@ -116,6 +126,19 @@ def aggregation_arrays(buckets, n_segments: int
     return perm, offsets, starts
 
 
+def positional_arrays(buckets) -> Tuple[np.ndarray, np.ndarray]:
+    """(perm [E], unit starts [n_units + 1]) int32 for the positional
+    edge order of ``buckets`` (numpy ``var_ids`` arrays): unit (b, p)
+    holds ``var_ids[:, p]`` of bucket b, the units in bucket order, then
+    position; perm is the stable argsort of the units' variables."""
+    cols = [np.asarray(ids)[:, p] for ids in buckets
+            for p in range(np.asarray(ids).shape[1])]
+    seg = (np.concatenate(cols) if cols else np.zeros((0,), np.int32))
+    perm = np.argsort(seg, kind="stable").astype(np.int32)
+    starts = np.cumsum([0] + [c.shape[0] for c in cols]).astype(np.int32)
+    return perm, starts
+
+
 def edge_valid_bits(var_valid: np.ndarray,
                     var_ids: np.ndarray) -> Optional[np.ndarray]:
     """[F, arity] uint8 whose bit k is ``var_valid[var_ids[f, p], k]``,
@@ -140,6 +163,8 @@ def to_device_graph(graph: CompiledFactorGraph,
     perm, offsets, starts = aggregation_arrays(
         [b.var_ids for b in graph.buckets], graph.var_costs.shape[0])
     tiles = aggregation_plan(offsets, graph.var_costs.shape[1])
+    pos_perm, pos_units = positional_arrays(
+        [b.var_ids for b in graph.buckets])
 
     def bucket(b):
         bits = edge_valid_bits(graph.var_valid, b.var_ids)
@@ -159,4 +184,6 @@ def to_device_graph(graph: CompiledFactorGraph,
         agg_strategy=aggregation_strategy(graph),
         agg_ell=(None if graph.agg_ell is None
                  else put(graph.agg_ell, torch.int32)),
+        pos_perm=put(pos_perm, torch.int32),
+        pos_units=put(pos_units, torch.int32),
     )

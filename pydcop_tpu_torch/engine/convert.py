@@ -1,10 +1,12 @@
-"""Carry a compiled graph and a MaxSum state between numpy and torch.
+"""Carry a compiled graph and a solver state between numpy and torch.
 
 This system has no weights: its "parameters" are the compiled factor
 graph and the solver state.  These functions take and give plain numpy
 arrays — for example ``np.asarray`` of the JAX reference's
 ``CompiledFactorGraph`` and ``MaxSumState`` — so both packages can
-compute on the same graph from the same messages.  They import nothing
+compute on the same graph from the same messages.  The local-search
+states (DSA, MGM, MGM2) carry their values as a tensor and their key and
+cycle on the host.  They import nothing
 of the JAX package.
 """
 
@@ -24,7 +26,12 @@ from pydcop_tpu_torch.engine.compile import (
     FactorBucket,
     build_aggregation_arrays,
 )
+from pydcop_tpu_torch.ops.dsa import DsaState
 from pydcop_tpu_torch.ops.maxsum import MaxSumState
+from pydcop_tpu_torch.ops.mgm import MgmState
+from pydcop_tpu_torch.ops.mgm2 import Mgm2State
+
+LOCALSEARCH_STATES = {"dsa": DsaState, "mgm": MgmState, "mgm2": Mgm2State}
 
 
 def graph_from_numpy(var_costs, var_valid,
@@ -84,5 +91,29 @@ def state_to_numpy(state: MaxSumState) -> Dict[str, object]:
         "v2f_count": get(state.v2f_count),
         "f2v_count": get(state.f2v_count),
         "stable": bool(state.stable),
+        "cycle": int(state.cycle),
+    }
+
+
+def localsearch_state_from_numpy(kind: str, values, key, cycle,
+                                 device: DeviceLike = "cuda"):
+    """The port's ``DsaState`` / ``MgmState`` / ``Mgm2State`` (``kind``
+    ``"dsa"``, ``"mgm"`` or ``"mgm2"``) from the reference's fields as
+    numpy: ``values`` [V+1] int, ``key`` the two uint32 key words,
+    ``cycle`` a scalar int."""
+    words = np.asarray(key).astype(np.int64).reshape(2)
+    return LOCALSEARCH_STATES[kind](
+        values=torch.tensor(np.asarray(values), dtype=torch.int32,
+                            device=resolve_device(device)),
+        key=(int(words[0]), int(words[1])),
+        cycle=int(np.asarray(cycle)))
+
+
+def localsearch_state_to_numpy(state) -> Dict[str, object]:
+    """A local-search state as numpy: ``values`` [V+1] int32, ``key``
+    [2] uint32, ``cycle`` int — the reference's fields."""
+    return {
+        "values": state.values.detach().cpu().numpy(),
+        "key": np.asarray(state.key, dtype=np.uint32),
         "cycle": int(state.cycle),
     }

@@ -8,7 +8,9 @@ guard and decimation, and the older ``run_decimated``),
 graph is placed on the device once; ``run`` and ``run_trace`` execute
 the superstep loop of ``ops/maxsum.py`` and end their timing with
 ``torch.cuda.synchronize()`` on the card, so ``time_s`` is device time,
-not enqueue time.  ``run_checkpointed`` waits on the current stream
+not enqueue time.  ``run_device_fn`` runs a one-shot solve function (the
+local-search family's) with the reference's timing conventions.
+``run_checkpointed`` waits on the current stream
 only, never on the whole device, so the asynchronous checkpoint
 writer's copies on their own stream overlap the next segment.
 
@@ -24,7 +26,7 @@ span and a decimation clamp records a ``decimation_clamp`` instant.
 import sys
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -103,6 +105,85 @@ def sync(device: torch.device):
     """Wait for the device's queued work (no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _fn_label(fn) -> str:
+    """Stable, low-cardinality name of a solve function: a partial
+    resolves to the wrapped function's name (the reference's)."""
+    name = getattr(fn, "__name__", None)
+    if name:
+        return name
+    inner = getattr(fn, "func", None)  # functools.partial
+    return getattr(inner, "__name__", None) or type(fn).__name__
+
+
+def run_device_fn(graph: CompiledFactorGraph, meta: FactorGraphMeta,
+                  fn: Callable, mesh=None, n_devices: Optional[int] = None,
+                  finished: bool = False, warmup: bool = False,
+                  device: DeviceLike = "cuda") -> DeviceRunResult:
+    """Place ``graph`` on ``device`` and run a whole-solve function
+    ``fn(graph) -> (values [V], cost, cycles)`` (the local-search
+    family's ``run_*``; ``cycles`` a host int), packaged as the
+    reference's ``run_device_fn`` packages it.
+
+    Timing (the reference's conventions): by default a cold call, so
+    ``time_s`` and ``compile_time_s`` both carry the whole wall time
+    (the kernels' build included) and ``cycles_per_s`` is a lower
+    bound; with ``warmup=True`` the function first runs once untimed
+    (its wall time in ``metrics['warmup_time_s']``), the timed call is
+    steady-state and ``compile_time_s`` is 0.  The timed window ends
+    with a synchronise of the card.  With a tracer active the timed call
+    runs in a ``device_solve`` span (``warmed=``); with the profiler on,
+    a profiled throwaway call first records the entry under
+    ``("device_fn", <function name>)`` into ``metrics['xla_cost']``.
+    ``mesh`` / ``n_devices`` (multi-device runs) are not ported and
+    raise."""
+    if mesh is not None or (n_devices is not None and n_devices > 1):
+        raise NotImplementedError(
+            "multi-device runs (mesh/n_devices) are not ported yet")
+    placed = to_device_graph(graph, device)
+    dev = placed.var_costs.device
+    entry = key = None
+    if profiler.enabled:
+        key = ("device_fn", _fn_label(fn))
+        cycles = getattr(fn, "keywords", {}).get("max_cycles", 0)
+        entry = profiler.capture(key, lambda: fn(placed), dev, cycles)
+    warm_s = 0.0
+    if warmup:
+        t0 = time.perf_counter()
+        fn(placed)
+        sync(dev)
+        warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if tracer.active:
+        with tracer.span("device_solve", "engine", warmed=warmup):
+            out = fn(placed)
+            sync(dev)
+    else:
+        out = fn(placed)
+        sync(dev)
+    t1 = time.perf_counter()
+    values, cost, cycles = out
+    assignment = meta.assignment_from_indices(values.cpu().numpy())
+    sign = 1.0 if meta.mode == "min" else -1.0
+    metrics: Dict[str, Any] = {
+        "device_cost": sign * float(cost) + meta.constant_cost,
+        "cycles_per_s": int(cycles) / (t1 - t0) if t1 > t0 else 0.0,
+        "cold_start": not warmup,
+        "device": str(dev),
+    }
+    if warmup:
+        metrics["warmup_time_s"] = warm_s
+    if entry is not None:
+        metrics["xla_cost"] = {key_str(key): entry}
+    return DeviceRunResult(
+        assignment=assignment,
+        cycles=int(cycles),
+        converged=finished,
+        time_s=t1 - t0,
+        compile_time_s=0.0 if warmup else t1 - t0,
+        metrics=metrics,
+    )
 
 
 class _DecimationRun:

@@ -144,17 +144,23 @@ def ordered_sum(x: torch.Tensor, n_buckets: int = 1) -> torch.Tensor:
 
 
 def gather_reduce(ell: torch.Tensor, edge_vals: torch.Tensor,
-                  n_buckets: int = 1) -> torch.Tensor:
-    """Sum per-edge values into per-variable values through the ELL
-    lists, in the reference's order (:func:`ordered_sum`).
-    ``edge_vals`` is [E] or [E, D] in the flattened (bucket, factor,
-    position) edge order the lists index, from ``n_buckets`` buckets;
-    returns [V+1] or [V+1, D].
-    Dummy slots add zero.  (The reference's ``fill``/``reduce_fn``
-    arguments serve the local-search reductions, not ported yet.)"""
+                  n_buckets: int = 1, fill=0.0,
+                  reduce: str = "sum") -> torch.Tensor:
+    """Reduce per-edge values into per-variable values through the ELL
+    lists.  ``edge_vals`` is [E] or [E, D] in the flattened (bucket,
+    factor, position) edge order the lists index, from ``n_buckets``
+    buckets; returns [V+1] or [V+1, D].  Dummy slots hold ``fill``, the
+    identity of ``reduce``: ``"sum"`` (fill 0; in the reference's order,
+    :func:`ordered_sum`), ``"max"`` (-inf) or ``"min"`` (+inf), which
+    need no order."""
+    if reduce not in ("sum", "max", "min"):
+        raise ValueError(f"reduce must be sum, max or min, got {reduce!r}")
     n_edges = edge_vals.shape[0]
     safe = torch.clamp(ell, max=max(n_edges - 1, 0)).to(torch.int64)
     mask = ell < n_edges
     if edge_vals.dim() == 2:
         mask = mask[..., None]
-    return ordered_sum(torch.where(mask, edge_vals[safe], 0.0), n_buckets)
+    vals = torch.where(mask, edge_vals[safe], fill)
+    if reduce == "sum":
+        return ordered_sum(vals, n_buckets)
+    return vals.amax(dim=1) if reduce == "max" else vals.amin(dim=1)

@@ -17,6 +17,12 @@ plain version.
 
 The kernel works tile by tile, one block each, as
 :func:`aggregation_plan` cuts the variables at placement.
+
+The same kernel runs the local search's candidate-cost sum
+(:func:`positional_sum`, the positional mode): ``init`` plus, per
+variable, its contributions of every (bucket, position) unit, in the
+order XLA gives the reference's ``positional_sum``
+(``pydcop_tpu/ops/localsearch.py:57``).
 """
 
 import ctypes
@@ -146,7 +152,26 @@ def segment_sum_reference(msgs: torch.Tensor, perm: torch.Tensor,
     Rank r of the walk adds the r-th edge of every variable of degree
     above r at once; the variables are taken in decreasing degree, so
     those are a prefix.  The walk reads the degrees on the host."""
-    n_seg, d = var_costs.shape
+    sums = _walk(msgs, perm, offsets, buckets,
+                 torch.zeros_like(var_costs), one_sum)
+    return ftz(var_costs + sums), sums
+
+
+def positional_sum_reference(msgs: torch.Tensor, perm: torch.Tensor,
+                             offsets: torch.Tensor, units: torch.Tensor,
+                             init: torch.Tensor) -> torch.Tensor:
+    """The plain version of :func:`positional_sum`: the walk of
+    :func:`segment_sum_reference` over the (bucket, position) units
+    ``units`` (their first edges, then E), each running sum starting at
+    ``init`` [V+1, D] instead of +0.0, and no beliefs.  ``msgs`` is
+    [E, D], the units' contributions in unit order."""
+    return _walk(msgs, perm, offsets, units, init, False)
+
+
+def _walk(msgs, perm, offsets, buckets, acc, one_sum):
+    """The edge-rank walk of :func:`segment_sum_reference` from the
+    running sums ``acc`` [V+1, D]; returns the sums."""
+    n_seg = acc.shape[0]
     dev = perm.device
     offsets = offsets.to(torch.int64)
     counts = offsets[1:] - offsets[:-1]
@@ -158,7 +183,7 @@ def segment_sum_reference(msgs: torch.Tensor, perm: torch.Tensor,
     n_buckets = buckets.shape[0] - 1
     sep = (0 if one_sum or n_buckets < 2
            else separate_buckets(buckets.tolist(), n_seg))
-    acc = torch.zeros((n_seg, d), dtype=var_costs.dtype, device=dev)
+    acc = acc[order]
     part = torch.zeros_like(acc)
     at = torch.zeros((n_seg,), dtype=torch.int64, device=dev)
     sep_rows = torch.tensor([(sep >> b) & 1 for b in range(n_buckets)],
@@ -195,7 +220,7 @@ def segment_sum_reference(msgs: torch.Tensor, perm: torch.Tensor,
         leave(n_seg, None)
     sums = torch.empty_like(acc)
     sums[order] = acc
-    return ftz(var_costs + sums), sums
+    return sums
 
 
 def _check(parts, flat, perm, offsets, buckets, var_costs, tiles):
@@ -263,7 +288,7 @@ def _launcher():
                    + [ctypes.c_void_p] * 3 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 3
                    + [ctypes.c_int] * 5 + [ctypes.c_ulonglong]
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -341,8 +366,68 @@ def segment_sum(msgs: Messages, perm: torch.Tensor,
                       beliefs.data_ptr(), n_seg, d, _load_width(parts, d),
                       pass_edges(d), int(one_sum),
                       0 if one_sum else separate_buckets(edge_starts, n_seg),
-                      torch.cuda.current_stream().cuda_stream)
+                      0, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"segment_sum launch failed: CUDA error {err}")
     _build.launch_counts[KERNEL] += 1
     return beliefs, sums
+
+
+def positional_sum(units: Sequence[torch.Tensor], perm: torch.Tensor,
+                   offsets: torch.Tensor, unit_starts: torch.Tensor,
+                   init: torch.Tensor,
+                   tiles: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[V+1, D] f32: ``init`` plus, per variable, its contributions of
+    every (bucket, position) unit, in the order of the reference's
+    jitted ``positional_sum``: the running sum starts at ``init``, and
+    across units it is :func:`separate_buckets`' fold with the units in
+    place of the buckets (probed against the reference on random graphs
+    of arity 1-4; ``tests/test_torch_localsearch.py``).
+
+    ``units`` are the units' [F, D] contributions in unit order (bucket
+    order, then position), each read where it lies; ``perm`` [E] int32
+    orders the edges — unit by unit, factor by factor — by variable
+    (``graph.pos_perm``), ``offsets`` and ``tiles`` are the graph's
+    ``agg_offsets`` and ``agg_tiles`` (a variable has the same edges in
+    either order), ``unit_starts`` [n_units + 1] int32 the units' first
+    edges, then E.  On a CUDA tensor it launches the kernel in its
+    positional mode; on the CPU it runs the plain version."""
+    parts = tuple(units)
+    _check(parts, False, perm, offsets, unit_starts, init, tiles)
+    n_seg, d = init.shape
+    if perm.device.type == "cpu":
+        whole = (parts[0].reshape(-1, d) if len(parts) == 1
+                 else torch.cat([p.reshape(-1, d) for p in parts]))
+        return positional_sum_reference(whole, perm, offsets, unit_starts,
+                                        init)
+    n_units = len(parts)
+    if n_units > MAX_BUCKETS:
+        raise ValueError(f"{n_units} (bucket, position) units: the kernel "
+                         f"takes at most {MAX_BUCKETS}")
+    if tiles is None:
+        raise ValueError("positional_sum on the card needs the placement "
+                         "plan (graph.agg_tiles)")
+    if max([p.numel() for p in parts] + [perm.shape[0] * d,
+                                         init.numel()]) >= 2 ** 31:
+        raise ValueError(
+            f"graph too large for one launch: E={perm.shape[0]}, "
+            f"V+1={n_seg}, D={d}")
+    out = torch.empty_like(init)
+    if out.numel() == 0:
+        return out
+    bases = (ctypes.c_void_p * n_units)(*(p.data_ptr() for p in parts))
+    edge_starts = np.cumsum([0] + [p.numel() // d for p in parts]).tolist()
+    starts = (ctypes.c_int * (n_units + 1))(*edge_starts)
+    with torch.cuda.device(perm.device):
+        err = _launcher()(bases, starts, n_units, perm.data_ptr(),
+                          offsets.data_ptr(), tiles.data_ptr(),
+                          tiles.shape[0], init.data_ptr(), out.data_ptr(),
+                          None, n_seg, d, _load_width(parts, d),
+                          pass_edges(d), 0,
+                          separate_buckets(edge_starts, n_seg), 1,
+                          torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"segment_sum (positional) launch failed: CUDA error {err}")
+    _build.launch_counts[KERNEL] += 1
+    return out

@@ -3,11 +3,14 @@
 Checked in a fresh interpreter (this test process already imported jax
 through the root conftest): every module of pydcop_tpu_torch is
 imported (among them the resilience modules, the PRNG, the
-delegating algorithms, the fused per-edge update and the observability
-modules), then ``sys.modules`` must hold no ``jax*``
+delegating algorithms, the fused per-edge update, the observability
+modules and the local-search slice: its algorithms, ops, the threefry
+kernel's wrapper and the copied computation graphs), then
+``sys.modules`` must hold no ``jax*``
 module and no ``pydcop_tpu``/``pydcop_tpu.*`` module.  The sources of
-the package, of chip_smoke.py, chip_compare.py and
-chip_var_update_compare.py are also scanned for such imports.
+the package, of chip_smoke.py, chip_compare.py,
+chip_var_update_compare.py and of the card-only test file of the local
+search are also scanned for such imports.
 """
 
 import ast
@@ -70,6 +73,18 @@ REQUIRED = [
     "pydcop_tpu_torch.utils.cleanenv",
     "pydcop_tpu_torch.commands.trace",
     "pydcop_tpu_torch.commands.profile",
+    "pydcop_tpu_torch.computations_graph.objects",
+    "pydcop_tpu_torch.computations_graph.constraints_hypergraph",
+    "pydcop_tpu_torch.ops.threefry",
+    "pydcop_tpu_torch.ops.localsearch",
+    "pydcop_tpu_torch.ops.dsa",
+    "pydcop_tpu_torch.ops.mgm",
+    "pydcop_tpu_torch.ops.mgm2",
+    "pydcop_tpu_torch.algorithms.dsa",
+    "pydcop_tpu_torch.algorithms.adsa",
+    "pydcop_tpu_torch.algorithms.dsatuto",
+    "pydcop_tpu_torch.algorithms.mgm",
+    "pydcop_tpu_torch.algorithms.mgm2",
 ]
 
 
@@ -99,7 +114,8 @@ SOURCES = sorted(
     str(p.relative_to(REPO))
     for p in list((REPO / "pydcop_tpu_torch").rglob("*.py"))
     + [REPO / "chip_smoke.py", REPO / "chip_compare.py",
-       REPO / "chip_var_update_compare.py"]
+       REPO / "chip_var_update_compare.py",
+       REPO / "tests" / "test_torch_gpu_localsearch.py"]
 )
 
 

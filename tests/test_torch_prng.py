@@ -3,7 +3,13 @@
 ``uniform`` (float32, odd and multi-axis shapes, symmetric and skewed
 ranges) over the seeds 0, 1, 7 and 2**31 - 1, each held bit for bit
 (``np.array_equal`` on the uint32 views); and the recovery noise,
-``perturb_state``, equal to the reference's leaf by leaf.
+``perturb_state``, equal to the reference's leaf by leaf.  The local
+search's key chain: ``split`` (tensors) and ``key_words`` /
+``split_words`` / ``fold_in_words`` (host words) equal
+``jax.random.PRNGKey`` / ``split`` / ``fold_in`` for n = 2, 3, 5 and
+seeds up to 2**63 - 1 (so ``split(k, n)[i]`` is ``fold_in(k, i)``, which
+the port relies on), and ``uniform_words`` equals ``jax.random.uniform``
+under a chain of such keys.
 """
 
 import jax  # noqa: F401  (imported first: JAX stays on the CPU)
@@ -128,3 +134,44 @@ def test_perturb_state_equals_jax_leaf_by_leaf(seed, scale):
                                           b.view(np.uint8))
     assert int(out.cycle) == int(ref.cycle) == 9
     assert not np.array_equal(out.v2f[0].numpy(), fields["v2f"][0])
+
+
+CHAIN_SEEDS = [0, 1, 7, 2 ** 31 - 1, 2 ** 32, 2 ** 32 + 5, 2 ** 63 - 1]
+
+
+@pytest.mark.parametrize("seed", CHAIN_SEEDS)
+@pytest.mark.parametrize("n", [2, 3, 5])
+def test_split_and_host_key_chain_equal_jax(seed, n):
+    """Twelve steps of the local search's chain (split into n, carry
+    the first) on tensors and on host words, against jax.random."""
+    jkey = jax.random.PRNGKey(seed)
+    tkey = prng.PRNGKey(seed, device="cpu")
+    words = prng.key_words(seed)
+    assert words == tuple(int(w) for w in _key_words(jkey))
+    for step in range(12):
+        jsplit = np.asarray(jax.random.split(jkey, n)).astype(np.int64)
+        np.testing.assert_array_equal(prng.split(tkey, n).numpy(), jsplit)
+        assert prng.split_words(words, n) == [
+            tuple(int(w) for w in row) for row in jsplit]
+        for i in range(n):
+            np.testing.assert_array_equal(
+                jsplit[i], _key_words(jax.random.fold_in(jkey, i)))
+        jkey, tkey, words = jsplit[0].astype(np.uint32), prng.split(
+            tkey, n)[0], prng.split_words(words, n)[0]
+        jkey = jnp.asarray(jkey)
+    for data in (0, 1, 10_000, 2 ** 32 - 1):
+        assert prng.fold_in_words(words, data) == tuple(
+            int(w) for w in _key_words(jax.random.fold_in(jkey, data)))
+
+
+@pytest.mark.parametrize("seed", CHAIN_SEEDS)
+@pytest.mark.parametrize("shape", [(1,), (1001,), (31, 9)])
+def test_uniform_words_equal_jax(seed, shape):
+    jkey, words = jax.random.PRNGKey(seed), prng.key_words(seed)
+    for _ in range(3):
+        jkey, jsub = jax.random.split(jkey)
+        words, sub = prng.split_words(words)
+        ref = np.asarray(jax.random.uniform(jsub, shape))
+        out = prng.uniform_words(sub, shape).numpy()
+        np.testing.assert_array_equal(out.view(np.uint32),
+                                      ref.view(np.uint32))
