@@ -19,9 +19,17 @@ times whole fixed-cycle runs (``ops.run_maxsum``) on the flagship
 (chip_smoke.py's 10,000-variable colouring, 200 cycles) and the
 1M-variable scale graph (30 cycles): wall ms per cycle, best of three
 after a warm-up, and the CUDA kernels per cycle that torch.profiler
-counts over 20 (flagship) or 5 (scale) cycles.  The last lines
-are one JSON object of device milliseconds per shape and checkout and
-the card's name and power limit.  It needs one CUDA card and exits 1
+counts over 20 (flagship) or 5 (scale) cycles.  The local-search leg
+times, on the same arrays, DSA-B and MGM (lexic) runs (``ops.dsa.run_dsa``,
+``ops.mgm.run_mgm``) at the flagship (200 cycles) and the scale graph
+(30 cycles): wall ms per cycle (best of three), device ms per cycle and
+kernels per cycle (torch.profiler over 20 or 5 cycles); and the kernels
+both checkouts share an entry for: ``localsearch.candidate_costs`` (the
+positional sum with its gathers) at both sizes, ``threefry.uniform``
+and ``threefry.best_choice`` at [1,000,001 x 3] (40 % masked) and
+``binary_factor_update`` at 1.5M factors, each in a CUDA graph as
+above.  The last lines are one JSON object of milliseconds per shape
+and checkout and the card's name and power limit.  It needs one CUDA card and exits 1
 without one; it imports nothing of JAX and nothing of the JAX package.
 """
 
@@ -121,6 +129,7 @@ def worker(root: str):
             torch, lambda: ops.aggregate_beliefs(card, f2v_card), reps)
         del card, cpu, f2v_card
     out.update(run_timings(torch, ops, graph_from_numpy))
+    out.update(localsearch_timings(torch, graph_from_numpy))
     print(json.dumps(out), flush=True)
 
 
@@ -175,6 +184,82 @@ def run_timings(torch, ops, graph_from_numpy):
         out[f"{label}_run_ms_per_cycle"] = min(times) / cycles * 1e3
         out[f"{label}_kernels_per_cycle"] = kernels_per_cycle(
             torch, run, prof_cycles)
+    return out
+
+
+def localsearch_timings(torch, graph_from_numpy):
+    """The local-search leg: DSA-B and MGM runs and the kernels both
+    checkouts share an entry for, at the flagship and scale shapes."""
+    import time
+
+    sys.path.insert(0, HERE)
+    import chip_smoke
+
+    from pydcop_tpu_torch.algorithms.mgm import lexic_ranks
+    from pydcop_tpu_torch.dcop import dcop as dcop_mod
+    from pydcop_tpu_torch.dcop import objects, relations
+    from pydcop_tpu_torch.engine.compile import compile_dcop
+    from pydcop_tpu_torch.ops import localsearch, threefry
+    from pydcop_tpu_torch.ops.binary_factor import binary_factor_update
+    from pydcop_tpu_torch.ops.dsa import run_dsa
+    from pydcop_tpu_torch.ops.mgm import run_mgm
+    from pydcop_tpu_torch.utils import prng
+
+    host, meta = compile_dcop(chip_smoke.build_flagship(
+        objects, relations, dcop_mod, chip_smoke.FLAGSHIP_VARS))
+    flagship = graph_from_numpy(host.var_costs, host.var_valid,
+                                [(b.costs, b.var_ids) for b in host.buckets],
+                                "cuda")
+    scale = graph_from_numpy(
+        *chip_smoke.scale_arrays(chip_smoke.SCALE_VARS), "cuda")
+    n = scale.var_costs.shape[0]
+    scale_ranks = torch.arange(n, dtype=torch.float32, device="cuda")
+    scale_ranks[-1] = float("inf")
+    sizes = {
+        "flagship": (flagship, torch.tensor(lexic_ranks(meta),
+                                            device="cuda"), 200, 20),
+        "scale": (scale, scale_ranks, 30, 5),
+    }
+    out = {}
+    for label, (graph, ranks, cycles, prof_cycles) in sizes.items():
+        runs = {
+            "dsa_B": lambda k, g=graph: run_dsa(g, k, variant="B"),
+            "mgm": lambda k, g=graph, r=ranks: run_mgm(g, k, lexic_ranks=r),
+        }
+        for algo, fn in runs.items():
+            def run(k, fn=fn):
+                fn(k)
+                torch.cuda.synchronize()
+
+            run(cycles)                               # warm
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                run(cycles)
+                times.append(time.perf_counter() - t0)
+            prof = chip_smoke.profile_cycles(torch, run, prof_cycles)
+            key = f"{algo}_{label}"
+            out[f"{key}_ms_per_cycle"] = min(times) / cycles * 1e3
+            out[f"{key}_device_ms_per_cycle"] = prof["device_ms_per_cycle"]
+            out[f"{key}_kernels_per_cycle"] = prof[
+                "device_kernels_per_cycle"]
+        values = torch.tensor(np.random.default_rng(5).integers(
+            0, graph.var_costs.shape[1], graph.var_costs.shape[0]).astype(
+                np.int32), device="cuda")
+        out[f"candidate_costs_{label}"] = graph_ms(
+            torch, lambda g=graph: localsearch.candidate_costs(g, values),
+            200 if label == "flagship" else 50)
+    key = prng.key_words(12345)
+    rng = np.random.default_rng(21)
+    mask = torch.tensor(chip_smoke.best_choice_mask(rng, 1_000_001, 3),
+                        device="cuda")
+    out["uniform_f32_scale_D3"] = graph_ms(
+        torch, lambda: threefry.uniform(key, (1_000_001, 3), "cuda"), 50)
+    out["best_choice_scale"] = graph_ms(
+        torch, lambda: threefry.best_choice(key, mask), 50)
+    costs, v2f = chip_smoke.bucket_inputs(torch, 1_500_000, 3, seed=100)
+    out["binary_factor_update_scale"] = graph_ms(
+        torch, lambda: binary_factor_update(costs, v2f), 50)
     return out
 
 

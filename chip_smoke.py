@@ -1837,7 +1837,8 @@ H100_INT32_OPS_PER_S = 132 * 64 * 1.98e9
 THREEFRY_OPS = 60 + 10 - 5 + 2 + 1 + 2
 UNIFORM_SHAPES = [(1,), (7,), (10_001,), (10_001, 3), (1_000_001,),
                   (1_000_001, 3), (241, 128)]
-BEST_CHOICE_KS = [1, 2, 3, 8, 9, 128]
+BEST_CHOICE_KS = [1, 2, 3, 5, 8, 9, 33, 128]
+BEST_CHOICE_DENSITIES = [0.0, 0.1, 0.4, 0.9, 1.0]
 LS_CYCLES = 200
 LS_SCALE_CYCLES = 30
 LS_SCALE_COMPARE = 5
@@ -1869,9 +1870,9 @@ def threefry_bound(n_draws: int, bytes_moved: int):
 
 
 def positional_bound(n_edges: int, n_seg: int, d: int):
-    """(bound_ms, bound_by) of the positional sum: contributions, perm,
-    offsets and init read once, the sums written once, against one add
-    per edge element."""
+    """(bound_ms, bound_by) of the positional sum's contributions entry:
+    contributions, perm, offsets and init read once, the sums written
+    once, against one add per edge element."""
     bytes_moved = 4 * (n_edges * d + n_edges + (n_seg + 1) + 2 * n_seg * d)
     ops = n_edges * d
     bytes_ms = bytes_moved / H100_BYTES_PER_S * 1e3
@@ -1880,15 +1881,51 @@ def positional_bound(n_edges: int, n_seg: int, d: int):
                                                            "operations")
 
 
-def best_choice_mask(rng, n: int, k: int):
-    """[n, k] bool with ~40 % True, and an empty, a full and a
+def positional_table_bound(graph):
+    """(bound_ms, bound_by) of the fused entry on ``graph``: each binary
+    bucket's cost table read once (both its units read it), the other
+    units' rows, pos_perm, pos_other, values, offsets, pos_mid and init
+    read once, the sums written once, against one add per edge element.
+    At the scale graph: tables 54 MB, pos_perm and pos_other 12 MB each,
+    values, offsets and pos_mid 4 MB each, init and sums 12 MB each:
+    ~114 MB."""
+    n_seg, d = graph.var_costs.shape
+    n_edges = int(graph.pos_perm.shape[0])
+    floats = sum(b.costs.numel() if b.var_ids.shape[1] == 2
+                 else b.var_ids.numel() * d for b in graph.buckets)
+    ints = (2 * n_edges + n_seg + (n_seg + 1)
+            + (n_seg if graph.pos_mid is not None else 0))
+    bytes_moved = 4 * (floats + ints + 2 * n_seg * d)
+    bytes_ms = bytes_moved / H100_BYTES_PER_S * 1e3
+    ops_ms = n_edges * d / H100_F32_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
+def best_choice_mask(rng, n: int, k: int, density: float = 0.4):
+    """[n, k] bool with ``density`` True, and an empty, a full and a
     single-slot row first."""
-    mask = rng.random((n, k)) < 0.4
+    mask = rng.random((n, k)) < density
     mask[0] = False
     mask[1] = True
     mask[2] = False
     mask[2, k - 1] = True
     return mask
+
+
+def best_choice_timing(torch, threefry, key, mask):
+    """The kernel, its plain version and its bound on ``mask``."""
+    n, k = mask.shape
+    n_true = int(mask.sum())
+    reps = 200 if n < 100_000 else 50
+    k_ms = graph_ms(torch, lambda: threefry.best_choice(key, mask), reps)
+    p_ms = graph_ms(torch, lambda: threefry.best_choice_reference(
+        key, mask), reps)
+    bound_ms, bound_by = threefry_bound(n_true, n * k + 4 * n)
+    return dict(N=n, K=k, masked=n_true, ms=k_ms[2],
+                ms_spread=[k_ms[0], k_ms[-1]], plain_ms=p_ms[2],
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                bound_share=bound_ms / k_ms[2])
 
 
 def phase_threefry(ctx):
@@ -1909,13 +1946,19 @@ def phase_threefry(ctx):
     rng = np.random.default_rng(21)
     masked = {}
     for k in BEST_CHOICE_KS:
-        mask = torch.tensor(best_choice_mask(rng, 10_001, k), device="cuda")
-        for key in keys:
-            out = threefry.best_choice(key, mask)
-            ref = threefry.best_choice_reference(key, mask)
-            if not torch.equal(out, ref):
-                fail(f"threefry best_choice != plain at K={k} key {key}")
-        masked[k] = int(mask.sum())
+        for density in BEST_CHOICE_DENSITIES:
+            # One byte past an aligned word: the kernel's first and last
+            # words hold bytes outside the mask.
+            big = torch.tensor(best_choice_mask(rng, 10_002, k, density),
+                               device="cuda").reshape(-1)
+            mask = big[1:1 + 10_001 * k].reshape(10_001, k)
+            for key in keys:
+                out = threefry.best_choice(key, mask)
+                ref = threefry.best_choice_reference(key, mask)
+                if not torch.equal(out, ref):
+                    fail(f"threefry best_choice != plain at K={k} "
+                         f"density {density} key {key}")
+            masked[f"K{k}_d{density}"] = int(mask.sum())
     key = keys[1]
     timing = {"uniform_f32": {}, "best_choice": {}}
     for label, shape in (("flagship", (10_001,)),
@@ -1938,16 +1981,8 @@ def phase_threefry(ctx):
                           ("scale", (1_000_001, 3)),
                           ("mgm2_flagship_pairs", (15_000, 9))):
         mask = torch.tensor(best_choice_mask(rng, n, k), device="cuda")
-        n_true = int(mask.sum())
-        reps = 200 if n < 100_000 else 50
-        k_ms = graph_ms(torch, lambda: threefry.best_choice(key, mask), reps)
-        p_ms = graph_ms(torch, lambda: threefry.best_choice_reference(
-            key, mask), reps)
-        bound_ms, bound_by = threefry_bound(n_true, n * k + 4 * n)
-        timing["best_choice"][label] = dict(
-            N=n, K=k, masked=n_true, ms=k_ms[2],
-            ms_spread=[k_ms[0], k_ms[-1]], plain_ms=p_ms[2],
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        timing["best_choice"][label] = best_choice_timing(
+            torch, threefry, key, mask)
     # The straight translation: jax.random.uniform on a key tensor
     # (utils/prng.py's uniform), which reads the key on the host.
     from torch.autograd import DeviceType
@@ -1969,7 +2004,9 @@ def phase_threefry(ctx):
                      and e.device_type == DeviceType.CPU)
     return {
         "uniform_shapes": [list(s) for s in UNIFORM_SHAPES],
-        "best_choice_K": BEST_CHOICE_KS, "best_choice_masked": masked,
+        "best_choice_K": BEST_CHOICE_KS,
+        "best_choice_densities": BEST_CHOICE_DENSITIES,
+        "best_choice_masked": masked,
         "keys": [list(k) for k in keys],
         "tolerance": "exact (int32 views / torch.equal)",
         "max_abs_err": 0.0, "timing": timing,
@@ -1980,41 +2017,132 @@ def phase_threefry(ctx):
     }
 
 
-def unit_contributions(torch, graph, seed: int):
-    """Order-sensitive [F, D] contributions of every (bucket, position)
-    unit of ``graph`` on the card, and the same as one [E, D] tensor."""
+def random_units(torch, seg, graph, seed: int):
+    """(units, variables): order-sensitive units of ``graph`` on the card
+    in its positional order — a binary bucket's two positions as
+    TableUnits of a random [F, D, D] table (spread over seven decades),
+    any other bucket's positions as random [F, D] contributions — and
+    each unit's variable ids."""
+    rng = np.random.default_rng(seed)
     d = graph.var_costs.shape[1]
-    units = [edge_messages(torch, b.var_ids.shape[0], d, seed + 10 * i + p)
-             for i, b in enumerate(graph.buckets)
-             for p in range(b.var_ids.shape[1])]
-    return units, torch.cat(units)
+    units, cols = [], []
+    for i, b in enumerate(graph.buckets):
+        n_f, arity = b.var_ids.shape
+        cols += [b.var_ids[:, p] for p in range(arity)]
+        if arity == 2:
+            table = (rng.normal(size=(n_f, d, d))
+                     * 10.0 ** rng.integers(-3, 4, size=(n_f, d, d))
+                     ).astype(np.float32)
+            table = torch.tensor(table, device="cuda")
+            units += [seg.TableUnit(table, b.var_ids, p) for p in (0, 1)]
+        else:
+            units += [edge_messages(torch, n_f, d, seed + 10 * i + p)
+                      for p in range(arity)]
+    order = graph.pos_order
+    return [units[u] for u in order], [cols[u] for u in order]
+
+
+def on_cpu(torch, seg, units):
+    return [seg.TableUnit(u.costs.cpu(), u.var_ids.cpu(), u.position)
+            if isinstance(u, seg.TableUnit) else u.cpu() for u in units]
+
+
+def one_factor_arrays(rng, n_vars: int, d: int, sizes):
+    """(var_costs, var_valid, buckets): ``sizes`` (arity, F) per bucket,
+    one-factor buckets real factors (ROADMAP Queue C item 1's shapes)."""
+    var_costs = rng.normal(size=(n_vars + 1, d)).astype(np.float32)
+    buckets = []
+    for arity, f in sizes:
+        ids = np.stack([rng.choice(n_vars, size=arity, replace=False)
+                        for _ in range(f)]).astype(np.int32)
+        buckets.append((np.zeros((f,) + (d,) * arity, np.float32), ids))
+    return var_costs, np.ones_like(var_costs, bool), buckets
+
+
+# (label, V, D, sizes) of the one-factor graphs of
+# tests/test_torch_positional_one_factor.py, and a mixed arity-2/3/4 one.
+POSITIONAL_SMALL = [
+    ("one_factor_after_large", 20, 3, [(1, 60), (2, 1)]),
+    ("one_factor_two_apart", 20, 3, [(1, 30), (1, 1), (1, 30), (1, 1)]),
+    ("one_factor_binary", 24, 4, [(2, 1), (2, 40), (1, 1), (2, 1)]),
+    ("one_factor_first", 20, 5, [(2, 1), (1, 40)]),
+    ("mixed_arity_2_3_4", 3_000, 3, [(2, 4_000), (3, 900), (4, 300)]),
+]
+
+
+def ternary_dcop(objects, relations, dcop_mod, n_vars: int, seed: int):
+    """Real-cost ternary constraints only (no binary bucket): the path
+    on which candidate_costs runs the contributions entry."""
+    rng = np.random.default_rng(seed)
+    dom = objects.Domain("d3", "", [0, 1, 2])
+    dcop = dcop_mod.DCOP(f"ternary_{n_vars}", objective="min")
+    vs = [objects.Variable(f"v{i:05d}", dom) for i in range(n_vars)]
+    for v in vs:
+        dcop.add_variable(v)
+    for i in range(n_vars // 2):
+        a, b, c = rng.choice(n_vars, size=3, replace=False)
+        dcop.add_constraint(relations.NAryMatrixRelation(
+            [vs[a], vs[b], vs[c]], np.round(rng.normal(size=(3, 3, 3)), 3),
+            f"t{i}"))
+    dcop.add_agents([objects.AgentDef("a0")])
+    return dcop
 
 
 def phase_positional_sum(ctx, graphs):
-    """segment_sum.cu's positional mode against its plain version bit
-    for bit on the flagship, scale, scale-free and arity 1-4 graphs,
-    timed beside its bound and the zeros + index_add_ call."""
+    """Both positional entries of segment_sum.cu against their plain
+    version bit for bit (card vs CPU copies) on the flagship, scale,
+    scale-free, arity 1-4, mixed arity-2/3/4 and one-factor graphs: the
+    contributions entry (positional_sum) on random contributions, the
+    fused entry (positional_table_sum) on random cost tables, and the
+    two equal to each other.  Timed beside their bounds: the
+    contributions entry against clone + index_add_, the fused one
+    against the torch ops it replaces (the rows gathered out of the
+    tables, cat, clone, index_add_) and the unfused path (the same rows,
+    then the contributions entry).  Then a ternary-only DSA solve, the
+    path that runs the contributions entry, card = CPU."""
     torch, seg = ctx["torch"], ctx["segment_sum_mod"]
     out = {"graphs": {}, "timing": {}}
     for idx, (label, graph) in enumerate(graphs):
-        units, flat = unit_contributions(torch, graph, 300 + idx)
+        n_seg, d = graph.var_costs.shape
+        units, cols = random_units(torch, seg, graph, 300 + idx)
+        values = torch.tensor(np.random.default_rng(idx).integers(
+            0, d, n_seg).astype(np.int32), device="cuda")
         args = (graph.pos_perm, graph.agg_offsets, graph.pos_units,
-                graph.var_costs)
-        got = seg.positional_sum(units, *args, graph.agg_tiles)
-        ref = seg.positional_sum_reference(flat.cpu(),
-                                           *(t.cpu() for t in args))
+                graph.var_costs, graph.agg_tiles, graph.pos_sep,
+                graph.pos_mid)
+        cpu_args = tuple(t.cpu() if isinstance(t, torch.Tensor) else t
+                         for t in args)
+        rows = [seg.unit_rows(u, values) for u in units]
+        flat = torch.cat(rows)
+        got = seg.positional_sum(rows, *args)
+        ref = seg.positional_sum_reference(flat.cpu(), *cpu_args[:4],
+                                           graph.pos_sep)
         if not torch.equal(got.cpu().view(torch.int32),
                            ref.view(torch.int32)):
             err = float((got.cpu() - ref).abs().max())
             fail(f"positional sum kernel != plain on {label}: {err}")
-        n_edges, (n_seg, d) = int(flat.shape[0]), graph.var_costs.shape
+        fused = None
+        if graph.pos_other is not None:
+            fused = seg.positional_table_sum(units, values, graph.pos_other,
+                                             *args)
+            plain = seg.positional_table_sum(
+                on_cpu(torch, seg, units), values.cpu(),
+                graph.pos_other.cpu(), *cpu_args)
+            if not (torch.equal(fused.cpu().view(torch.int32),
+                                plain.view(torch.int32))
+                    and torch.equal(plain.view(torch.int32),
+                                    ref.view(torch.int32))):
+                err = float((fused.cpu() - plain).abs().max())
+                fail(f"fused positional sum != plain on {label}: {err}")
+        n_edges = int(flat.shape[0])
         out["graphs"][label] = dict(
             V1=n_seg, E=n_edges, D=d, units=len(units),
-            sep=seg.separate_buckets(graph.pos_units.tolist(), n_seg))
-        if label == "multi_bucket_padded":
+            order=list(graph.pos_order), sep=graph.pos_sep,
+            fused=fused is not None,
+            tables=sum(isinstance(u, seg.TableUnit) for u in units))
+        if label not in ("flagship", "scale", "scale_free"):
             continue
-        pos_seg = torch.cat([b.var_ids[:, p] for b in graph.buckets
-                             for p in range(b.var_ids.shape[1])])
+        pos_seg = torch.cat(cols)
         reps = 50 if n_edges > 1_000_000 else 200
 
         def library():
@@ -2022,28 +2150,63 @@ def phase_positional_sum(ctx, graphs):
             res.index_add_(0, pos_seg, flat)
             return res
 
-        k_ms = graph_ms(torch, lambda: seg.positional_sum(
-            units, *args, graph.agg_tiles), reps)
+        def torch_ops():
+            res = graph.var_costs.clone()
+            res.index_add_(0, pos_seg, torch.cat(
+                [seg.unit_rows(u, values) for u in units]))
+            return res
+
+        def unfused():
+            return seg.positional_sum(
+                [seg.unit_rows(u, values) for u in units], *args)
+
+        c_ms = graph_ms(torch, lambda: seg.positional_sum(rows, *args),
+                        reps)
+        f_ms = graph_ms(torch, lambda: seg.positional_table_sum(
+            units, values, graph.pos_other, *args), reps)
         l_ms = graph_ms(torch, library, reps)
+        t_ms = graph_ms(torch, torch_ops, reps)
+        u_ms = graph_ms(torch, unfused, reps)
         p_ms = eager_ms(torch, lambda: seg.positional_sum_reference(
-            flat, *args), 2)
+            flat, *args[:4], graph.pos_sep), 2)
         bound_ms, bound_by = positional_bound(n_edges, n_seg, d)
         out["timing"][f"positional_{label}"] = dict(
-            V1=n_seg, E=n_edges, D=d, ms=k_ms[2],
-            ms_spread=[k_ms[0], k_ms[-1]], plain_ms=p_ms[2],
+            V1=n_seg, E=n_edges, D=d, ms=c_ms[2],
+            ms_spread=[c_ms[0], c_ms[-1]], plain_ms=p_ms[2],
             library_ms=l_ms[2], bound_ms=bound_ms, bound_by=bound_by)
-        del units, flat, pos_seg
+        bound_ms, bound_by = positional_table_bound(graph)
+        out["timing"][f"positional_table_{label}"] = dict(
+            V1=n_seg, E=n_edges, D=d, ms=f_ms[2],
+            ms_spread=[f_ms[0], f_ms[-1]], plain_ms=p_ms[2],
+            library_ms=None, torch_ops_ms=t_ms[2], unfused_ms=u_ms[2],
+            bound_ms=bound_ms, bound_by=bound_by)
+        del units, cols, rows, flat, pos_seg
     out["tolerance"] = "exact (int32 views, card vs CPU plain)"
     out["max_abs_err"] = 0.0
+    # The contributions entry's path: candidate_costs without a binary
+    # bucket, through api.solve, the launch counts zeroed just before.
+    _build, api = ctx["_build"], ctx["api"]
+    dcop = ternary_dcop(ctx["objects"], ctx["relations"], ctx["dcop_mod"],
+                        2_000, seed=19)
+    _build.launch_counts.clear()
+    card = api.solve(dcop, "dsa", max_cycles=40)
+    launches = ls_launch_counts(_build)
+    cpu = api.solve(dcop, "dsa", max_cycles=40, device="cpu")
+    if (card["assignment"] != cpu["assignment"] or card["cost"] != cpu["cost"]
+            or launches[seg.POSITIONAL] == 0):
+        fail(f"ternary dsa: card != CPU or no contributions launch "
+             f"({launches})")
+    out["ternary_dsa"] = dict(n_vars=2_000, cycles=40, cost=card["cost"],
+                              launches=launches, equal=["CPU run"])
     return out
 
 
 def ls_launch_counts(_build):
-    from pydcop_tpu_torch.ops import threefry
+    from pydcop_tpu_torch.ops import segment_sum, threefry
 
     return {k: _build.launch_counts.get(k, 0)
-            for k in ("segment_sum", threefry.UNIFORM,
-                      threefry.BEST_CHOICE)}
+            for k in (segment_sum.POSITIONAL, segment_sum.POSITIONAL_TABLE,
+                      threefry.UNIFORM, threefry.BEST_CHOICE)}
 
 
 def ls_runner(ctx, algo: str, params: dict, graph, meta, host):
@@ -2126,7 +2289,7 @@ def phase_localsearch_flagship(ctx):
                      f"{other['cost']})")
         if launches["threefry:best_choice"] == 0 or (
                 params.get("aggregation") != "ell"
-                and launches["segment_sum"] == 0):
+                and launches["segment_sum:positional_table"] == 0):
             fail(f"{label}: launches {launches}")
         host, meta = compile_dcop(dcop, aggregation=params.get(
             "aggregation", "scatter"))
@@ -2204,6 +2367,15 @@ def phase_localsearch_scale(ctx, scale_graph):
         prof = profile_cycles(torch, lambda n_: (run(n_),
                                                  torch.cuda.synchronize()),
                               5)
+        if label == "dsa_B":
+            # best_choice on the choice mask of a real DSA-B cycle: the
+            # final values' candidates (ops/dsa.py choice_mask).
+            mask = dsa.dsa_choices(
+                scale_graph, torch.cat([values, values.new_zeros(1)]),
+                "B")[1]
+            out["best_choice_dsa_B_mask"] = best_choice_timing(
+                torch, ctx["threefry"], ctx["prng"].key_words(3), mask)
+            del mask
         out[label] = dict(
             ms_per_cycle=loop_s / LS_SCALE_CYCLES * 1e3,
             device_ms_per_cycle=prof["device_ms_per_cycle"],
@@ -2234,6 +2406,9 @@ def run_localsearch_phases(ctx, scale_graph):
         var_costs, var_valid, buckets, device="cuda")))
     graphs.append(("multi_bucket_padded", ctx["graph_from_numpy"](
         *multi_bucket_arrays(rng), device="cuda")))
+    for label, n_vars, d, sizes in POSITIONAL_SMALL:
+        graphs.append((label, ctx["graph_from_numpy"](
+            *one_factor_arrays(rng, n_vars, d, sizes), device="cuda")))
     pos = phase_positional_sum(ctx, graphs)
     emit("positional_sum_check", **pos)
     del graphs
@@ -2245,14 +2420,24 @@ def run_localsearch_phases(ctx, scale_graph):
     from pydcop_tpu_torch.ops import threefry
 
     at_scale = scale["dsa_B"]["launches"]
-    pos["timing"]["positional_flagship"]["launches"] = flag[
-        "main_path_launches"]["segment_sum"]
-    pos["timing"]["positional_scale"]["launches"] = at_scale["segment_sum"]
+    main = flag["main_path_launches"]
+    table = pos["timing"]
+    table["positional_table_flagship"]["launches"] = main[
+        segment_sum_mod.POSITIONAL_TABLE]
+    table["positional_table_scale"]["launches"] = at_scale[
+        segment_sum_mod.POSITIONAL_TABLE]
+    # The contributions entry's path is the ternary solve (candidate_costs
+    # without a binary bucket): its launches stand beside its rows.
+    for label in ("flagship", "scale", "scale_free"):
+        table[f"positional_{label}"]["launches_ternary_dsa"] = pos[
+            "ternary_dsa"]["launches"][segment_sum_mod.POSITIONAL]
     tf["timing"]["uniform_f32"]["scale"]["launches"] = at_scale[
         threefry.UNIFORM]
     tf["timing"]["best_choice"]["scale"]["launches"] = at_scale[
         threefry.BEST_CHOICE]
-    return tf, pos, flag["main_path_launches"]
+    tf["timing"]["best_choice"]["scale_dsa_B_mask"] = scale.pop(
+        "best_choice_dsa_B_mask")
+    return tf, pos, main
 
 
 def main() -> int:
@@ -2477,7 +2662,8 @@ def main() -> int:
     ctx = dict(torch=torch, ops=ops, api=api, _build=_build,
                graph_from_numpy=graph_from_numpy,
                state_to_numpy=state_to_numpy, build_engine=build_engine,
-               dcop=dcop, params=params)
+               dcop=dcop, params=params, objects=objects,
+               relations=relations, dcop_mod=dcop_mod)
     vu = phase_var_update(ctx, engine.graph, scale_graph)
     max_err["var_update"] = vu["max_abs_err"]
     timing["var_update"] = vu.pop("timing")
@@ -2643,7 +2829,6 @@ def main() -> int:
     # and DSA / MGM at scale.
     ctx["ls_flagship_graph"] = engine.graph
     ls_tf, ls_pos, ls_launches = run_localsearch_phases(ctx, graph)
-    timing["segment_sum"].update(ls_pos["timing"])
     del graph, scale_graph
 
     # 8. This slice's paths: pruning, the cost trace, the sorted / ell /
@@ -2718,8 +2903,35 @@ def main() -> int:
                 for label, row in timing[name].items()
                 if label != "flagship" and "ms" in row},
         })
+    from pydcop_tpu_torch.ops import segment_sum as seg_mod
     from pydcop_tpu_torch.ops import threefry
 
+    # The positional sum's two entries (the fused one is the local
+    # search's main path; the contributions entry runs on graphs without
+    # a binary bucket: its launches are the ternary solve's).
+    for entry, key, prefix in (
+            ("positional_table", seg_mod.POSITIONAL_TABLE,
+             "positional_table_"),
+            ("positional", seg_mod.POSITIONAL, "positional_")):
+        rows_p = {label[len(prefix):]: row
+                  for label, row in ls_pos["timing"].items()
+                  if label.startswith(prefix)
+                  and not label[len(prefix):].startswith("table_")}
+        flag = rows_p["flagship"]
+        rows.append({
+            "name": f"segment_sum: {entry}", "route": "cuda",
+            "source": "pydcop_tpu_torch/csrc/segment_sum.cu",
+            "replaces": "pydcop_tpu/ops/localsearch.py:57",
+            "launches": (ls_launches[key] if entry == "positional_table"
+                         else ls_pos["ternary_dsa"]["launches"][key]),
+            "max_abs_err": ls_pos["max_abs_err"], "ms": flag["ms"],
+            "plain_ms": flag["plain_ms"], "bound_ms": flag["bound_ms"],
+            "bound_by": flag["bound_by"], "library_ms": flag["library_ms"],
+            "shapes": {label: {k: row[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "torch_ops_ms", "unfused_ms", "launches") if k in row}
+                for label, row in rows_p.items() if label != "flagship"},
+        })
     for entry, key, replaces in (
             ("uniform_f32", threefry.UNIFORM, "pydcop_tpu/ops/dsa.py:164"),
             ("best_choice", threefry.BEST_CHOICE,

@@ -25,14 +25,8 @@
 // (segment_sum_reference, the same walk with each add flushed) and the
 // reference's jitted superstep bit for bit.  No tree or shuffle reduction and no atomics touch a sum.
 //
-// The positional mode (init_first = 1) is the local search's
-// candidate-cost sum (pydcop_tpu/ops/localsearch.py:57 positional_sum:
-// init + one segment_sum per (bucket, position), the same jnp ops made a
-// hand kernel for the same reason).  Its "buckets" are the (bucket,
-// position) units of the position-major contributions, the running sum
-// starts at var_costs (XLA folds the first unit's scatter into `init`),
-// the separate/running form is the same fold over the units, and the
-// result is written to `sums` alone (no beliefs).
+// The same file holds the local search's positional sum (below the
+// belief kernels): its candidate costs, summed in the reference's order.
 //
 // A variable's edges are perm[offsets[v]] .. perm[offsets[v + 1] - 1]
 // (a stable sort of the edges by variable, built at placement by
@@ -217,10 +211,7 @@ __device__ __forceinline__ void add_edges(const float* m,
 // kMulti = true: several buckets, each edge's row read from its own
 // bucket; kSplit = true adds in the separate/running bucket form,
 // kSplit = false adds every edge into the one running sum (one_sum mode).
-// kInit = true is the positional mode: each running sum starts at
-// var_costs and only the sums are written (a template parameter, so the
-// belief sum's instantiations are the code they were without it).
-template <int D, int W, bool kMulti, bool kSplit, bool kInit>
+template <int D, int W, bool kMulti, bool kSplit>
 __global__ void __launch_bounds__(kThreads)
 segment_sum_tiled(const Buckets bk, const int* __restrict__ perm,
                   const int* __restrict__ offsets,
@@ -253,7 +244,7 @@ segment_sum_tiled(const Buckets bk, const int* __restrict__ perm,
     if (t <= bk.n) s_start[t] = bk.start[t];
     __syncthreads();
   }
-  float acc = kInit ? cost : 0.0f;  // the running sum
+  float acc = 0.0f;   // the running sum
   float part = 0.0f;  // the current separate bucket's own sum
   int b = 0;          // bucket of the last edge added
   for (int c = tile.z; c < tile.w; c += chunk) {
@@ -303,11 +294,11 @@ segment_sum_tiled(const Buckets bk, const int* __restrict__ perm,
   if (!active) return;
   if (kSplit) leave_buckets(b, bk.n, acc, part, bk.sep);
   __stcs(sums + out, acc);
-  if (!kInit) __stcs(beliefs + out, fadd_ftz(cost, acc));
+  __stcs(beliefs + out, fadd_ftz(cost, acc));
 }
 
 // D > kMaxTiledD: one thread per (variable, d), walking its edges.
-template <bool kMulti, bool kSplit, bool kInit>
+template <bool kMulti, bool kSplit>
 __global__ void segment_sum_generic(const Buckets bk,
                                     const int* __restrict__ perm,
                                     const int* __restrict__ offsets,
@@ -327,7 +318,7 @@ __global__ void segment_sum_generic(const Buckets bk,
   const int v = t / d;
   const int k = t - v * d;
   const int end = offsets[v + 1];
-  float acc = kInit ? var_costs[t] : 0.0f;
+  float acc = 0.0f;
   float part = 0.0f;
   int b = 0;
   for (int e = offsets[v]; e < end; ++e) {
@@ -352,7 +343,7 @@ __global__ void segment_sum_generic(const Buckets bk,
   }
   if (kSplit) leave_buckets(b, bk.n, acc, part, bk.sep);
   sums[t] = acc;
-  if (!kInit) beliefs[t] = fadd_ftz(var_costs[t], acc);
+  beliefs[t] = fadd_ftz(var_costs[t], acc);
 }
 
 struct Args {
@@ -366,15 +357,14 @@ struct Args {
   float* beliefs;
   int chunk;
   int one_sum;
-  int init_first;
   cudaStream_t stream;
 };
 
-template <int D, int W, bool kMulti, bool kSplit, bool kInit = false>
+template <int D, int W, bool kMulti, bool kSplit>
 void launch_tiled(const Args& a) {
   const size_t smem = static_cast<size_t>(a.chunk) *
                       (D * sizeof(float) + (kSplit ? 1 : 0));
-  segment_sum_tiled<D, W, kMulti, kSplit, kInit>
+  segment_sum_tiled<D, W, kMulti, kSplit>
       <<<a.n_tiles, kThreads, smem, a.stream>>>(
           a.bk, a.perm, a.offsets, a.tiles, a.var_costs, a.sums, a.beliefs,
           a.chunk);
@@ -401,16 +391,6 @@ int launch_width(const Args& a, int w) {
 
 template <int D>
 int launch_d(const Args& a, int w) {
-  if (a.init_first) {
-    // The positional mode loads rows a float at a time (D = 3, its
-    // common width, does anyway) and always folds separate units.
-    if (a.bk.n == 1) {
-      launch_tiled<D, 1, false, false, true>(a);
-    } else {
-      launch_tiled<D, 1, true, true, true>(a);
-    }
-    return 0;
-  }
   if (a.bk.n == 1) return launch_width<D, false, false>(a, w);
   if (a.one_sum) {
     // Rows of one float per load only: fewer instantiations to build,
@@ -421,16 +401,299 @@ int launch_d(const Args& a, int w) {
   return launch_width<D, true, true>(a, w);
 }
 
+
+// ---------------------------------------------------------------------
+// The positional sum: the local search's candidate costs, init plus, per
+// variable, the contributions of every (bucket, position) unit of its
+// edges.  Replaces pydcop_tpu/ops/localsearch.py:57 positional_sum as
+// :103 candidate_costs calls it (init + one segment_sum per unit of the
+// fixed cost tables; jnp ops, not a Pallas kernel, made a hand kernel
+// for the belief sum's reason: index_add_ adds in no fixed order).
+//
+// The order: a variable's edges are pos_perm[offsets[v]] ..
+// pos_perm[offsets[v + 1] - 1], unit by unit in the placement's unit
+// order (ops/segment_sum.py positional_fold: the order XLA adds the
+// reference's units in, one-edge units moved where XLA moves them), and
+// factor by factor within a unit.  The running sum starts at init; a unit
+// whose bit is set in `sep` is summed from +0.0 on its own and then added
+// (to every variable, +0.0 where it has no edge there), any other unit is
+// added into the running sum edge by edge.  Every add is one fadd_ftz.
+// The placement fixes the order, so this kernel knows nothing of XLA.
+//
+// The read.  Unit u's row for its edge of factor f starts at
+//   base[u] + f * row[u] + value * val[u],  entry k at + k * col[u],
+// so one formula reads both kinds of unit:
+//   - a contributions tensor [F, D] (arity >= 3 after the caller fixed
+//     the other axes, arity 1's own costs, the contributions entry):
+//     row = D, val = 0, col = 1;
+//   - a binary bucket's cost table [F, D, D] read where it lies (the
+//     fused entry): position 0 takes column values[other] of the
+//     factor's table (row = D*D, val = 1, col = D: D floats at a stride
+//     of D), position 1 takes row values[other] (val = D, col = 1: D
+//     contiguous floats).  `other` [E] int32 is, per pos_perm slot, the
+//     other variable of the binary factor, placed once (device.py), so
+//     it is read coalesced beside pos_perm instead of var_ids[f, 1 - p]
+//     at random.  `values` [V+1] int32 (4 MB at 1M variables) stays in
+//     L2.  These are the loads _fix_other_axes makes, so no arithmetic
+//     changes and the bits are the contributions entry's.
+//
+// Bound: memory.  The fused entry at the scale graph (1M variables, 1.5M
+// binary factors, D = 3) must read the tables (54 MB), other and
+// pos_perm (12 MB each), values (4 MB), offsets (4 MB), init (12 MB) and
+// write the sums (12 MB): ~110 MB, ~0.033 ms at 3.35 TB/s.  The table
+// rows are random 12-byte reads (1-2 sectors each), which is what sets
+// its pace, as the message rows set the belief sum's.
+//
+// Design: the belief kernel's tiles and passes (a tile of variables per
+// block, each pass's rows gathered into shared memory in CSR order with
+// all loads in flight, then added by thread (v, k) in order), with the
+// row found by the formula above.  Two units at most (a graph of one
+// binary bucket: the flagship and the scale graph) take the few-units
+// path: the unit is a select on pos_perm's value, and the split between
+// the running and the separate sum is a per-variable boundary placed
+// once (`mid`, the first slot of the second unit): the adds run
+// [lo, mid) into the running sum and [mid, hi) into the separate one,
+// two loops with no per-edge bucket search, bucket byte or branch.
+// More units take the belief kernel's multi-bucket path (a search per
+// edge, a unit byte in shared memory).  Rows are loaded a float at a
+// time: a table row is 4-byte aligned only.  cp.async would copy the
+// rows into shared memory without registers, but every address waits on
+// the values[other] load, so it would only save registers; not used.
+// D > 8: one thread per (variable, k) walking its edges, the same read.
+
+struct Units {
+  const float* base[kMaxBuckets];
+  int start[kMaxBuckets + 1];
+  int row[kMaxBuckets];
+  int val[kMaxBuckets];
+  int col[kMaxBuckets];
+  int n;
+  unsigned long long sep;
+};
+
+struct UnitRead {
+  const float* src;
+  int col;
+};
+
+// The row of unit q for positional edge p, given the other variable's
+// value `value` (0 without tables).
+__device__ __forceinline__ UnitRead unit_read(const float* base, int start,
+                                              int row, int val, int col,
+                                              int p, int value) {
+  return {base + static_cast<long long>(p - start) * row + value * val, col};
+}
+
+// Edges a thread gathers per round, and blocks an SM holds (40 registers
+// a thread at D = 3, no spills).  On the H100 at the scale graph this ran
+// faster than 4 edges with 64 or 48 registers (4 or 5 blocks); 4 edges
+// with 6 blocks spill.
+constexpr int kPosUnroll = 2;
+constexpr int kPosMinBlocks = 6;
+
+template <int D, bool kMulti, bool kTable>
+__global__ void __launch_bounds__(kThreads, kPosMinBlocks)
+positional_tiled(const Units un, const int* __restrict__ values,
+                 const int* __restrict__ other, const int* __restrict__ perm,
+                 const int* __restrict__ offsets,
+                 const int* __restrict__ mid, const int4* __restrict__ tiles,
+                 const float* __restrict__ init, float* __restrict__ sums,
+                 int chunk) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s_row = reinterpret_cast<float*>(smem);              // [chunk, D]
+  uint8_t* s_unit = reinterpret_cast<uint8_t*>(s_row + chunk * D);
+  __shared__ const float* s_base[kMaxBuckets];
+  __shared__ int s_start[kMaxBuckets + 1];
+  __shared__ int s_rs[kMaxBuckets], s_vs[kMaxBuckets], s_cs[kMaxBuckets];
+
+  const int4 tile = __ldcs(tiles + blockIdx.x);
+  const int t = threadIdx.x;
+  const int v = tile.x + t / D;
+  const int out = tile.x * D + t;
+  const bool active = t < (tile.y - tile.x) * D;
+  const int k = t % D;
+  int lo = 0, hi = 0, split = 0;
+  float acc = 0.0f;   // the running sum, from init
+  if (active) {
+    lo = __ldcs(offsets + v);
+    hi = __ldcs(offsets + v + 1);
+    acc = __ldcs(init + out);
+    if (!kMulti) split = mid != nullptr ? __ldcs(mid + v) : hi;
+  }
+  if (kMulti) {
+    if (t < un.n) {
+      s_base[t] = un.base[t];
+      s_rs[t] = un.row[t];
+      s_vs[t] = un.val[t];
+      s_cs[t] = un.col[t];
+    }
+    if (t <= un.n) s_start[t] = un.start[t];
+    __syncthreads();
+  }
+  float part = 0.0f;  // the separate unit's own sum
+  int b = 0;          // unit of the last edge added (kMulti)
+  for (int c = tile.z; c < tile.w; c += chunk) {
+    const int n = min(chunk, tile.w - c);
+    if (c != tile.z) __syncthreads();  // the last pass's adds are done
+    for (int i0 = t; i0 < n; i0 += kPosUnroll * kThreads) {
+      int p[kPosUnroll];
+      int value[kPosUnroll];
+#pragma unroll
+      for (int u = 0; u < kPosUnroll; ++u) {
+        const int i = i0 + u * kThreads;
+        p[u] = i < n ? __ldcs(perm + c + i) : -1;
+        value[u] = (kTable && i < n) ? __ldcs(other + c + i) : 0;
+      }
+      if (kTable) {
+#pragma unroll
+        for (int u = 0; u < kPosUnroll; ++u) {
+          if (p[u] >= 0) value[u] = __ldg(values + value[u]);
+        }
+      }
+      float row[kPosUnroll][D];
+      int rb[kPosUnroll];
+#pragma unroll
+      for (int u = 0; u < kPosUnroll; ++u) {
+        if (p[u] < 0) continue;
+        UnitRead r;
+        if (kMulti) {
+          int q = 0;
+          while (p[u] >= s_start[q + 1]) ++q;
+          rb[u] = q;
+          r = unit_read(s_base[q], s_start[q], s_rs[q], s_vs[q], s_cs[q],
+                        p[u], value[u]);
+        } else {
+          const bool second = p[u] >= un.start[1];
+          r = unit_read(second ? un.base[1] : un.base[0],
+                        second ? un.start[1] : 0,
+                        second ? un.row[1] : un.row[0],
+                        second ? un.val[1] : un.val[0],
+                        second ? un.col[1] : un.col[0], p[u], value[u]);
+        }
+#pragma unroll
+        for (int j = 0; j < D; ++j) row[u][j] = __ldg(r.src + j * r.col);
+      }
+#pragma unroll
+      for (int u = 0; u < kPosUnroll; ++u) {
+        const int i = i0 + u * kThreads;
+        if (i >= n) continue;
+#pragma unroll
+        for (int j = 0; j < D; ++j) s_row[i * D + j] = row[u][j];
+        if (kMulti) s_unit[i] = static_cast<uint8_t>(rb[u]);
+      }
+    }
+    __syncthreads();
+    if (!active) continue;
+    if (kMulti) {
+      add_edges<D, true>(s_row + k, s_unit, max(lo, c) - c,
+                         min(hi, c + n) - c, acc, part, b, un.sep);
+    } else {
+      const float* m = s_row + k;
+      const int a_end = min(split, c + n) - c;
+      for (int e = max(lo, c) - c; e < a_end; ++e) {
+        acc = fadd_ftz(acc, m[e * D]);
+      }
+      const int p_end = min(hi, c + n) - c;
+      for (int e = max(split, c) - c; e < p_end; ++e) {
+        part = fadd_ftz(part, m[e * D]);
+      }
+    }
+  }
+  if (!active) return;
+  if (kMulti) {
+    leave_buckets(b, un.n, acc, part, un.sep);
+  } else if (mid != nullptr) {
+    acc = fadd_ftz(acc, part);
+  }
+  __stcs(sums + out, acc);
+}
+
+// D > kMaxTiledD: one thread per (variable, k), walking its edges.
+template <bool kTable>
+__global__ void positional_generic(const Units un,
+                                   const int* __restrict__ values,
+                                   const int* __restrict__ other,
+                                   const int* __restrict__ perm,
+                                   const int* __restrict__ offsets,
+                                   const float* __restrict__ init,
+                                   float* __restrict__ sums, int n_out,
+                                   int d) {
+  __shared__ int s_start[kMaxBuckets + 1];
+  if (threadIdx.x <= un.n) s_start[threadIdx.x] = un.start[threadIdx.x];
+  __syncthreads();
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n_out) return;
+  const int v = t / d;
+  const int k = t - v * d;
+  const int end = offsets[v + 1];
+  float acc = init[t];
+  float part = 0.0f;
+  int b = 0;
+  for (int e = offsets[v]; e < end; ++e) {
+    const int p = perm[e];
+    int q = b;
+    while (p >= s_start[q + 1]) ++q;
+    leave_buckets(b, q, acc, part, un.sep);
+    const int value = kTable ? values[other[e]] : 0;
+    const UnitRead r = unit_read(un.base[q], s_start[q], un.row[q],
+                                 un.val[q], un.col[q], p, value);
+    const float m = r.src[k * r.col];
+    if (separate(un.sep, b)) {
+      part = fadd_ftz(part, m);
+    } else {
+      acc = fadd_ftz(acc, m);
+    }
+  }
+  leave_buckets(b, un.n, acc, part, un.sep);
+  sums[t] = acc;
+}
+
+template <int D, bool kMulti, bool kTable>
+void launch_positional(const Units& un, const int* values, const int* other,
+                       const int* perm, const int* offsets, const int* mid,
+                       const int* tiles, int n_tiles, const float* init,
+                       float* sums, int chunk, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(chunk) *
+                      (D * sizeof(float) + (kMulti ? 1 : 0));
+  positional_tiled<D, kMulti, kTable><<<n_tiles, kThreads, smem, stream>>>(
+      un, values, other, perm, offsets, mid,
+      reinterpret_cast<const int4*>(tiles), init, sums, chunk);
+}
+
+template <int D>
+void launch_positional_d(const Units& un, const int* values,
+                         const int* other, const int* perm,
+                         const int* offsets, const int* mid,
+                         const int* tiles, int n_tiles, const float* init,
+                         float* sums, int chunk, cudaStream_t stream) {
+  const bool multi = un.n > 2;
+  if (other != nullptr && multi) {
+    launch_positional<D, true, true>(un, values, other, perm, offsets, mid,
+                                     tiles, n_tiles, init, sums, chunk,
+                                     stream);
+  } else if (other != nullptr) {
+    launch_positional<D, false, true>(un, values, other, perm, offsets, mid,
+                                      tiles, n_tiles, init, sums, chunk,
+                                      stream);
+  } else if (multi) {
+    launch_positional<D, true, false>(un, values, other, perm, offsets, mid,
+                                      tiles, n_tiles, init, sums, chunk,
+                                      stream);
+  } else {
+    launch_positional<D, false, false>(un, values, other, perm, offsets,
+                                       mid, tiles, n_tiles, init, sums,
+                                       chunk, stream);
+  }
+}
+
 }  // namespace
 
 // bases/starts: host arrays of n_buckets pointers and n_buckets + 1
 // edge starts.  w: floats per load (1, 2 or 4; D and every base must
 // allow it).  chunk: edges per shared-memory pass.  one_sum: 1 adds
 // every bucket's edges into the one running sum (sorted), 0 in the
-// separate/running form of `sep` (scatter).  init_first: 1 starts each
-// running sum at var_costs and writes only `sums` (the positional mode;
-// beliefs may be null), 0 starts at +0.0 and writes both.  Returns a
-// cudaError_t (0 when the launch was taken).
+// separate/running form of `sep` (scatter).  Returns a cudaError_t (0
+// when the launch was taken).
 extern "C" int segment_sum_launch(const float* const* bases,
                                   const int* starts, int n_buckets,
                                   const int* perm, const int* offsets,
@@ -438,7 +701,7 @@ extern "C" int segment_sum_launch(const float* const* bases,
                                   const float* var_costs, float* sums,
                                   float* beliefs, int n_segments, int d,
                                   int w, int chunk, int one_sum,
-                                  unsigned long long sep, int init_first,
+                                  unsigned long long sep,
                                   cudaStream_t stream) {
   if (n_buckets < 1 || n_buckets > kMaxBuckets || d < 1 || chunk < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -458,32 +721,20 @@ extern "C" int segment_sum_launch(const float* const* bases,
   a.beliefs = beliefs;
   a.chunk = chunk;
   a.one_sum = one_sum;
-  a.init_first = init_first;
   a.stream = stream;
   int err = 0;
   if (d > kMaxTiledD) {
     const int n_out = n_segments * d;
     const int blocks = (n_out + kThreads - 1) / kThreads;
-    if (init_first && n_buckets == 1) {
-      segment_sum_generic<false, false, true>
-          <<<blocks, kThreads, 0, stream>>>(a.bk, perm, offsets, var_costs,
-                                            sums, beliefs, n_out, d);
-    } else if (init_first) {
-      segment_sum_generic<true, true, true>
-          <<<blocks, kThreads, 0, stream>>>(a.bk, perm, offsets, var_costs,
-                                            sums, beliefs, n_out, d);
-    } else if (n_buckets == 1) {
-      segment_sum_generic<false, false, false>
-          <<<blocks, kThreads, 0, stream>>>(a.bk, perm, offsets, var_costs,
-                                            sums, beliefs, n_out, d);
+    if (n_buckets == 1) {
+      segment_sum_generic<false, false><<<blocks, kThreads, 0, stream>>>(
+          a.bk, perm, offsets, var_costs, sums, beliefs, n_out, d);
     } else if (one_sum) {
-      segment_sum_generic<true, false, false>
-          <<<blocks, kThreads, 0, stream>>>(a.bk, perm, offsets, var_costs,
-                                            sums, beliefs, n_out, d);
+      segment_sum_generic<true, false><<<blocks, kThreads, 0, stream>>>(
+          a.bk, perm, offsets, var_costs, sums, beliefs, n_out, d);
     } else {
-      segment_sum_generic<true, true, false>
-          <<<blocks, kThreads, 0, stream>>>(a.bk, perm, offsets, var_costs,
-                                            sums, beliefs, n_out, d);
+      segment_sum_generic<true, true><<<blocks, kThreads, 0, stream>>>(
+          a.bk, perm, offsets, var_costs, sums, beliefs, n_out, d);
     }
   } else if (n_tiles > 0) {
     switch (d) {
@@ -498,5 +749,71 @@ extern "C" int segment_sum_launch(const float* const* bases,
     }
   }
   if (err != 0) return err;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The positional sum.  bases/starts/row/val/col: host arrays of n_units
+// unit descriptors (the read above) and n_units + 1 positional starts;
+// sep: bit i, unit i summed on its own.  values [V+1] and other [E]
+// int32 with table units (other == null: contributions only).  mid
+// [V+1] int32: with two units whose second is separate, where each
+// variable's second-unit edges start (null otherwise).  tiles: the
+// belief sum's plan; chunk: edges per shared-memory pass.  Returns a
+// cudaError_t (0 when the launch was taken).
+extern "C" int positional_sum_launch(
+    const float* const* bases, const int* starts, const int* row,
+    const int* val, const int* col, int n_units, unsigned long long sep,
+    const int* values, const int* other, const int* perm,
+    const int* offsets, const int* mid, const int* tiles, int n_tiles,
+    const float* init, float* sums, int n_segments, int d, int chunk,
+    cudaStream_t stream) {
+  if (n_units < 1 || n_units > kMaxBuckets || d < 1 || chunk < 1 ||
+      (sep & 1ull) || (mid != nullptr && !(n_units == 2 && (sep & 2ull))) ||
+      (other != nullptr && values == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_segments == 0) return 0;
+  Units un{};
+  for (int u = 0; u < n_units; ++u) {
+    un.base[u] = bases[u];
+    un.row[u] = row[u];
+    un.val[u] = val[u];
+    un.col[u] = col[u];
+  }
+  // One unit: start[1] is E, so the few-units path never picks unit 1.
+  for (int u = 0; u <= n_units; ++u) un.start[u] = starts[u];
+  un.n = n_units;
+  un.sep = sep;
+  if (d > kMaxTiledD) {
+    const int n_out = n_segments * d;
+    const int blocks = (n_out + kThreads - 1) / kThreads;
+    if (other != nullptr) {
+      positional_generic<true><<<blocks, kThreads, 0, stream>>>(
+          un, values, other, perm, offsets, init, sums, n_out, d);
+    } else {
+      positional_generic<false><<<blocks, kThreads, 0, stream>>>(
+          un, values, other, perm, offsets, init, sums, n_out, d);
+    }
+  } else if (n_tiles > 0) {
+    switch (d) {
+#define POSITIONAL_D(N)                                                     \
+  case N:                                                                   \
+    launch_positional_d<N>(un, values, other, perm, offsets, mid, tiles,    \
+                           n_tiles, init, sums, chunk, stream);             \
+    break;
+      POSITIONAL_D(1)
+      POSITIONAL_D(2)
+      POSITIONAL_D(3)
+      POSITIONAL_D(4)
+      POSITIONAL_D(5)
+      POSITIONAL_D(6)
+      POSITIONAL_D(7)
+      default:
+        launch_positional_d<8>(un, values, other, perm, offsets, mid, tiles,
+                               n_tiles, init, sums, chunk, stream);
+        break;
+#undef POSITIONAL_D
+    }
+  }
   return static_cast<int>(cudaGetLastError());
 }

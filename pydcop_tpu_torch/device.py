@@ -12,7 +12,10 @@ import numpy as np
 import torch
 
 from pydcop_tpu_torch.engine.compile import CompiledFactorGraph
-from pydcop_tpu_torch.ops.segment_sum import aggregation_plan
+from pydcop_tpu_torch.ops.segment_sum import (
+    aggregation_plan,
+    positional_fold,
+)
 
 DeviceLike = Union[str, torch.device]
 
@@ -74,12 +77,21 @@ class TorchFactorGraph(NamedTuple):
     ``ell`` reads ``agg_ell``, the compiled graph's [V+1, K] lists.
 
     ``pos_perm`` orders the same edges by variable in the local search's
-    positional order — (bucket, position, factor) — for its
+    positional order — unit by unit, factor by factor — for its
     candidate-cost sum (``segment_sum.positional_sum``): a variable's
     edges are ``pos_perm[agg_offsets[v]:agg_offsets[v + 1]]`` (the same
     count as in edge order, so the offsets and the tile plan serve
-    both).  ``pos_units`` holds the positional index at which each
-    (bucket, position) unit starts, then E."""
+    both).  The units are the (bucket, position) pairs, numbered in
+    bucket order, then position, and taken in the order ``pos_order``
+    (``segment_sum.positional_fold``: the order XLA adds the
+    reference's); ``pos_units`` holds the positional index at which each
+    unit of that order starts, then E, and bit i of ``pos_sep`` marks
+    the i-th unit as summed on its own.  ``pos_mid`` [V+1] int32, for
+    two units only, is where each variable's edges of the second unit
+    start in ``pos_perm``; ``pos_other`` [E] int32, when a bucket is
+    binary, is for each of ``pos_perm``'s slots the other variable of
+    a binary factor's edge (0 for the edges of other arities): the
+    fused candidate-cost sum reads the cost tables through them."""
 
     var_costs: torch.Tensor   # [V+1, Dmax] float32
     var_valid: torch.Tensor   # [V+1, Dmax] bool
@@ -92,6 +104,10 @@ class TorchFactorGraph(NamedTuple):
     agg_ell: Optional[torch.Tensor] = None  # [V+1, K] int32 (ell only)
     pos_perm: Optional[torch.Tensor] = None   # [E] int32
     pos_units: Optional[torch.Tensor] = None  # [n_units + 1] int32
+    pos_order: Tuple[int, ...] = ()
+    pos_sep: int = 0
+    pos_mid: Optional[torch.Tensor] = None    # [V+1] int32 (two units)
+    pos_other: Optional[torch.Tensor] = None  # [E] int32 (binary buckets)
 
 
 def aggregation_strategy(graph: CompiledFactorGraph) -> str:
@@ -126,17 +142,46 @@ def aggregation_arrays(buckets, n_segments: int
     return perm, offsets, starts
 
 
-def positional_arrays(buckets) -> Tuple[np.ndarray, np.ndarray]:
-    """(perm [E], unit starts [n_units + 1]) int32 for the positional
-    edge order of ``buckets`` (numpy ``var_ids`` arrays): unit (b, p)
-    holds ``var_ids[:, p]`` of bucket b, the units in bucket order, then
-    position; perm is the stable argsort of the units' variables."""
-    cols = [np.asarray(ids)[:, p] for ids in buckets
-            for p in range(np.asarray(ids).shape[1])]
-    seg = (np.concatenate(cols) if cols else np.zeros((0,), np.int32))
+class PositionalArrays(NamedTuple):
+    """The positional sum's placement arrays (numpy), as
+    ``TorchFactorGraph``'s ``pos_*`` fields describe them."""
+
+    perm: np.ndarray                # [E] int32
+    starts: np.ndarray              # [n_units + 1] int32
+    order: Tuple[int, ...]
+    sep: int
+    mid: Optional[np.ndarray]       # [V+1] int32 (two units)
+    other: Optional[np.ndarray]     # [E] int32 (a binary bucket)
+
+
+def positional_arrays(buckets, n_rows: int) -> PositionalArrays:
+    """The positional edge order of ``buckets`` (numpy ``var_ids``
+    arrays) over ``n_rows`` = V + 1 variables: unit (b, p) holds
+    ``var_ids[:, p]`` of bucket b; the units are taken in
+    ``positional_fold``'s order and perm is the stable argsort of their
+    variables."""
+    ids = [np.asarray(b) for b in buckets]
+    cols = [(b, p) for b, v in enumerate(ids) for p in range(v.shape[1])]
+    order, sep = positional_fold([ids[b].shape[0] for b, _ in cols],
+                                 n_rows)
+    cols = [cols[u] for u in order]
+    seg = (np.concatenate([ids[b][:, p] for b, p in cols]) if cols
+           else np.zeros((0,), np.int32))
     perm = np.argsort(seg, kind="stable").astype(np.int32)
-    starts = np.cumsum([0] + [c.shape[0] for c in cols]).astype(np.int32)
-    return perm, starts
+    sizes = [ids[b].shape[0] for b, _ in cols]
+    starts = np.cumsum([0] + sizes).astype(np.int32)
+    mid = None
+    if len(cols) == 2:
+        counts = np.bincount(seg, minlength=n_rows)
+        first = np.bincount(seg[:sizes[0]], minlength=n_rows)
+        mid = (np.cumsum(counts) - counts + first).astype(np.int32)
+    other = None
+    if any(v.shape[1] == 2 for v in ids):
+        other = np.concatenate([
+            ids[b][:, 1 - p] if ids[b].shape[1] == 2
+            else np.zeros(ids[b].shape[0], ids[b].dtype)
+            for b, p in cols])[perm].astype(np.int32)
+    return PositionalArrays(perm, starts, order, sep, mid, other)
 
 
 def edge_valid_bits(var_valid: np.ndarray,
@@ -163,8 +208,8 @@ def to_device_graph(graph: CompiledFactorGraph,
     perm, offsets, starts = aggregation_arrays(
         [b.var_ids for b in graph.buckets], graph.var_costs.shape[0])
     tiles = aggregation_plan(offsets, graph.var_costs.shape[1])
-    pos_perm, pos_units = positional_arrays(
-        [b.var_ids for b in graph.buckets])
+    pos = positional_arrays([b.var_ids for b in graph.buckets],
+                            graph.var_costs.shape[0])
 
     def bucket(b):
         bits = edge_valid_bits(graph.var_valid, b.var_ids)
@@ -184,6 +229,11 @@ def to_device_graph(graph: CompiledFactorGraph,
         agg_strategy=aggregation_strategy(graph),
         agg_ell=(None if graph.agg_ell is None
                  else put(graph.agg_ell, torch.int32)),
-        pos_perm=put(pos_perm, torch.int32),
-        pos_units=put(pos_units, torch.int32),
+        pos_perm=put(pos.perm, torch.int32),
+        pos_units=put(pos.starts, torch.int32),
+        pos_order=pos.order,
+        pos_sep=pos.sep,
+        pos_mid=None if pos.mid is None else put(pos.mid, torch.int32),
+        pos_other=(None if pos.other is None
+                   else put(pos.other, torch.int32)),
     )

@@ -129,6 +129,34 @@ def violated_vars(graph: TorchFactorGraph, values: torch.Tensor,
 Probability = Union[float, torch.Tensor]
 
 
+def dsa_choices(graph: TorchFactorGraph, values: torch.Tensor,
+                variant: str,
+                optima: Optional[Tuple[torch.Tensor, ...]] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(eligible [V+1] bool, choice_mask [V+1, D] bool) of one DSA
+    cycle at ``values``: who may change, and among which values the
+    new one is drawn."""
+    cand = candidate_costs(graph, values)                   # [V+1, D]
+    cur = current_of(cand, values)
+    best, is_best = best_candidates(graph, cand)
+    delta = ftz(cur - best)                                  # >= 0
+
+    if variant == "A":
+        return delta > 0, is_best
+    n_best = is_best.sum(dim=1)
+    one_hot_cur = (
+        torch.arange(cand.shape[1], device=cand.device)[None, :]
+        == values[:, None])
+    drop_cur = ((delta == 0) & (n_best > 1))[:, None] & one_hot_cur
+    choice_mask = is_best & ~drop_cur
+    if variant == "B":
+        eligible = (delta > 0) | (
+            (delta == 0) & violated_vars(graph, values, optima))
+    else:  # C
+        eligible = delta >= 0
+    return eligible, choice_mask
+
+
 def dsa_step(state: DsaState, graph: TorchFactorGraph, *, variant: str,
              probability: Probability,
              classes: Optional[torch.Tensor] = None, n_classes: int = 1,
@@ -140,28 +168,7 @@ def dsa_step(state: DsaState, graph: TorchFactorGraph, *, variant: str,
     equals ``cycle mod n_classes`` may flip."""
     key, k_choice, k_change = prng.split_words(state.key, 3)
     values = state.values
-
-    cand = candidate_costs(graph, values)                   # [V+1, D]
-    cur = current_of(cand, values)
-    best, is_best = best_candidates(graph, cand)
-    delta = ftz(cur - best)                                  # >= 0
-
-    if variant == "A":
-        eligible = delta > 0
-        choice_mask = is_best
-    else:
-        n_best = is_best.sum(dim=1)
-        one_hot_cur = (
-            torch.arange(cand.shape[1], device=cand.device)[None, :]
-            == values[:, None])
-        drop_cur = ((delta == 0) & (n_best > 1))[:, None] & one_hot_cur
-        choice_mask = is_best & ~drop_cur
-        if variant == "B":
-            eligible = (delta > 0) | (
-                (delta == 0) & violated_vars(graph, values, optima))
-        else:  # C
-            eligible = delta >= 0
-
+    eligible, choice_mask = dsa_choices(graph, values, variant, optima)
     new_vals = random_best_choice(k_choice, choice_mask)
     u = threefry.uniform(k_change, (values.shape[0],), values.device)
     change = eligible & (u < probability)

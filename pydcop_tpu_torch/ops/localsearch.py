@@ -7,9 +7,11 @@ neighbours' previous-cycle values.
 
 - :func:`candidate_costs`: per variable and candidate value, its own
   unary cost plus every incident constraint with the other variables
-  fixed at their current values.  The fixed tables are gathers; their
-  sum is :func:`positional_sum`, whose order is the reference's (see
-  there), so the card gives the CPU's and the reference's bits.
+  fixed at their current values, summed in the reference's order (see
+  :func:`positional_sum`), so the card gives the CPU's and the
+  reference's bits.  On the card one launch reads a binary bucket's
+  fixed rows out of its cost table (``segment_sum.positional_table_sum``);
+  other arities' fixed tables are gathers first.
 - :func:`neighbor_max` / :func:`neighbor_min_rank_where`: the
   neighbourhood max and the tie-breaking rank min, excluding the
   variable itself.  Max and min need no order: each is one
@@ -58,13 +60,12 @@ def _fix_other_axes(costs: torch.Tensor, var_ids: torch.Tensor,
     return costs[tuple(index)]
 
 
-def _position_tables(graph: TorchFactorGraph, values: torch.Tensor,
-                     dim: int) -> List[torch.Tensor]:
-    """Per bucket, the fixed tables of every position stacked along
-    ``dim``: 0 gives [arity, F, D] (position-major), 1 [F, arity, D]."""
+def _position_tables(graph: TorchFactorGraph,
+                     values: torch.Tensor) -> List[torch.Tensor]:
+    """Per bucket, the fixed tables of every position, [F, arity, D]."""
     return [torch.stack([
         _fix_other_axes(b.costs, b.var_ids, values, p)
-        for p in range(b.var_ids.shape[1])], dim=dim)
+        for p in range(b.var_ids.shape[1])], dim=1)
         for b in graph.buckets]
 
 
@@ -76,29 +77,34 @@ def positional_sum(graph: TorchFactorGraph, per_bucket: Sequence,
     Without ELL lists ``per_bucket`` holds one position-major
     [arity, F, D] tensor per bucket (the reference's [F, arity, D]
     transposed, so that each (bucket, position) unit is contiguous) and
-    the sum is ``segment_sum.positional_sum``, the hand kernel's
-    positional mode on the card: XLA rewrites the reference's ``init +
-    S(0, 0) + S(0, 1) + ...`` into one running sum from ``init``, with
-    the units merged or summed on their own by the fold of
-    ``separate_buckets``.  With ``graph.agg_ell`` set it holds
+    the sum is ``segment_sum.positional_sum``, the hand kernel on the
+    card: XLA rewrites the reference's ``init + S(0, 0) + S(0, 1) +
+    ...`` into one running sum from ``init``, with the units in the
+    order and merged or summed on their own as
+    ``segment_sum.positional_fold`` says (``graph.pos_order``,
+    ``graph.pos_sep``).  With ``graph.agg_ell`` set it holds
     [F, arity, D] tensors and the sum is ``init + gather_reduce`` (the
-    ELL order of MaxSum's aggregation), flushed.
-
-    A bucket of one factor is a scatter of one row, which XLA rewrites
-    into a dynamic-update-slice and may move in the chain (ROADMAP
-    Queue C): with non-integer costs the last bits can then differ."""
+    ELL order of MaxSum's aggregation), flushed."""
     if not per_bucket:
         return init
-    d = init.shape[1]
     if graph.agg_ell is not None:
-        flats = [v.reshape(-1, d) for v in per_bucket]
-        flat = flats[0] if len(flats) == 1 else torch.cat(flats)
-        return ftz(init + gather_reduce(graph.agg_ell, flat,
-                                        n_buckets=len(per_bucket)))
+        return _ell_sum(graph, per_bucket, init)
     units = [u for v in per_bucket for u in v.unbind(0)]
     return _segment_sum.positional_sum(
-        units, graph.pos_perm, graph.agg_offsets, graph.pos_units, init,
-        graph.agg_tiles)
+        [units[u] for u in graph.pos_order], graph.pos_perm,
+        graph.agg_offsets, graph.pos_units, init, graph.agg_tiles,
+        graph.pos_sep, graph.pos_mid)
+
+
+def _ell_sum(graph: TorchFactorGraph, per_bucket, init: torch.Tensor
+             ) -> torch.Tensor:
+    """``init + gather_reduce`` of the [F, arity, D] ``per_bucket``
+    through the ELL lists, flushed."""
+    d = init.shape[1]
+    flats = [v.reshape(-1, d) for v in per_bucket]
+    flat = flats[0] if len(flats) == 1 else torch.cat(flats)
+    return ftz(init + gather_reduce(graph.agg_ell, flat,
+                                    n_buckets=len(per_bucket)))
 
 
 def _edge_flat(per_bucket) -> torch.Tensor:
@@ -140,10 +146,38 @@ def positional_max(graph: TorchFactorGraph, per_bucket,
 def candidate_costs(graph: TorchFactorGraph,
                     values: torch.Tensor) -> torch.Tensor:
     """[V+1, D]: cost of each candidate value per variable, given all
-    other variables at ``values`` (includes own unary costs)."""
-    per_bucket = _position_tables(
-        graph, values, 1 if graph.agg_ell is not None else 0)
-    return positional_sum(graph, per_bucket, graph.var_costs)
+    other variables at ``values`` (includes own unary costs).
+
+    Without ELL lists it is one launch of
+    ``segment_sum.positional_table_sum`` (the plain version on the CPU)
+    over the units in ``graph.pos_order``: a binary bucket's two
+    positions are read out of its cost table at ``values`` where it
+    lies, an arity-1 bucket's costs are its contributions as they are,
+    and other arities' fixed tables are gathered first
+    (``_fix_other_axes``)."""
+    if not graph.buckets:
+        return graph.var_costs
+    if graph.agg_ell is not None:
+        return _ell_sum(graph, _position_tables(graph, values),
+                        graph.var_costs)
+    units: List = []
+    for b in graph.buckets:
+        arity = b.var_ids.shape[1]
+        if arity == 2:
+            units += [_segment_sum.TableUnit(b.costs, b.var_ids, p)
+                      for p in (0, 1)]
+        elif arity == 1:
+            units.append(b.costs)
+        else:
+            units += [_fix_other_axes(b.costs, b.var_ids, values, p)
+                      for p in range(arity)]
+    units = [units[u] for u in graph.pos_order]
+    args = (graph.pos_perm, graph.agg_offsets, graph.pos_units,
+            graph.var_costs, graph.agg_tiles, graph.pos_sep, graph.pos_mid)
+    if graph.pos_other is None:
+        return _segment_sum.positional_sum(units, *args)
+    return _segment_sum.positional_table_sum(units, values,
+                                             graph.pos_other, *args)
 
 
 def factor_current_costs(graph: TorchFactorGraph,

@@ -18,16 +18,19 @@ plain version.
 The kernel works tile by tile, one block each, as
 :func:`aggregation_plan` cuts the variables at placement.
 
-The same kernel runs the local search's candidate-cost sum
-(:func:`positional_sum`, the positional mode): ``init`` plus, per
-variable, its contributions of every (bucket, position) unit, in the
-order XLA gives the reference's ``positional_sum``
-(``pydcop_tpu/ops/localsearch.py:57``).
+The same source holds the local search's candidate-cost sum:
+``init`` plus, per variable, its contributions of every (bucket,
+position) unit, in the order XLA gives the reference's
+``positional_sum`` (``pydcop_tpu/ops/localsearch.py:57``;
+:func:`positional_fold`).  Two entries launch it:
+:func:`positional_sum` sums [F, D] contribution tensors, and
+:func:`positional_table_sum` (the fused form ``candidate_costs`` runs)
+reads a binary bucket's contributions out of its cost table itself.
 """
 
 import ctypes
 import functools
-from typing import Optional, Sequence, Tuple, Union
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,6 +39,9 @@ from pydcop_tpu_torch.ops import _build
 from pydcop_tpu_torch.ops.flush import ftz
 
 KERNEL = "segment_sum"
+# Launch-count keys of the positional entries (``_build.launch_counts``).
+POSITIONAL = "segment_sum:positional"
+POSITIONAL_TABLE = "segment_sum:positional_table"
 
 # Threads per block of the tiled kernel (kThreads in the source): a
 # light tile holds at most TILE_THREADS // D variables, one thread per
@@ -129,6 +135,66 @@ def separate_buckets(starts: Sequence[int], n_rows: int) -> int:
     return mask
 
 
+def positional_fold(sizes: Sequence[int], n_rows: int
+                    ) -> Tuple[Tuple[int, ...], int]:
+    """(order, sep) of the positional sum's units: the order in which
+    XLA adds the reference's ``init + S(0, 0) + S(0, 1) + ...`` (unit
+    indices, a permutation of ``range(len(sizes))``) and, over the units
+    in that order, :func:`separate_buckets`' mask (bit i: the i-th unit
+    of ``order`` is summed on its own).  ``sizes`` are the units' edge
+    counts in (bucket, position) order, ``n_rows`` is V + 1.
+
+    Without one-edge scatters this is ``separate_buckets``' fold in the
+    units' own order.  A fold node (one unit, or units merged into one
+    scatter) of exactly one edge is a scatter of one row, which XLA
+    (jax 0.9.0, CPU) rewrites after the fold into a dynamic-update-slice
+    of that row, and then:
+
+    - a one-edge node scattered into the running sum stays where it is,
+      but it is no longer a scatter, so the node after it, which the
+      fold had summed on its own, is scattered into it instead;
+    - a one-edge node the fold had summed on its own moves before the
+      scatters that end the running sum (XLA adds it to the first of
+      their operands that is not a scatter: ``init``, a separate sum's
+      add, or an earlier one-edge update), where it is one add.
+
+    Read from the optimised HLO of the reference's jitted
+    ``candidate_costs`` with the graph as an argument, and held bit for
+    bit against it over one-factor buckets first, in the middle, last
+    and two in a row, after units of more and of fewer than V + 1 edges,
+    arity 1-4, D in {1, 2, 3, 4, 5, 8}
+    (``tests/test_torch_positional_one_factor.py``)."""
+    # The fold of separate_buckets, as nodes [separate, units, edges].
+    nodes: list = []
+    for u, e in enumerate(int(s) for s in sizes):
+        if nodes and not nodes[-1][0] and nodes[-1][2] + e < n_rows:
+            nodes[-1][1].append(u)
+            nodes[-1][2] += e
+        else:
+            # After a separate node the next one is scattered into the sum.
+            nodes.append([bool(nodes) and not nodes[-1][0], [u], e])
+    ops: list = []      # (unit, separate) in XLA's order
+    chain = 0           # where the running sum's last run of scatters starts
+    after_update = False  # the running sum ends in a one-row update
+    for separate, units, edges in nodes:
+        if edges == 1:
+            if separate:
+                ops.insert(chain, (units[0], False))
+                chain += 1
+            else:
+                ops.append((units[0], False))
+                chain, after_update = len(ops), True
+            continue
+        separate = separate and not after_update
+        ops += [(u, separate) for u in units]
+        if separate:
+            chain = len(ops)
+        after_update = False
+    order = tuple(u for u, _ in ops)
+    sep = sum(1 << i for i, (_, s) in enumerate(ops) if s)
+    return order, sep
+
+
 def segment_sum_reference(msgs: torch.Tensor, perm: torch.Tensor,
                           offsets: torch.Tensor, buckets: torch.Tensor,
                           var_costs: torch.Tensor, one_sum: bool = False
@@ -159,18 +225,22 @@ def segment_sum_reference(msgs: torch.Tensor, perm: torch.Tensor,
 
 def positional_sum_reference(msgs: torch.Tensor, perm: torch.Tensor,
                              offsets: torch.Tensor, units: torch.Tensor,
-                             init: torch.Tensor) -> torch.Tensor:
+                             init: torch.Tensor,
+                             sep: Optional[int] = None) -> torch.Tensor:
     """The plain version of :func:`positional_sum`: the walk of
-    :func:`segment_sum_reference` over the (bucket, position) units
-    ``units`` (their first edges, then E), each running sum starting at
-    ``init`` [V+1, D] instead of +0.0, and no beliefs.  ``msgs`` is
-    [E, D], the units' contributions in unit order."""
-    return _walk(msgs, perm, offsets, units, init, False)
+    :func:`segment_sum_reference` over the units ``units`` (their first
+    edges, then E), each running sum starting at ``init`` [V+1, D]
+    instead of +0.0, ``sep`` marking the units summed on their own
+    (:func:`positional_fold`; ``None``: ``separate_buckets`` of
+    ``units``), and no beliefs.  ``msgs`` is [E, D], the units'
+    contributions in unit order."""
+    return _walk(msgs, perm, offsets, units, init, False, sep)
 
 
-def _walk(msgs, perm, offsets, buckets, acc, one_sum):
+def _walk(msgs, perm, offsets, buckets, acc, one_sum, sep=None):
     """The edge-rank walk of :func:`segment_sum_reference` from the
-    running sums ``acc`` [V+1, D]; returns the sums."""
+    running sums ``acc`` [V+1, D], ``sep`` as there (``None``: from
+    ``separate_buckets``); returns the sums."""
     n_seg = acc.shape[0]
     dev = perm.device
     offsets = offsets.to(torch.int64)
@@ -181,8 +251,9 @@ def _walk(msgs, perm, offsets, buckets, acc, one_sum):
     starts = offsets[:-1][order]
     perm = perm.to(torch.int64)
     n_buckets = buckets.shape[0] - 1
-    sep = (0 if one_sum or n_buckets < 2
-           else separate_buckets(buckets.tolist(), n_seg))
+    if sep is None:
+        sep = (0 if one_sum or n_buckets < 2
+               else separate_buckets(buckets.tolist(), n_seg))
     acc = acc[order]
     part = torch.zeros_like(acc)
     at = torch.zeros((n_seg,), dtype=torch.int64, device=dev)
@@ -223,14 +294,9 @@ def _walk(msgs, perm, offsets, buckets, acc, one_sum):
     return sums
 
 
-def _check(parts, flat, perm, offsets, buckets, var_costs, tiles):
-    dev = parts[0].device if parts else perm.device
-    named = [("msgs", p, torch.float32) for p in parts] + [
-        ("perm", perm, torch.int32), ("offsets", offsets, torch.int32),
-        ("buckets", buckets, torch.int32),
-        ("var_costs", var_costs, torch.float32)]
-    if tiles is not None:
-        named.append(("tiles", tiles, torch.int32))
+def _check_tensors(named, dev):
+    """Each (name, tensor, dtype) of ``named`` has that dtype, lies on
+    ``dev`` and is contiguous; ``dev`` is a CUDA device or the CPU."""
     for name, t, dtype in named:
         if t.dtype != dtype:
             raise TypeError(f"segment_sum: {name} must be {dtype}, "
@@ -240,11 +306,22 @@ def _check(parts, flat, perm, offsets, buckets, var_costs, tiles):
                              f"msgs on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"segment_sum: {name} is not contiguous")
+        if name == "var_costs" and t.dim() != 2:
+            raise ValueError(
+                f"var_costs must be [V+1, D], got {tuple(t.shape)}")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
-    if var_costs.dim() != 2:
-        raise ValueError(
-            f"var_costs must be [V+1, D], got {tuple(var_costs.shape)}")
+
+
+def _check(parts, flat, perm, offsets, buckets, var_costs, tiles):
+    dev = parts[0].device if parts else perm.device
+    named = [("msgs", p, torch.float32) for p in parts] + [
+        ("perm", perm, torch.int32), ("offsets", offsets, torch.int32),
+        ("buckets", buckets, torch.int32),
+        ("var_costs", var_costs, torch.float32)]
+    if tiles is not None:
+        named.append(("tiles", tiles, torch.int32))
+    _check_tensors(named, dev)
     n_seg, d = var_costs.shape
     n_edges = perm.shape[0] if perm.dim() == 1 else -1
     if flat:
@@ -288,7 +365,7 @@ def _launcher():
                    + [ctypes.c_void_p] * 3 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 3
                    + [ctypes.c_int] * 5 + [ctypes.c_ulonglong]
-                   + [ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -366,68 +443,192 @@ def segment_sum(msgs: Messages, perm: torch.Tensor,
                       beliefs.data_ptr(), n_seg, d, _load_width(parts, d),
                       pass_edges(d), int(one_sum),
                       0 if one_sum else separate_buckets(edge_starts, n_seg),
-                      0, torch.cuda.current_stream().cuda_stream)
+                      torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"segment_sum launch failed: CUDA error {err}")
     _build.launch_counts[KERNEL] += 1
     return beliefs, sums
 
 
+class TableUnit(NamedTuple):
+    """A binary bucket's (bucket, position) unit read out of its cost
+    table: the edge of factor f contributes ``costs[f, :, values[
+    var_ids[f, 1]]]`` at position 0 and ``costs[f, values[var_ids[f,
+    0]], :]`` at position 1 (what ``_fix_other_axes`` copies out).  The
+    plain version reads the other variable in ``var_ids``; the kernel
+    reads it in the placed ``other`` array (``graph.pos_other``)."""
+
+    costs: torch.Tensor    # [F, D, D] float32
+    var_ids: torch.Tensor  # [F, 2]
+    position: int
+
+
+Unit = Union[torch.Tensor, TableUnit]
+
+
+def unit_rows(unit: Unit, values: Optional[torch.Tensor]) -> torch.Tensor:
+    """[F, D]: a unit's contributions (a [F, D] tensor as it is)."""
+    if not isinstance(unit, TableUnit):
+        return unit
+    f = torch.arange(unit.costs.shape[0], device=unit.costs.device)
+    if unit.position == 0:
+        return unit.costs[f, :, values[unit.var_ids[:, 1]].long()]
+    return unit.costs[f, values[unit.var_ids[:, 0]].long(), :]
+
+
+@functools.lru_cache(maxsize=None)
+def _positional_launcher():
+    fn = _build.load(KERNEL).positional_sum_launch
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_ulonglong]
+                   + [ctypes.c_void_p] * 6 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def positional_sum(units: Sequence[torch.Tensor], perm: torch.Tensor,
                    offsets: torch.Tensor, unit_starts: torch.Tensor,
-                   init: torch.Tensor,
-                   tiles: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   init: torch.Tensor, tiles: Optional[torch.Tensor] = None,
+                   sep: Optional[int] = None,
+                   mid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[V+1, D] f32: ``init`` plus, per variable, its contributions of
-    every (bucket, position) unit, in the order of the reference's
-    jitted ``positional_sum``: the running sum starts at ``init``, and
-    across units it is :func:`separate_buckets`' fold with the units in
-    place of the buckets (probed against the reference on random graphs
-    of arity 1-4; ``tests/test_torch_localsearch.py``).
+    every unit, in the order of the reference's jitted
+    ``positional_sum``: the running sum starts at ``init``, and the
+    units, taken in the order given, are added into it or summed on
+    their own as ``sep`` says (the graph's ``pos_sep``, from
+    :func:`positional_fold`; ``None`` computes it, and then the units
+    must be in their own (bucket, position) order and that order must
+    be the fold's: no one-edge unit that XLA moves).
 
-    ``units`` are the units' [F, D] contributions in unit order (bucket
-    order, then position), each read where it lies; ``perm`` [E] int32
-    orders the edges — unit by unit, factor by factor — by variable
-    (``graph.pos_perm``), ``offsets`` and ``tiles`` are the graph's
-    ``agg_offsets`` and ``agg_tiles`` (a variable has the same edges in
-    either order), ``unit_starts`` [n_units + 1] int32 the units' first
-    edges, then E.  On a CUDA tensor it launches the kernel in its
-    positional mode; on the CPU it runs the plain version."""
-    parts = tuple(units)
-    _check(parts, False, perm, offsets, unit_starts, init, tiles)
+    ``units`` are the units' [F, D] contributions in that order, each
+    read where it lies; ``perm`` [E] int32 orders the edges — unit by
+    unit, factor by factor — by variable (``graph.pos_perm``),
+    ``offsets`` and ``tiles`` are the graph's ``agg_offsets`` and
+    ``agg_tiles`` (a variable has the same edges in either order),
+    ``unit_starts`` [n_units + 1] int32 the units' first edges, then E,
+    and ``mid`` the graph's ``pos_mid``.  On a CUDA tensor it launches
+    the kernel; on the CPU it runs the plain version."""
+    return _positional(tuple(units), None, None, perm, offsets,
+                       unit_starts, init, tiles, sep, mid, POSITIONAL)
+
+
+def positional_table_sum(units: Sequence[Unit], values: torch.Tensor,
+                         other: Optional[torch.Tensor], perm: torch.Tensor,
+                         offsets: torch.Tensor, unit_starts: torch.Tensor,
+                         init: torch.Tensor,
+                         tiles: Optional[torch.Tensor] = None,
+                         sep: Optional[int] = None,
+                         mid: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """:func:`positional_sum` whose units may be :class:`TableUnit`s
+    (a binary bucket's positions, read out of the cost table at the
+    current ``values`` [V+1] int32) beside [F, D] tensors: the fused
+    gather-and-sum of ``candidate_costs``, one launch.  ``other`` is
+    the graph's ``pos_other``.  The plain version (CPU tensors) copies
+    each table unit's rows out (:func:`unit_rows`) and sums them as
+    :func:`positional_sum_reference` does."""
+    return _positional(tuple(units), values, other, perm, offsets,
+                       unit_starts, init, tiles, sep, mid,
+                       POSITIONAL_TABLE)
+
+
+def _positional(parts, values, other, perm, offsets, unit_starts, init,
+                tiles, sep, mid, counter):
+    tables = [p for p in parts if isinstance(p, TableUnit)]
+    rows = [p for p in parts if not isinstance(p, TableUnit)]
+    named = [("units", p, torch.float32) for p in rows] + [
+        ("costs", p.costs, torch.float32) for p in tables] + [
+        ("perm", perm, torch.int32), ("offsets", offsets, torch.int32),
+        ("unit_starts", unit_starts, torch.int32),
+        ("var_costs", init, torch.float32)]
+    if tables:
+        if values is None:
+            raise ValueError("table units need the current values")
+        named.append(("values", values, torch.int32))
+    for name, t in (("tiles", tiles), ("other", other), ("mid", mid)):
+        if t is not None:
+            named.append((name, t, torch.int32))
+    _check_tensors(named, perm.device)
     n_seg, d = init.shape
+    sizes = [(p.costs if isinstance(p, TableUnit) else p).shape[0]
+             for p in parts]
+    if (len(parts) != unit_starts.shape[0] - 1
+            or sum(sizes) != perm.shape[0]
+            or tuple(offsets.shape) != (n_seg + 1,)):
+        raise ValueError(
+            f"{len(parts)} units of {sum(sizes)} edges for unit starts "
+            f"{tuple(unit_starts.shape)}, perm {tuple(perm.shape)} and "
+            f"offsets {tuple(offsets.shape)} (V+2 = {n_seg + 1})")
+    if any(p.dim() != 2 or p.shape[1] != d for p in rows):
+        raise ValueError(f"a contributions unit must be [F, {d}]")
+    if any(tuple(p.costs.shape[1:]) != (d, d) or p.position not in (0, 1)
+           or tuple(p.var_ids.shape) != (p.costs.shape[0], 2)
+           for p in tables):
+        raise ValueError(f"a table unit needs [F, {d}, {d}] costs, [F, 2] "
+                         f"var_ids and position 0 or 1")
+    if tables and tuple(values.shape) != (n_seg,):
+        raise ValueError(f"values must be [V+1] = [{n_seg}], got "
+                         f"{tuple(values.shape)}")
+    if sep is None:
+        order, sep = positional_fold(sizes, n_seg)
+        if order != tuple(range(len(parts))):
+            raise ValueError(
+                f"XLA adds these units in the order {order}: pass them "
+                f"in that order (graph.pos_order) with its sep")
     if perm.device.type == "cpu":
-        whole = (parts[0].reshape(-1, d) if len(parts) == 1
-                 else torch.cat([p.reshape(-1, d) for p in parts]))
+        whole = [unit_rows(p, values).reshape(-1, d) for p in parts]
+        whole = whole[0] if len(whole) == 1 else torch.cat(whole)
         return positional_sum_reference(whole, perm, offsets, unit_starts,
-                                        init)
+                                        init, sep)
     n_units = len(parts)
     if n_units > MAX_BUCKETS:
         raise ValueError(f"{n_units} (bucket, position) units: the kernel "
                          f"takes at most {MAX_BUCKETS}")
     if tiles is None:
-        raise ValueError("positional_sum on the card needs the placement "
-                         "plan (graph.agg_tiles)")
-    if max([p.numel() for p in parts] + [perm.shape[0] * d,
-                                         init.numel()]) >= 2 ** 31:
+        raise ValueError("the positional sum on the card needs the "
+                         "placement plan (graph.agg_tiles)")
+    split = n_units == 2 and bool(sep & 2)
+    if split and (mid is None or tuple(mid.shape) != (n_seg,)):
+        raise ValueError("two units whose second is summed on its own "
+                         "need mid [V+1] int32 (graph.pos_mid)")
+    if tables and (other is None or other.shape != perm.shape):
+        raise ValueError("table units need other [E] int32 "
+                         "(graph.pos_other)")
+    if max([p.numel() for p in rows] + [p.costs.numel() for p in tables]
+           + [perm.shape[0] * d, init.numel()]) >= 2 ** 31:
         raise ValueError(
             f"graph too large for one launch: E={perm.shape[0]}, "
             f"V+1={n_seg}, D={d}")
     out = torch.empty_like(init)
     if out.numel() == 0:
         return out
-    bases = (ctypes.c_void_p * n_units)(*(p.data_ptr() for p in parts))
-    edge_starts = np.cumsum([0] + [p.numel() // d for p in parts]).tolist()
-    starts = (ctypes.c_int * (n_units + 1))(*edge_starts)
+
+    def desc(p):
+        # (base, row, val, col) of the kernel's read.
+        if not isinstance(p, TableUnit):
+            return p.data_ptr(), d, 0, 1
+        if p.position == 0:
+            return p.costs.data_ptr(), d * d, 1, d
+        return p.costs.data_ptr(), d * d, d, 1
+
+    descs = [desc(p) for p in parts]
+    c_int = ctypes.c_int * n_units
+    starts = (ctypes.c_int * (n_units + 1))(
+        *np.cumsum([0] + sizes).tolist())
     with torch.cuda.device(perm.device):
-        err = _launcher()(bases, starts, n_units, perm.data_ptr(),
-                          offsets.data_ptr(), tiles.data_ptr(),
-                          tiles.shape[0], init.data_ptr(), out.data_ptr(),
-                          None, n_seg, d, _load_width(parts, d),
-                          pass_edges(d), 0,
-                          separate_buckets(edge_starts, n_seg), 1,
-                          torch.cuda.current_stream().cuda_stream)
+        err = _positional_launcher()(
+            (ctypes.c_void_p * n_units)(*(x[0] for x in descs)), starts,
+            c_int(*(x[1] for x in descs)), c_int(*(x[2] for x in descs)),
+            c_int(*(x[3] for x in descs)), n_units, sep,
+            values.data_ptr() if tables else None,
+            other.data_ptr() if tables else None, perm.data_ptr(),
+            offsets.data_ptr(), mid.data_ptr() if split else None,
+            tiles.data_ptr(), tiles.shape[0], init.data_ptr(),
+            out.data_ptr(), n_seg, d, pass_edges(d),
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"segment_sum (positional) launch failed: CUDA error {err}")
-    _build.launch_counts[KERNEL] += 1
+    _build.launch_counts[counter] += 1
     return out

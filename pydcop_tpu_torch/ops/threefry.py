@@ -24,6 +24,12 @@ from pydcop_tpu_torch.ops import _build
 from pydcop_tpu_torch.utils import prng
 
 KERNEL = "threefry"
+# best_choice's tiles: a block reads CHOICE_ROUND mask bytes a round, so a
+# tile holds at most CHOICE_ROUND // K rows (one row when K is larger);
+# smaller tiles keep at least CHOICE_BLOCKS blocks (two per SM of an
+# H100) in flight.
+CHOICE_ROUND = 4096
+CHOICE_BLOCKS = 264
 # Launch-count keys of the two entry points (``_build.launch_counts``).
 UNIFORM = "threefry:uniform_f32"
 BEST_CHOICE = "threefry:best_choice"
@@ -55,8 +61,8 @@ def _launchers():
     uni.restype = ctypes.c_int
     best = lib.threefry_best_choice_launch
     best.argtypes = [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_void_p,
-                     ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                     ctypes.c_void_p]
+                     ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_void_p, ctypes.c_void_p]
     best.restype = ctypes.c_int
     return uni, best
 
@@ -93,6 +99,12 @@ def uniform(key: prng.Words, shape: Sequence[int],
     return out
 
 
+def choice_tile_rows(n_rows: int, k: int) -> int:
+    """Rows a block of ``best_choice``'s kernel takes for an [N, K]
+    mask: enough blocks for the card, at most a round of mask bytes."""
+    return max(1, min(CHOICE_ROUND // k, -(-n_rows // CHOICE_BLOCKS)))
+
+
 def best_choice(key: prng.Words, mask: torch.Tensor) -> torch.Tensor:
     """[N] int32: per row of the [N, K] bool ``mask``, a uniform choice
     among its True slots (the slot whose draw of ``uniform(key, (N,
@@ -108,14 +120,14 @@ def best_choice(key: prng.Words, mask: torch.Tensor) -> torch.Tensor:
         return best_choice_reference(key, mask)
     if mask.device.type != "cuda":
         raise ValueError(f"unsupported device {mask.device}")
-    if mask.shape[0] >= 2 ** 31:
+    if mask.shape[0] >= 2 ** 31 or mask.shape[1] >= 2 ** 31:
         raise ValueError(f"mask too large: {tuple(mask.shape)}")
     mask = mask.contiguous()
     n_rows, k = mask.shape
     out = torch.empty((n_rows,), dtype=torch.int32, device=mask.device)
     with torch.cuda.device(mask.device):
         err = _launchers()[1](key[0], key[1], mask.data_ptr(), n_rows, k,
-                              out.data_ptr(),
+                              choice_tile_rows(n_rows, k), out.data_ptr(),
                               torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"threefry best_choice launch failed: CUDA "

@@ -12,11 +12,19 @@ without one it skips.  Where JAX is missing run:
   for bit (uint32 views) at one element, odd sizes, 2-D shapes and
   three ranges, under several keys, seed 2**63 - 1 included.
 - ``threefry.best_choice`` equals its plain version at K in {1, 2, 3,
-  8, 9, 128} with empty, single and full rows.
-- ``segment_sum.positional_sum`` (the kernel's positional mode) equals
-  its plain version bit for bit on order-sensitive contributions: four
+  8, 9, 128} with empty, single and full rows, and over K in {1, 2, 3,
+  5, 9, 33} x mask densities {0, 0.1, 0.4, 0.9, 1.0}, on masks that do
+  not start on a 4-byte boundary, and on full rows whose draws tie.
+- ``segment_sum.positional_sum`` (the contributions entry) equals its
+  plain version bit for bit on order-sensitive contributions: four
   buckets of arity 1-4 whose units merge and separate, a hub of several
-  shared-memory passes, and a generic D (> 8).
+  shared-memory passes, and a generic D (> 8); both positional entries
+  (``positional_table_sum``, the fused gather-and-sum, through
+  ``localsearch.candidate_costs``) equal their plain versions on mixed
+  arity-2/3/4 graphs, one-binary-bucket graphs (two units, separate and
+  merged), a hub, and the one-factor-bucket graphs of
+  ``tests/test_torch_positional_one_factor.py``, at D in {1, 3, 5, 8,
+  11}.
 - A card solve of every algorithm and option (dsa A/B/C with p_mode
   arity, adsa staggered, dsatuto, mgm lexic/random, mgm2 with each
   favor, ell) equals the CPU solve — assignment, cycles and cost — and
@@ -36,10 +44,13 @@ import pydcop_tpu_torch.dcop.relations as relations
 from pydcop_tpu_torch.api import solve
 from pydcop_tpu_torch.engine.convert import graph_from_numpy
 from pydcop_tpu_torch.ops import _build, threefry
+from pydcop_tpu_torch.ops import localsearch as ls
 from pydcop_tpu_torch.ops.dsa import run_dsa
 from pydcop_tpu_torch.ops.mgm import run_mgm
 from pydcop_tpu_torch.ops.mgm2 import run_mgm2
 from pydcop_tpu_torch.ops.segment_sum import (
+    POSITIONAL,
+    POSITIONAL_TABLE,
     positional_sum,
     positional_sum_reference,
 )
@@ -139,6 +150,114 @@ def test_positional_sum_kernel_equals_plain(d, hub):
                                   ref.numpy().view(np.uint32))
 
 
+DENSITIES = [0.0, 0.1, 0.4, 0.9, 1.0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 9, 33])
+def test_best_choice_kernel_equals_plain_over_densities(k):
+    """Each density on a mask that starts one byte past an aligned
+    word (a view of a larger mask), so the kernel's first and last
+    words hold bytes outside the mask."""
+    _need_card()
+    rng = np.random.default_rng(100 + k)
+    for density in DENSITIES:
+        big = torch.tensor(rng.random((2_501, k)) < density,
+                           device="cuda").reshape(-1)
+        mask = big[1:1 + 2_500 * k].reshape(2_500, k)
+        assert mask.data_ptr() % 4 != 0
+        for key in KEYS:
+            out = threefry.best_choice(key, mask)
+            ref = threefry.best_choice_reference(key, mask.cpu())
+            np.testing.assert_array_equal(out.cpu().numpy(), ref.numpy())
+
+
+@pytest.mark.gpu
+def test_best_choice_kernel_breaks_ties_like_plain():
+    """Full rows of 33 slots: among 2,000,000 rows some rows' largest
+    draw is drawn twice (23-bit mantissas: ~8 rows expected), and the
+    first index wins there."""
+    _need_card()
+    key = KEYS[1]
+    mask = torch.ones((2_000_000, 33), dtype=torch.bool, device="cuda")
+    u = threefry.uniform(key, mask.shape, "cuda")
+    tied = (u == u.max(dim=1, keepdim=True).values).sum(dim=1) > 1
+    assert int(tied.sum()) > 0
+    del u
+    out = threefry.best_choice(key, mask)
+    ref = threefry.best_choice_reference(key, mask)
+    assert torch.equal(out, ref)
+
+
+def _spread(rng, shape):
+    return (rng.normal(size=shape)
+            * 10.0 ** rng.integers(-3, 4, size=shape)).astype(np.float32)
+
+
+# (label, V, D, [(arity, F)]): one-factor buckets (real, not padding),
+# one binary bucket (two units: separate at F >= V + 1, merged below),
+# mixed arities, a hub.
+TABLE_GRAPHS = [
+    ("mixed_d3", 300, 3, [(2, 400), (3, 90), (1, 120), (4, 30)]),
+    ("mixed_d5", 200, 5, [(1, 80), (2, 260), (3, 40)]),
+    ("binary_sep_d3", 500, 3, [(2, 900)]),
+    ("binary_merged_d3", 500, 3, [(2, 200)]),
+    ("binary_d1", 400, 1, [(2, 700)]),
+    ("binary_d8", 150, 8, [(2, 260)]),
+    ("binary_d11", 150, 11, [(2, 260), (1, 30)]),
+    ("hub_d3", 400, 3, [(2, 3_000)]),
+    ("one_factor_after_large", 20, 3, [(1, 60), (2, 1)]),
+    ("one_factor_first", 20, 4, [(2, 1), (1, 40)]),
+    ("one_factor_two_apart", 20, 3, [(1, 30), (1, 1), (1, 30), (1, 1)]),
+    ("one_factor_binary", 24, 4, [(2, 1), (2, 40), (1, 1), (2, 1)]),
+]
+
+
+def _table_graph(label, n_vars, d, sizes, seed):
+    rng = np.random.default_rng(seed)
+    buckets = []
+    for arity, f in sizes:
+        ids = np.stack([rng.choice(n_vars, size=arity, replace=False)
+                        for _ in range(f)]).astype(np.int32)
+        if label.startswith("hub"):
+            ids[: f // 2, 0] = 0
+        if f > 1:
+            ids[f - max(1, f // 10):] = n_vars
+        buckets.append((_spread(rng, (f,) + (d,) * arity), ids))
+    var_costs = _spread(rng, (n_vars + 1, d))
+    valid = np.ones_like(var_costs, bool)
+    cpu = graph_from_numpy(var_costs, valid, buckets, device="cpu")
+    card = graph_from_numpy(var_costs, valid, buckets, device="cuda")
+    values = rng.integers(0, d, size=n_vars + 1).astype(np.int32)
+    return cpu, card, values
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label,n_vars,d,sizes", TABLE_GRAPHS,
+                         ids=[g[0] for g in TABLE_GRAPHS])
+def test_positional_entries_equal_plain(label, n_vars, d, sizes):
+    """The fused entry through candidate_costs, and the contributions
+    entry on the same rows, against the CPU's plain version."""
+    _need_card()
+    cpu, card, values = _table_graph(label, n_vars, d, sizes, len(sizes))
+    ref = ls.candidate_costs(cpu, torch.tensor(values))
+    before = dict(_build.launch_counts)
+    out = ls.candidate_costs(card, torch.tensor(values, device="cuda"))
+    entry = (POSITIONAL_TABLE if any(a == 2 for a, _ in sizes)
+             else POSITIONAL)
+    assert _build.launch_counts[entry] == before.get(entry, 0) + 1
+    np.testing.assert_array_equal(out.cpu().numpy().view(np.uint32),
+                                  ref.numpy().view(np.uint32))
+    per = [t.transpose(0, 1).contiguous()
+           for t in ls._position_tables(card, torch.tensor(
+               values, device="cuda"))]
+    out = ls.positional_sum(card, per, card.var_costs)
+    assert _build.launch_counts[POSITIONAL] == before.get(
+        POSITIONAL, 0) + 1 + (entry == POSITIONAL)
+    np.testing.assert_array_equal(out.cpu().numpy().view(np.uint32),
+                                  ref.numpy().view(np.uint32))
+
+
 def real_cost_dcop(n_vars: int, seed: int = 0):
     """~1.5 binary and 0.3 ternary constraints per variable over D = 3
     with real-valued random costs, so sums in another order show."""
@@ -182,7 +301,7 @@ def test_card_solve_equals_cpu_solve(algo, params):
     card = [solve(dcop, algo, max_cycles=40, algo_params=params)
             for _ in range(2)]
     grew = {k: _build.launch_counts[k] - before.get(k, 0)
-            for k in ("segment_sum", threefry.UNIFORM,
+            for k in (POSITIONAL_TABLE, threefry.UNIFORM,
                       threefry.BEST_CHOICE)}
     cpu = solve(dcop, algo, max_cycles=40, algo_params=params,
                 device="cpu")
@@ -192,7 +311,7 @@ def test_card_solve_equals_cpu_solve(algo, params):
         assert (res["cycles"], res["cost"]) == (cpu["cycles"], cpu["cost"])
     assert grew[threefry.BEST_CHOICE] > 0
     if params.get("aggregation") != "ell":
-        assert grew["segment_sum"] > 0
+        assert grew[POSITIONAL_TABLE] > 0
 
 
 @pytest.mark.gpu

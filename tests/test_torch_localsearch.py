@@ -26,8 +26,10 @@ by subtraction, are never -0.0.
 The order of the positional sum (init first, then the (bucket,
 position) units folded as ``segment_sum.separate_buckets`` folds
 buckets) is also held on a grid of bucket sizes around the V + 1 merge
-threshold, and the wrapper's refusals are checked.  Buckets hold at
-least two factors: a one-factor bucket is ROADMAP Queue C's open item.
+threshold, and the wrapper's refusals are checked.  Two graphs hold
+one-factor buckets, whose one-edge units XLA moves
+(``segment_sum.positional_fold``; the wider grid is
+``tests/test_torch_positional_one_factor.py``).
 """
 
 import jax
@@ -77,8 +79,9 @@ def spread(rng, shape):
 def arrays(seed: int, n_vars: int, d: int, sizes, mixed: bool = True):
     """(var_costs, var_valid, [(costs, var_ids)]) of a compiled-like
     graph: ``sizes`` is (arity, F) per bucket, the last tenth of each
-    bucket padding rows on the sentinel; each variable's first 1..D
-    slots valid (BIG costs elsewhere) when ``mixed``."""
+    bucket of more than one factor padding rows on the sentinel (at
+    least one row); each variable's first 1..D slots valid (BIG costs
+    elsewhere) when ``mixed``."""
     rng = np.random.default_rng(seed)
     dom = (rng.integers(1, d + 1, size=n_vars) if mixed
            else np.full(n_vars, d))
@@ -91,7 +94,8 @@ def arrays(seed: int, n_vars: int, d: int, sizes, mixed: bool = True):
     for arity, f in sizes:
         ids = np.stack([rng.choice(n_vars, size=arity, replace=False)
                         for _ in range(f)]).astype(np.int32)
-        ids[f - max(1, f // 10):] = n_vars
+        if f > 1:
+            ids[f - max(1, f // 10):] = n_vars
         costs = spread(rng, (f,) + (d,) * arity)
         buckets.append((costs, ids))
     return var_costs.astype(np.float32), valid, buckets
@@ -128,6 +132,8 @@ GRAPHS = {
     "arity2-3_d8": (4, 90, 8, [(2, 100), (3, 20)]),
     "binary_d3": (5, 300, 3, [(2, 450)]),
     "d30": (6, 60, 30, [(1, 20), (2, 70)]),
+    "one_factor_d3": (7, 20, 3, [(1, 60), (2, 1), (3, 1), (2, 30)]),
+    "one_factor_d5": (8, 20, 5, [(2, 1), (1, 40), (1, 1)]),
 }
 
 
