@@ -43,8 +43,20 @@ timed beside its bound and ``index_add_``), ``localsearch_flagship``
 launch counts, and the ops loop under
 ``torch.cuda.set_sync_debug_mode("error")``, timed and profiled) and
 ``localsearch_scale`` (DSA-B and MGM at 1M variables: card = CPU state
-by state over 5 cycles, 30 timed cycles, the profile).
-Each phase prints one JSON line; any failure raises and the
+by state over 5 cycles, 30 timed cycles, the profile).  The breakout
+slice adds DBA (the flagship's edges as a CSP, which stops on its
+counters before the cycle budget; ``infinity: 1`` on the flagship as it
+is), GDBA (three mode triples) and MixedDSA (variants A, B and C on
+infinite equality costs with soft tables on half the edges) to
+``localsearch_flagship`` — DBA's chunk of gated steps under the
+synchronisation check, its host reads counted (at most ceil(cycles /
+chunk) + 1) and its chunk sizes timed — and DBA, GDBA and MixedDSA-B to
+``localsearch_scale`` (card = CPU state by state: values, keys,
+weights, counters, modifiers); and the belief sum on graphs with
+one-edge buckets (card = plain version, bit for bit) to the
+``segment_sum`` kernel check.
+Each phase prints one JSON line (with ``t_s``, the seconds since the
+start); any failure raises and the
 script exits non-zero without the final line.  On success the last
 three lines are the kernel table (JSON), the card's name and power
 limit as nvidia-smi prints them, and
@@ -105,8 +117,13 @@ DECIM_MARGIN = 0.005
 DECIM_MARGIN_CYCLES = 300
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line for a phase, with the seconds since the start."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": time.perf_counter() - T_START}), flush=True)
 
 
 def fail(msg: str):
@@ -312,6 +329,70 @@ def multi_bucket_arrays(rng):
     return var_costs, np.ones_like(var_costs, bool), buckets
 
 
+# One-factor arity-1 buckets (one edge each) among buckets of more and
+# of fewer than V + 1 edges, (arity, F) per bucket: XLA turns their
+# one-row scatters into one-row updates and moves them
+# (segment_sum.positional_fold; ROADMAP Queue C's belief-sum fault).
+ONE_EDGE_LAYOUTS = [
+    [(1, 1), (2, 30)], [(2, 30), (1, 1), (2, 25)], [(2, 30), (1, 1)],
+    [(2, 30), (1, 1), (1, 1), (2, 30)], [(2, 2), (1, 1), (2, 30)],
+    [(1, 60), (1, 1), (1, 50)],
+]
+
+
+def one_edge_arrays(layout, n_rows: int, d: int, seed: int):
+    """(var_costs, var_valid, buckets) of a layout over real variables."""
+    rng = np.random.default_rng(seed)
+    buckets = []
+    for arity, f in layout:
+        ids = np.stack([rng.choice(n_rows - 1, size=arity, replace=False)
+                        for _ in range(f)]).astype(np.int32)
+        buckets.append((np.zeros((f,) + (d,) * arity, np.float32), ids))
+    var_costs = (rng.normal(size=(n_rows, d)) * 10).astype(np.float32)
+    return var_costs, np.ones_like(var_costs, bool), buckets
+
+
+def one_edge_belief_check(torch, ops, graph_from_numpy, _build):
+    """``ops.aggregate_beliefs`` on the card against the plain version
+    on the CPU, bit for bit (int32 views), on every one-edge layout at
+    V + 1 in {5, 21, 41} and D in {1, 3, 5}, under ``scatter`` (the
+    fold moves the one-edge buckets) and ``sorted`` (one running sum:
+    unaffected); each card call launches the kernel once."""
+    n = moved = 0
+    for i, layout in enumerate(ONE_EDGE_LAYOUTS):
+        for n_rows in (5, 21, 41):
+            for d in (1, 3, 5):
+                arrays = one_edge_arrays(layout, n_rows, d, seed=i + n_rows)
+                for strategy in ("scatter", "sorted"):
+                    card, cpu = (graph_from_numpy(*arrays, device=dev,
+                                                  aggregation=strategy)
+                                 for dev in ("cuda", "cpu"))
+                    rng = np.random.default_rng(7 * i + d)
+                    f2v = [(rng.normal(size=tuple(b.var_ids.shape) + (d,))
+                            * 10.0 ** rng.integers(
+                                -3, 4, size=tuple(b.var_ids.shape) + (d,))
+                            ).astype(np.float32) for b in cpu.buckets]
+                    before = _build.launch_counts["segment_sum"]
+                    got = ops.aggregate_beliefs(card, tuple(
+                        torch.tensor(m, device="cuda") for m in f2v))
+                    if _build.launch_counts["segment_sum"] != before + 1:
+                        fail(f"one-edge layout {layout}: no kernel launch")
+                    want = ops.aggregate_beliefs(cpu, tuple(
+                        torch.tensor(m) for m in f2v))
+                    for g, w in zip(got, want):
+                        if not torch.equal(g.cpu().view(torch.int32),
+                                           w.view(torch.int32)):
+                            fail(f"belief sum card != plain on one-edge "
+                                 f"layout {layout}, V+1 = {n_rows}, D = "
+                                 f"{d}, {strategy}")
+                    n += 1
+                    moved += card.agg_order != tuple(range(len(layout)))
+    return {"graphs": n, "moved_by_the_fold": moved,
+            "layouts": ONE_EDGE_LAYOUTS, "V1": [5, 21, 41], "D": [1, 3, 5],
+            "strategies": ["scatter", "sorted"],
+            "tolerance": "exact (int32 views)"}
+
+
 def final_run(ops, state_to_numpy, graph, cycles: int, **kw):
     """A fixed-cycle run from zero messages: (final state as numpy,
     selected values as numpy)."""
@@ -350,18 +431,23 @@ def first_divergence(ops, state_to_numpy, graph_a, graph_b, cycles: int,
     return None
 
 
-def build_flagship(objects, relations, dcop_mod, n_vars: int, seed: int = 0):
+def build_flagship(objects, relations, dcop_mod, n_vars: int, seed: int = 0,
+                   eq_cost: float = 1.0, extra_soft: bool = False):
     """bench.py build_dcop: n_vars-variable 3-colouring, cost-1 equality
-    penalty per edge, ~1.5 edges per variable, duplicates skipped."""
+    penalty per edge, ~1.5 edges per variable, duplicates skipped.
+    ``eq_cost`` replaces the penalty (10000: the CSP of the reference's
+    ``coloring_csp`` rule; inf: hard constraints); ``extra_soft`` adds,
+    as that rule does, a random soft table (seed + 1) on each of the
+    first half of the edges."""
     rng = np.random.default_rng(seed)
     dom = objects.Domain("colors", "color", list(range(N_COLORS)))
     dcop = dcop_mod.DCOP(f"gc_{n_vars}", objective="min")
     variables = [objects.Variable(f"v{i}", dom) for i in range(n_vars)]
     for v in variables:
         dcop.add_variable(v)
-    eq = np.eye(N_COLORS, dtype=np.float64)
+    eq = np.where(np.eye(N_COLORS) > 0, eq_cost, 0.0)
     seen = set()
-    k = 0
+    edges = []
     for _ in range(int(n_vars * 1.5)):
         i, j = rng.choice(n_vars, size=2, replace=False)
         key = (min(i, j), max(i, j))
@@ -369,8 +455,14 @@ def build_flagship(objects, relations, dcop_mod, n_vars: int, seed: int = 0):
             continue
         seen.add(key)
         dcop.add_constraint(relations.NAryMatrixRelation(
-            [variables[i], variables[j]], eq, f"c{k}"))
-        k += 1
+            [variables[i], variables[j]], eq, f"c{len(edges)}"))
+        edges.append((i, j))
+    if extra_soft:
+        soft = np.random.default_rng(seed + 1)
+        for k, (i, j) in enumerate(edges[:len(edges) // 2]):
+            dcop.add_constraint(relations.NAryMatrixRelation(
+                [variables[i], variables[j]],
+                soft.random((N_COLORS, N_COLORS)), f"s{k}"))
     dcop.add_agents([objects.AgentDef(f"a{a}") for a in range(8)])
     return dcop
 
@@ -1842,22 +1934,43 @@ BEST_CHOICE_DENSITIES = [0.0, 0.1, 0.4, 0.9, 1.0]
 LS_CYCLES = 200
 LS_SCALE_CYCLES = 30
 LS_SCALE_COMPARE = 5
-# (label, algorithm, params) of the flagship solves; the first is the
-# slice's main path (api.solve(dcop, "dsa"), the default variant B).
+# (label, algorithm, params, problem) of the flagship solves; the first
+# is the slice's main path (api.solve(dcop, "dsa"), the default variant
+# B).  Problems: "flagship" (bench.py build_dcop), "csp" (its edges with
+# equality cost 10000, the reference's coloring_csp rule: DBA stops on
+# its counters there) and "hard_soft" (infinite equality costs and a
+# soft table on half the edges, for MixedDSA).
 LS_CASES = [
-    ("dsa_B", "dsa", {}),
-    ("dsa_A", "dsa", {"variant": "A"}),
-    ("dsa_C_arity", "dsa", {"variant": "C", "p_mode": "arity"}),
-    ("dsa_B_arity", "dsa", {"p_mode": "arity"}),
-    ("adsa_staggered", "adsa", {"schedule": "staggered"}),
-    ("dsatuto", "dsatuto", {}),
-    ("mgm_lexic", "mgm", {}),
-    ("mgm_random", "mgm", {"break_mode": "random"}),
-    ("mgm2_unilateral", "mgm2", {}),
-    ("mgm2_no", "mgm2", {"favor": "no"}),
-    ("mgm2_coordinated", "mgm2", {"favor": "coordinated"}),
-    ("dsa_B_ell", "dsa", {"aggregation": "ell"}),
+    ("dsa_B", "dsa", {}, "flagship"),
+    ("dsa_A", "dsa", {"variant": "A"}, "flagship"),
+    ("dsa_C_arity", "dsa", {"variant": "C", "p_mode": "arity"}, "flagship"),
+    ("dsa_B_arity", "dsa", {"p_mode": "arity"}, "flagship"),
+    ("adsa_staggered", "adsa", {"schedule": "staggered"}, "flagship"),
+    ("dsatuto", "dsatuto", {}, "flagship"),
+    ("mgm_lexic", "mgm", {}, "flagship"),
+    ("mgm_random", "mgm", {"break_mode": "random"}, "flagship"),
+    ("mgm2_unilateral", "mgm2", {}, "flagship"),
+    ("mgm2_no", "mgm2", {"favor": "no"}, "flagship"),
+    ("mgm2_coordinated", "mgm2", {"favor": "coordinated"}, "flagship"),
+    ("dsa_B_ell", "dsa", {"aggregation": "ell"}, "flagship"),
+    ("dba_csp", "dba", {}, "csp"),
+    ("dba_infinity_1", "dba", {"infinity": 1}, "flagship"),
+    ("gdba_A_NZ_E", "gdba", {}, "flagship"),
+    ("gdba_M_NM_R", "gdba", {"modifier": "M", "violation": "NM",
+                             "increase_mode": "R"}, "flagship"),
+    ("gdba_A_MX_T", "gdba", {"violation": "MX", "increase_mode": "T"},
+     "flagship"),
+    ("mixeddsa_A", "mixeddsa", {"variant": "A"}, "hard_soft"),
+    ("mixeddsa_B", "mixeddsa", {}, "hard_soft"),
+    ("mixeddsa_C", "mixeddsa", {"variant": "C"}, "hard_soft"),
 ]
+# The breakout algorithms: their candidate sums are the positional sum's
+# contributions entry (segment_sum:positional), not the fused entry.
+BREAKOUT = ("dba", "gdba", "mixeddsa")
+# The DBA case that must stop on its counters before LS_CYCLES (chosen
+# on the CPU: 121 cycles), and the chunk sizes timed beside ops/dba.py's.
+DBA_EARLY_STOP = "dba_csp"
+DBA_CHUNKS = [1, 4, 16, 64]
 
 
 def threefry_bound(n_draws: int, bytes_moved: int):
@@ -2212,13 +2325,18 @@ def ls_launch_counts(_build):
 def ls_runner(ctx, algo: str, params: dict, graph, meta, host):
     """``run(n)``: ``n`` supersteps of the algorithm's ops loop on a
     placed graph, its tensors placed first (so the loop itself reads
-    nothing from the card)."""
+    nothing from the card; DBA's reads its stop flag once a chunk,
+    ``run(n, chunk)``)."""
     torch = ctx["torch"]
     from pydcop_tpu_torch.algorithms.dsa import _arity_probabilities
     from pydcop_tpu_torch.algorithms.mgm import lexic_ranks
     from pydcop_tpu_torch.ops.dsa import greedy_classes, run_dsa
+    from pydcop_tpu_torch.ops.dba import CHUNK as dba_chunk
+    from pydcop_tpu_torch.ops.dba import run_dba
+    from pydcop_tpu_torch.ops.gdba import run_gdba
     from pydcop_tpu_torch.ops.mgm import run_mgm
     from pydcop_tpu_torch.ops.mgm2 import run_mgm2
+    from pydcop_tpu_torch.ops.mixeddsa import run_mixeddsa
 
     dev = graph.var_costs.device
     if algo in ("dsa", "adsa", "dsatuto"):
@@ -2234,7 +2352,24 @@ def ls_runner(ctx, algo: str, params: dict, graph, meta, host):
                                  probability=prob, classes=classes,
                                  n_classes=n_classes,
                                  seed=params.get("seed", 0))
+    if algo == "mixeddsa":
+        return lambda n: run_mixeddsa(
+            graph, n, variant=params.get("variant", "B"),
+            proba_hard=params.get("proba_hard", 0.7),
+            proba_soft=params.get("proba_soft", 0.5),
+            seed=params.get("seed", 0))
     ranks = torch.tensor(lexic_ranks(meta), device=dev)
+    if algo == "dba":
+        return lambda n, chunk=dba_chunk: run_dba(
+            graph, n, infinity=float(params.get("infinity", 10000)),
+            max_distance=int(params.get("max_distance", 50)),
+            lexic_ranks=ranks, seed=params.get("seed", 0), chunk=chunk)
+    if algo == "gdba":
+        return lambda n: run_gdba(
+            graph, n, modifier_mode=params.get("modifier", "A"),
+            violation_mode=params.get("violation", "NZ"),
+            increase_mode=params.get("increase_mode", "E"),
+            lexic_ranks=ranks, seed=params.get("seed", 0))
     if algo == "mgm":
         return lambda n: run_mgm(graph, n, lexic_ranks=ranks,
                                  break_mode=params.get("break_mode", "lexic"))
@@ -2256,19 +2391,88 @@ def sync_free(torch, fn):
     return out
 
 
+def sync_count(torch, fn):
+    """(``fn()``, the number of synchronising calls it made): torch's
+    synchronisation check set to warn, each warning counted."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return out, sum("synchroniz" in str(w.message) for w in seen)
+
+
+def dba_host_reads(ctx, graph, meta, params, cycles: int):
+    """DBA's loop on the card: one chunk of gated steps under the
+    synchronisation check (no read), the whole ``run_dba`` counted
+    (at most ceil(cycles / chunk) + 1 reads), and the run's wall time
+    at each of ``DBA_CHUNKS`` beside ops/dba.py's chunk, all giving the
+    same values and cycles."""
+    import math
+
+    torch = ctx["torch"]
+    from pydcop_tpu_torch.algorithms.mgm import lexic_ranks
+    from pydcop_tpu_torch.ops import dba
+
+    ranks = torch.tensor(lexic_ranks(meta), device="cuda")
+    kw = dict(infinity=float(params.get("infinity", 10000)),
+              max_distance=int(params.get("max_distance", 50)),
+              lexic_ranks=ranks)
+    state = dba.init_state(graph, params.get("seed", 0))
+    sync_free(torch, lambda: dba.run_chunk(state, graph, dba.CHUNK,
+                                           max_cycles=cycles, **kw))
+    out, reads = sync_count(torch, lambda: dba.run_dba(
+        graph, cycles, seed=params.get("seed", 0), **kw))
+    bound = math.ceil(out[2] / dba.CHUNK) + 1
+    if not 1 <= reads <= bound:
+        fail(f"DBA read the card {reads} times in {out[2]} cycles "
+             f"(chunk {dba.CHUNK}, at most {bound})")
+    chunks = {}
+    for chunk in DBA_CHUNKS:
+        dba.run_dba(graph, cycles, chunk=chunk, **kw)       # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = dba.run_dba(graph, cycles, chunk=chunk, **kw)
+        torch.cuda.synchronize()
+        chunks[chunk] = (time.perf_counter() - t0) * 1e3
+        if got[2] != out[2] or not torch.equal(got[0], out[0]):
+            fail(f"DBA at chunk {chunk}: {got[2]} cycles, not {out[2]}")
+    return {"chunk": dba.CHUNK, "cycles": out[2], "host_reads": reads,
+            "host_reads_bound": bound, "chunk_sync_free": True,
+            "run_ms_by_chunk": chunks}
+
+
 def phase_localsearch_flagship(ctx):
-    """Every local-search algorithm on the 10k flagship through
-    api.solve with no device argument: card = CPU = second card run;
-    the launch counts; then the ops loop on the placed graph under the
-    synchronisation check, timed and profiled."""
+    """Every local-search algorithm on the 10k flagship (DBA on its CSP
+    form, MixedDSA on its hard/soft form) through api.solve with no
+    device argument: card = CPU = second card run; the launch counts;
+    then the ops loop on the placed graph under the synchronisation
+    check (DBA: one chunk, its reads counted), timed and profiled."""
     torch, api, _build = ctx["torch"], ctx["api"], ctx["_build"]
     from pydcop_tpu_torch.device import to_device_graph
     from pydcop_tpu_torch.engine.compile import compile_dcop
+    from pydcop_tpu_torch.ops import segment_sum
 
-    dcop = ctx["dcop"]
+    objects, relations, dcop_mod = (ctx["objects"], ctx["relations"],
+                                    ctx["dcop_mod"])
+    problems = {
+        "flagship": ctx["dcop"],
+        "csp": build_flagship(objects, relations, dcop_mod, FLAGSHIP_VARS,
+                              eq_cost=10000.0),
+        "hard_soft": build_flagship(objects, relations, dcop_mod,
+                                    FLAGSHIP_VARS, eq_cost=float("inf"),
+                                    extra_soft=True),
+    }
     rows = {}
     main_launches = None
-    for label, algo, params in LS_CASES:
+    for label, algo, params, problem in LS_CASES:
+        dcop = problems[problem]
         _build.launch_counts.clear()
         res = api.solve(dcop, algo, max_cycles=LS_CYCLES,
                         algo_params=params)
@@ -2287,31 +2491,47 @@ def phase_localsearch_flagship(ctx):
                     or other["cost"] != res["cost"]):
                 fail(f"{label}: card run != {name} (cost {res['cost']} vs "
                      f"{other['cost']})")
+        entry = (segment_sum.POSITIONAL if algo in BREAKOUT
+                 else segment_sum.POSITIONAL_TABLE)
         if launches["threefry:best_choice"] == 0 or (
-                params.get("aggregation") != "ell"
-                and launches["segment_sum:positional_table"] == 0):
+                (params.get("aggregation") != "ell" or algo == "mixeddsa")
+                and launches[entry] == 0):
             fail(f"{label}: launches {launches}")
+        if label == DBA_EARLY_STOP and res["cycles"] >= LS_CYCLES:
+            fail(f"{label} ran {res['cycles']} cycles: no early stop")
         host, meta = compile_dcop(dcop, aggregation=params.get(
             "aggregation", "scatter"))
         graph = to_device_graph(host, "cuda")
         run = ls_runner(ctx, algo, params, graph, meta, host)
-        sync_free(torch, lambda: run(5))             # warm, checked
+        extra = {}
+        if algo == "dba":
+            extra["dba_loop"] = dba_host_reads(ctx, graph, meta, params,
+                                               LS_CYCLES)
+            timed = run
+        else:
+            sync_free(torch, lambda: run(5))             # warm, checked
+            timed = lambda n: sync_free(torch, lambda: run(n))  # noqa: E731
         t0 = time.perf_counter()
-        sync_free(torch, lambda: run(LS_CYCLES))
+        timed(LS_CYCLES)
+        torch.cuda.synchronize()
         loop_s = time.perf_counter() - t0
         prof = profile_cycles(torch, lambda n: (run(n),
                                                 torch.cuda.synchronize()),
                               20)
+        # A DBA run that stops early runs to the end of its chunk: its
+        # time is per cycle of the solve, the gated steps included.
+        per = res["cycles"] if algo == "dba" else LS_CYCLES
         rows[label] = dict(
-            algo=algo, params=params, cycles=res["cycles"],
-            cost=res["cost"], cpu_cost=cpu["cost"], launches=launches,
+            algo=algo, params=params, problem=problem, cycles=res["cycles"],
+            cost=res["cost"], cpu_cost=cpu["cost"],
+            violations=res["violations"], launches=launches,
             solve_time_s=res["time"], cpu_time_s=cpu["time"],
-            loop_ms_per_cycle=loop_s / LS_CYCLES * 1e3,
+            loop_ms_per_cycle=loop_s / max(per, 1) * 1e3,
             device_ms_per_cycle=prof["device_ms_per_cycle"],
             kernels_per_cycle=prof["device_kernels_per_cycle"],
             device_busy_share=prof["device_busy_share"],
             top=prof["top"][:6], sync_free=True,
-            equal=["second card run", "CPU run"])
+            equal=["second card run", "CPU run"], **extra)
         if "n_classes" in res["metrics"]:
             rows[label]["n_classes"] = res["metrics"]["n_classes"]
         del graph
@@ -2319,50 +2539,117 @@ def phase_localsearch_flagship(ctx):
             "main_path_launches": main_launches}
 
 
-def phase_localsearch_scale(ctx, scale_graph):
-    """DSA-B and MGM on the 1M-variable scale arrays: 30 cycles timed
-    (under the synchronisation check) and profiled; the card's state
-    equal to the CPU's after each of the first 5 cycles."""
-    torch = ctx["torch"]
-    from pydcop_tpu_torch.algorithms.mgm import lexic_ranks
-    from pydcop_tpu_torch.engine.convert import localsearch_state_to_numpy
-    from pydcop_tpu_torch.ops import dsa, mgm
+def states_equal(a, b) -> bool:
+    """Two local-search states as ``localsearch_state_to_numpy`` gives
+    them: every field equal (tuples of per-bucket arrays element-wise)."""
+    if a.keys() != b.keys():
+        return False
+    for name in a:
+        x, y = a[name], b[name]
+        pairs = zip(x, y) if isinstance(x, tuple) else [(x, y)]
+        if (isinstance(x, tuple) and len(x) != len(y)) or not all(
+                np.array_equal(p, q) for p, q in pairs):
+            return False
+    return True
 
+
+def hard_scale_arrays(n_vars: int):
+    """The scale arrays with infinite equality costs (hard constraints;
+    the small unary costs are the soft part), for MixedDSA."""
+    var_costs, var_valid, [(costs, var_ids)] = scale_arrays(n_vars)
+    hard = np.where(np.eye(N_COLORS) > 0, np.inf, 0.0).astype(np.float32)
+    costs = np.ascontiguousarray(np.broadcast_to(hard, costs.shape))
+    return var_costs, var_valid, [(costs, var_ids)]
+
+
+def phase_localsearch_scale(ctx, scale_graph):
+    """DSA-B, MGM, DBA (infinity 1: the equality cost counts as a
+    violation), GDBA (defaults) and MixedDSA-B (infinite equality costs)
+    on the 1M-variable scale arrays: 30 cycles timed (under the
+    synchronisation check; DBA reads its flag once a chunk) and
+    profiled; the card's state (values, key, DBA's weights and counters,
+    GDBA's modifiers) equal to the CPU's after each of the first 5
+    cycles."""
+    torch = ctx["torch"]
+    from pydcop_tpu_torch.engine.convert import localsearch_state_to_numpy
+    from pydcop_tpu_torch.ops import dba, dsa, gdba, mgm, mixeddsa
+    from pydcop_tpu_torch.ops.localsearch import candidate_costs
+
+    ctx["candidate_costs"] = candidate_costs
+    graph_from_numpy = ctx["graph_from_numpy"]
     var_costs, var_valid, buckets = scale_arrays(SCALE_VARS)
-    cpu_graph = ctx["graph_from_numpy"](var_costs, var_valid, buckets,
-                                        device="cpu")
+    cpu_graph = graph_from_numpy(var_costs, var_valid, buckets, device="cpu")
+    hard_arrays = hard_scale_arrays(SCALE_VARS)
+    hard = {"cuda": graph_from_numpy(*hard_arrays, device="cuda"),
+            "cpu": graph_from_numpy(*hard_arrays, device="cpu")}
+    del hard_arrays
     n = var_costs.shape[0]
     ranks_np = np.arange(n, dtype=np.float32)
     ranks_np[-1] = np.inf
     ranks = torch.tensor(ranks_np, device="cuda")
+    gdba_kw = dict(modifier_mode="A", violation_mode="NZ",
+                   increase_mode="E")
+    # label: (step(graph, state, ranks), init(graph, seed), run(n),
+    #         card graph, CPU graph)
     runs = {
         "dsa_B": (lambda g, s, r: dsa.dsa_step(s, g, variant="B",
                                                probability=0.7),
                   dsa.init_state,
-                  lambda n_: dsa.run_dsa(scale_graph, n_, variant="B")),
+                  lambda n_: dsa.run_dsa(scale_graph, n_, variant="B"),
+                  scale_graph, cpu_graph),
         "mgm_lexic": (lambda g, s, r: mgm.mgm_step(
             s, g, lexic_ranks=r, break_mode="lexic"), mgm.init_state,
-            lambda n_: mgm.run_mgm(scale_graph, n_, lexic_ranks=ranks)),
+            lambda n_: mgm.run_mgm(scale_graph, n_, lexic_ranks=ranks),
+            scale_graph, cpu_graph),
+        "dba_infinity_1": (lambda g, s, r: dba.dba_step(
+            s, g, infinity=1.0, lexic_ranks=r), dba.init_state,
+            lambda n_, chunk=dba.CHUNK: dba.run_dba(
+                scale_graph, n_, infinity=1.0, lexic_ranks=ranks,
+                chunk=chunk),
+            scale_graph, cpu_graph),
+        "gdba_A_NZ_E": (lambda g, s, r: gdba.gdba_step(
+            s, g, minmax=gdba.factor_min_max(g), lexic_ranks=r, **gdba_kw),
+            gdba.init_state,
+            lambda n_: gdba.run_gdba(scale_graph, n_, lexic_ranks=ranks,
+                                     **gdba_kw),
+            scale_graph, cpu_graph),
+        "mixeddsa_B_hard": (lambda g, s, r: mixeddsa.mixeddsa_step(
+            s, g, variant="B", proba_hard=0.7, proba_soft=0.5,
+            classes=mixeddsa.classify_factors(g)), mixeddsa.init_state,
+            lambda n_: mixeddsa.run_mixeddsa(hard["cuda"], n_),
+            hard["cuda"], hard["cpu"]),
     }
     out = {"n_vars": SCALE_VARS, "cycles": LS_SCALE_CYCLES}
     _build = ctx["_build"]
-    for label, (step, init, run) in runs.items():
-        card, cpu = init(scale_graph, 0), init(cpu_graph, 0)
+    for label, (step, init, run, card_g, cpu_g) in runs.items():
+        card, cpu = init(card_g, 0), init(cpu_g, 0)
         for c in range(LS_SCALE_COMPARE):
-            card = step(scale_graph, card, ranks)
-            cpu = step(cpu_graph, cpu, torch.tensor(ranks_np))
-            a = localsearch_state_to_numpy(card)
-            b = localsearch_state_to_numpy(cpu)
-            if not (np.array_equal(a["values"], b["values"])
-                    and np.array_equal(a["key"], b["key"])):
+            card = step(card_g, card, ranks)
+            cpu = step(cpu_g, cpu, torch.tensor(ranks_np))
+            if not states_equal(localsearch_state_to_numpy(card),
+                                localsearch_state_to_numpy(cpu)):
                 fail(f"scale {label}: card != CPU after cycle {c + 1}")
-        sync_free(torch, lambda: run(3))
+        del card, cpu
+        if label.startswith("dba"):
+            chunks = {}
+            for chunk in DBA_CHUNKS:
+                run(3, chunk)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(LS_SCALE_CYCLES, chunk)
+                torch.cuda.synchronize()
+                chunks[chunk] = (time.perf_counter() - t0) * 1e3
+            timed = run
+        else:
+            sync_free(torch, lambda: run(3))
+            timed = lambda n_: sync_free(torch, lambda: run(n_))  # noqa
         _build.launch_counts.clear()
         t0 = time.perf_counter()
-        values, cost, _ = sync_free(torch, lambda: run(LS_SCALE_CYCLES))
+        values, cost, _ = timed(LS_SCALE_CYCLES)
+        torch.cuda.synchronize()
         loop_s = time.perf_counter() - t0
         launches = ls_launch_counts(_build)
-        if not np.isfinite(float(cost)):
+        if label != "mixeddsa_B_hard" and not np.isfinite(float(cost)):
             fail(f"scale {label}: cost {float(cost)}")
         prof = profile_cycles(torch, lambda n_: (run(n_),
                                                  torch.cuda.synchronize()),
@@ -2383,7 +2670,28 @@ def phase_localsearch_scale(ctx, scale_graph):
             device_busy_share=prof["device_busy_share"],
             top=prof["top"][:8], device_cost=float(cost),
             launches=launches,
-            card_equals_cpu_cycles=LS_SCALE_COMPARE, sync_free=True)
+            card_equals_cpu_cycles=LS_SCALE_COMPARE,
+            sync_free=not label.startswith("dba"))
+        if label.startswith("dba"):
+            out[label]["run_ms_by_chunk"] = chunks
+        if label.startswith("gdba"):
+            # The candidate's share: GDBA's effective-cost sum (two row
+            # gathers and an add a position, then the contributions
+            # entry) beside the fused entry that reads only the cost
+            # table (ROADMAP Queue B: a modifier-reading table mode).
+            state = gdba.init_state(scale_graph)
+            eff_ms = graph_ms(torch, lambda: gdba.candidate_eff_costs(
+                scale_graph, state.modifiers, state.values, "A"), 50)
+            fused_ms = graph_ms(torch, lambda: ctx["candidate_costs"](
+                scale_graph, state.values), 50)
+            out[label]["candidate_eff_costs_ms"] = eff_ms[2]
+            dev_ms = prof["device_ms_per_cycle"]
+            out[label]["candidate_eff_costs_share"] = (
+                eff_ms[2] / dev_ms if isinstance(dev_ms, float) and dev_ms
+                else "not measured")
+            out[label]["fused_candidate_costs_ms"] = fused_ms[2]
+            del state
+    del hard
     return out
 
 
@@ -2437,6 +2745,13 @@ def run_localsearch_phases(ctx, scale_graph):
         threefry.BEST_CHOICE]
     tf["timing"]["best_choice"]["scale_dsa_B_mask"] = scale.pop(
         "best_choice_dsa_B_mask")
+    # Every flagship path's and scale path's launches, for the kernels
+    # line.
+    main["by_path"] = {label: row["launches"]
+                       for label, row in flag["runs"].items()}
+    main["by_path"].update({f"scale_{label}": row["launches"]
+                            for label, row in scale.items()
+                            if isinstance(row, dict) and "launches" in row})
     return tf, pos, main
 
 
@@ -2547,7 +2862,9 @@ def main() -> int:
                           tiles=int(graph.agg_tiles.shape[0]))
         graphs[label] = graph
         del graph, msgs, args, beliefs, sums
+    one_edge = one_edge_belief_check(torch, ops, graph_from_numpy, _build)
     emit("kernel_check", kernel="segment_sum", graphs=agg,
+         one_edge_buckets=one_edge,
          tolerance="exact (torch.equal, card vs CPU index_add_)",
          max_abs_err=max_err["segment_sum"])
 
@@ -2924,6 +3241,8 @@ def main() -> int:
             "replaces": "pydcop_tpu/ops/localsearch.py:57",
             "launches": (ls_launches[key] if entry == "positional_table"
                          else ls_pos["ternary_dsa"]["launches"][key]),
+            "launches_by_path": {label: n[key] for label, n in
+                                 ls_launches["by_path"].items() if n[key]},
             "max_abs_err": ls_pos["max_abs_err"], "ms": flag["ms"],
             "plain_ms": flag["plain_ms"], "bound_ms": flag["bound_ms"],
             "bound_by": flag["bound_by"], "library_ms": flag["library_ms"],
@@ -2942,6 +3261,8 @@ def main() -> int:
             "name": f"threefry: {entry}", "route": "cuda",
             "source": "pydcop_tpu_torch/csrc/threefry.cu",
             "replaces": replaces, "launches": ls_launches[key],
+            "launches_by_path": {label: n[key] for label, n in
+                                 ls_launches["by_path"].items() if n[key]},
             "max_abs_err": ls_tf["max_abs_err"], "ms": flag["ms"],
             "plain_ms": flag["plain_ms"], "bound_ms": flag["bound_ms"],
             "bound_by": flag["bound_by"], "library_ms": None,

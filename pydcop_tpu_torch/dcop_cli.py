@@ -8,7 +8,8 @@
 [--recovery_damping_bump B]] [--trace FILE [--trace_format chrome|jsonl]]
 [--metrics FILE.jsonl] [--metrics_every N] [--serve_metrics PORT]
 FILE.yaml`` solves a DCOP on one torch device with ALGO (maxsum,
-amaxsum, maxsum_dynamic, dsa, adsa, dsatuto, mgm, mgm2) and prints the
+amaxsum, maxsum_dynamic, dsa, adsa, dsatuto, mgm, mgm2, dba, gdba,
+mixeddsa) and prints the
 JSON result ``pydcop solve`` prints for a device solve (status, assignment,
 cost, violation, time, msg_count, msg_size, cycle, compile_time,
 backend).  The resilience and observability flags are the reference's,
@@ -61,7 +62,7 @@ def make_parser() -> argparse.ArgumentParser:
     solve.add_argument("-a", "--algo", required=True,
                        help="algorithm name (maxsum, amaxsum, "
                             "maxsum_dynamic, dsa, adsa, dsatuto, mgm, "
-                            "mgm2)")
+                            "mgm2, dba, gdba, mixeddsa)")
     solve.add_argument("-p", "--algo_params", action="append",
                        help="algorithm parameter as name:value")
     solve.add_argument("-c", "--cycles", type=int, default=1000,

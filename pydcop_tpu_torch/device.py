@@ -58,12 +58,19 @@ class TorchFactorGraph(NamedTuple):
     ``var_ids`` is int64 (torch's index dtype); values are unchanged.
 
     ``agg_perm``/``agg_offsets`` index the edges — the flattened
-    (bucket, factor, position) slots in bucket order — by variable,
-    CSR-style: variable ``v``'s edges, in edge order, are
-    ``agg_perm[agg_offsets[v]:agg_offsets[v + 1]]``.  The sentinel row
-    V holds the padding edges like any other row.  ``agg_buckets``
-    holds the edge index at which each bucket starts, then E.  The
-    belief aggregation (``ops/segment_sum.py``) sums in this order.
+    (bucket, factor, position) slots of the buckets taken in the order
+    ``agg_order`` — by variable, CSR-style: variable ``v``'s edges, in
+    edge order, are ``agg_perm[agg_offsets[v]:agg_offsets[v + 1]]``.
+    The sentinel row V holds the padding edges like any other row.
+    ``agg_buckets`` holds the edge index at which each bucket of that
+    order starts, then E.  The belief aggregation
+    (``ops/segment_sum.py``) sums in this order, bit i of ``agg_sep``
+    marking the i-th bucket of ``agg_order`` as summed on its own.
+    Under ``scatter`` the order and mask are
+    ``segment_sum.positional_fold``'s over the buckets' edge counts (the
+    order XLA adds the reference's per-bucket segment_sums in: a
+    one-edge bucket can move); under the other strategies, and whenever
+    no bucket moves, ``agg_order`` is the bucket order.
     ``agg_tiles`` is its kernel's plan (``aggregation_plan``): the heavy
     variables' tiles first, then the light tiles, each row (first
     variable, end variable, first edge, end edge).
@@ -102,6 +109,8 @@ class TorchFactorGraph(NamedTuple):
     agg_tiles: torch.Tensor    # [T, 4] int32
     agg_strategy: str = "scatter"
     agg_ell: Optional[torch.Tensor] = None  # [V+1, K] int32 (ell only)
+    agg_order: Tuple[int, ...] = ()
+    agg_sep: int = 0
     pos_perm: Optional[torch.Tensor] = None   # [E] int32
     pos_units: Optional[torch.Tensor] = None  # [n_units + 1] int32
     pos_order: Tuple[int, ...] = ()
@@ -205,11 +214,17 @@ def to_device_graph(graph: CompiledFactorGraph,
         # A copy: the caller's arrays may be read-only or strided.
         return torch.tensor(np.asarray(arr), dtype=dtype, device=dev)
 
+    n_rows = graph.var_costs.shape[0]
+    strategy = aggregation_strategy(graph)
+    order = tuple(range(len(graph.buckets)))
+    sep = 0
+    if strategy == "scatter":
+        order, sep = positional_fold(
+            [b.var_ids.size for b in graph.buckets], n_rows)
     perm, offsets, starts = aggregation_arrays(
-        [b.var_ids for b in graph.buckets], graph.var_costs.shape[0])
+        [graph.buckets[b].var_ids for b in order], n_rows)
     tiles = aggregation_plan(offsets, graph.var_costs.shape[1])
-    pos = positional_arrays([b.var_ids for b in graph.buckets],
-                            graph.var_costs.shape[0])
+    pos = positional_arrays([b.var_ids for b in graph.buckets], n_rows)
 
     def bucket(b):
         bits = edge_valid_bits(graph.var_valid, b.var_ids)
@@ -226,9 +241,11 @@ def to_device_graph(graph: CompiledFactorGraph,
         agg_offsets=put(offsets, torch.int32),
         agg_buckets=put(starts, torch.int32),
         agg_tiles=put(tiles, torch.int32),
-        agg_strategy=aggregation_strategy(graph),
+        agg_strategy=strategy,
         agg_ell=(None if graph.agg_ell is None
                  else put(graph.agg_ell, torch.int32)),
+        agg_order=order,
+        agg_sep=sep,
         pos_perm=put(pos.perm, torch.int32),
         pos_units=put(pos.starts, torch.int32),
         pos_order=pos.order,

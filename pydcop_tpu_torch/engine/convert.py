@@ -5,9 +5,11 @@ graph and the solver state.  These functions take and give plain numpy
 arrays — for example ``np.asarray`` of the JAX reference's
 ``CompiledFactorGraph`` and ``MaxSumState`` — so both packages can
 compute on the same graph from the same messages.  The local-search
-states (DSA, MGM, MGM2) carry their values as a tensor and their key and
-cycle on the host.  They import nothing
-of the JAX package.
+states (DSA, MGM, MGM2, DBA, GDBA, MixedDSA) carry their values (and
+DBA's weights and counters, GDBA's modifiers) as tensors and their key
+on the host; DBA's cycle is a tensor on the device (its stop is decided
+there), the others' a host int.  They import nothing of the JAX
+package.
 """
 
 from typing import Dict, Iterable, Sequence, Tuple
@@ -26,12 +28,17 @@ from pydcop_tpu_torch.engine.compile import (
     FactorBucket,
     build_aggregation_arrays,
 )
+from pydcop_tpu_torch.ops.dba import DbaState
 from pydcop_tpu_torch.ops.dsa import DsaState
+from pydcop_tpu_torch.ops.gdba import GdbaState
 from pydcop_tpu_torch.ops.maxsum import MaxSumState
 from pydcop_tpu_torch.ops.mgm import MgmState
 from pydcop_tpu_torch.ops.mgm2 import Mgm2State
+from pydcop_tpu_torch.ops.mixeddsa import MixedDsaState
 
-LOCALSEARCH_STATES = {"dsa": DsaState, "mgm": MgmState, "mgm2": Mgm2State}
+LOCALSEARCH_STATES = {"dsa": DsaState, "mgm": MgmState, "mgm2": Mgm2State,
+                      "dba": DbaState, "gdba": GdbaState,
+                      "mixeddsa": MixedDsaState}
 
 
 def graph_from_numpy(var_costs, var_valid,
@@ -96,24 +103,51 @@ def state_to_numpy(state: MaxSumState) -> Dict[str, object]:
 
 
 def localsearch_state_from_numpy(kind: str, values, key, cycle,
-                                 device: DeviceLike = "cuda"):
-    """The port's ``DsaState`` / ``MgmState`` / ``Mgm2State`` (``kind``
-    ``"dsa"``, ``"mgm"`` or ``"mgm2"``) from the reference's fields as
-    numpy: ``values`` [V+1] int, ``key`` the two uint32 key words,
-    ``cycle`` a scalar int."""
+                                 device: DeviceLike = "cuda",
+                                 weights: Sequence = (),
+                                 term_counter=None,
+                                 modifiers: Sequence = ()):
+    """The port's local-search state of ``kind`` (a key of
+    ``LOCALSEARCH_STATES``) from the reference's fields as numpy:
+    ``values`` [V+1] int, ``key`` the two uint32 key words, ``cycle`` a
+    scalar int; for ``"dba"`` also ``weights`` (per bucket [F, arity]
+    float32) and ``term_counter`` [V+1] float32, for ``"gdba"``
+    ``modifiers`` (per bucket [F, arity, D, ..., D] float32)."""
+    dev = resolve_device(device)
     words = np.asarray(key).astype(np.int64).reshape(2)
-    return LOCALSEARCH_STATES[kind](
+    fields = dict(
         values=torch.tensor(np.asarray(values), dtype=torch.int32,
-                            device=resolve_device(device)),
+                            device=dev),
         key=(int(words[0]), int(words[1])),
         cycle=int(np.asarray(cycle)))
+
+    def put(arrays):
+        return tuple(torch.tensor(np.asarray(a), dtype=torch.float32,
+                                  device=dev) for a in arrays)
+
+    if kind == "dba":
+        fields.update(
+            weights=put(weights), term_counter=put([term_counter])[0],
+            cycle=torch.tensor(fields["cycle"], dtype=torch.int32,
+                               device=dev))
+    elif kind == "gdba":
+        fields["modifiers"] = put(modifiers)
+    return LOCALSEARCH_STATES[kind](**fields)
 
 
 def localsearch_state_to_numpy(state) -> Dict[str, object]:
     """A local-search state as numpy: ``values`` [V+1] int32, ``key``
-    [2] uint32, ``cycle`` int — the reference's fields."""
-    return {
+    [2] uint32, ``cycle`` int — the reference's fields — and DBA's
+    ``weights`` and ``term_counter``, GDBA's ``modifiers``."""
+    out = {
         "values": state.values.detach().cpu().numpy(),
         "key": np.asarray(state.key, dtype=np.uint32),
         "cycle": int(state.cycle),
     }
+    for name in ("weights", "modifiers"):
+        if hasattr(state, name):
+            out[name] = tuple(t.detach().cpu().numpy()
+                              for t in getattr(state, name))
+    if hasattr(state, "term_counter"):
+        out["term_counter"] = state.term_counter.detach().cpu().numpy()
+    return out

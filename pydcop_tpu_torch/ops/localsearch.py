@@ -89,7 +89,23 @@ def positional_sum(graph: TorchFactorGraph, per_bucket: Sequence,
         return init
     if graph.agg_ell is not None:
         return _ell_sum(graph, per_bucket, init)
-    units = [u for v in per_bucket for u in v.unbind(0)]
+    return unit_sum(graph, [v.unbind(0) for v in per_bucket], init)
+
+
+def unit_sum(graph: TorchFactorGraph, per_bucket: Sequence,
+             init: torch.Tensor, ell: bool = True) -> torch.Tensor:
+    """:func:`positional_sum` of per-position columns: ``per_bucket``
+    holds, per bucket, its positions' [F, D] contributions in position
+    order.  Without ELL lists (or with ``ell=False``: a caller whose
+    reference scatters even when ELL lists are compiled) it is one
+    launch of ``segment_sum.positional_sum``, the units in
+    ``graph.pos_order``; else ``init + gather_reduce``."""
+    if not per_bucket:
+        return init
+    if ell and graph.agg_ell is not None:
+        return _ell_sum(graph, [torch.stack(list(cols), dim=1)
+                                for cols in per_bucket], init)
+    units = [u for cols in per_bucket for u in cols]
     return _segment_sum.positional_sum(
         [units[u] for u in graph.pos_order], graph.pos_perm,
         graph.agg_offsets, graph.pos_units, init, graph.agg_tiles,
@@ -115,12 +131,15 @@ def _edge_flat(per_bucket) -> torch.Tensor:
 
 
 def _reduce_edges(graph: TorchFactorGraph, per_bucket, fill,
-                  reduce: str) -> torch.Tensor:
+                  reduce: str, ell: bool = True) -> torch.Tensor:
     """[V+1]: per variable, the max or min (``reduce``) of the
     per-edge scalars of its incident slots (``per_bucket``: one
-    [F, arity] tensor per bucket), ``fill`` where it has none."""
+    [F, arity] tensor per bucket), ``fill`` where it has none; through
+    the ELL lists when the graph has them and ``ell`` (whose sentinel
+    row lists no edge: ``fill`` there, where a scatter reduces the
+    padding rows)."""
     n_seg = graph.var_costs.shape[0]
-    if graph.agg_ell is not None:
+    if ell and graph.agg_ell is not None:
         return gather_reduce(graph.agg_ell, _edge_flat(per_bucket),
                              fill=fill, reduce=reduce)
     out = torch.full((n_seg,), fill, dtype=per_bucket[0].dtype,
@@ -131,16 +150,17 @@ def _reduce_edges(graph: TorchFactorGraph, per_bucket, fill,
     return out
 
 
-def positional_max(graph: TorchFactorGraph, per_bucket,
-                   fill) -> torch.Tensor:
+def positional_max(graph: TorchFactorGraph, per_bucket, fill,
+                   ell: bool = True) -> torch.Tensor:
     """[V+1]: per variable, max over its incident (bucket, factor,
     position) slots of per-edge scalars (``per_bucket``: one [F, arity]
     tensor per bucket); ``fill`` for variables with no incident slots
-    (and below every value: the reference's maximum with ``fill``)."""
+    (and below every value: the reference's maximum with ``fill``).
+    ``ell=False`` scatters even on a graph with ELL lists."""
     if not per_bucket:
         return torch.full((graph.var_costs.shape[0],), fill,
                           device=graph.var_costs.device)
-    return _reduce_edges(graph, per_bucket, fill, "max")
+    return _reduce_edges(graph, per_bucket, fill, "max", ell)
 
 
 def candidate_costs(graph: TorchFactorGraph,

@@ -46,7 +46,6 @@ a device tensor, with no host sync of its own.
 
 from typing import Dict, NamedTuple, Optional, Tuple
 
-import numpy as np
 import torch
 
 from pydcop_tpu_torch.device import TorchFactorGraph
@@ -54,7 +53,7 @@ from pydcop_tpu_torch.engine.compile import PRUNE_MIN_DOMAIN, prune_width
 from pydcop_tpu_torch.ops.binary_factor import binary_factor_update
 from pydcop_tpu_torch.ops.ell import gather_reduce
 from pydcop_tpu_torch.ops.flush import ftz
-from pydcop_tpu_torch.ops.segment_sum import segment_sum, separate_buckets
+from pydcop_tpu_torch.ops.segment_sum import segment_sum
 from pydcop_tpu_torch.ops.var_update import (
     send_update,
     v2f_update,
@@ -274,11 +273,14 @@ def aggregate_beliefs(graph: TorchFactorGraph, f2v: Msgs
     reference's jitted superstep sums them under the graph's strategy:
 
     - ``scatter``: edge order within a bucket; across buckets XLA folds
-      the per-bucket segment_sums so that bucket 0 starts from zero,
-      and each later bucket is either summed from zero on its own and
-      added, or added into the running sums, as
+      the per-bucket segment_sums so that the first bucket starts from
+      zero, and each later bucket is either summed from zero on its own
+      and added, or added into the running sums, as
       ``ops.segment_sum.separate_buckets`` reads off the bucket sizes
-      (odd buckets on their own, unless XLA merged them);
+      (odd buckets on their own, unless XLA merged them); a bucket of
+      one edge becomes a one-row update that can move
+      (``ops.segment_sum.positional_fold``, placed as the graph's
+      ``agg_order`` and ``agg_sep``);
     - ``sorted``: one running sum per variable over every bucket's
       edges in CSR order, from zero;
     - ``ell``: the [V+1, K] lists' gather and K-way sum
@@ -316,22 +318,21 @@ def aggregate_beliefs(graph: TorchFactorGraph, f2v: Msgs
             bounds = graph.agg_offsets.to(torch.int64)
             sums = ftz(cz[:, bounds[1:]] - cz[:, bounds[:-1]]).t().contiguous()
         return ftz(graph.var_costs + sums), sums
-    return segment_sum(f2v, graph.agg_perm, graph.agg_offsets,
-                       graph.agg_buckets, graph.var_costs, graph.agg_tiles,
-                       one_sum=strategy == "sorted")
+    return segment_sum([f2v[b] for b in graph.agg_order], graph.agg_perm,
+                       graph.agg_offsets, graph.agg_buckets,
+                       graph.var_costs, graph.agg_tiles,
+                       one_sum=strategy == "sorted", sep=graph.agg_sep)
 
 
 def _sums_fused(graph: TorchFactorGraph) -> bool:
     """Whether the reference's jitted superstep computes this graph's
     belief sums as an add it fuses into their consumers: the scatter
-    aggregation over several buckets, its last bucket summed on its own
-    (``ops.segment_sum.separate_buckets``)."""
+    aggregation over several buckets, the last bucket of its fold
+    summed on its own (``graph.agg_sep``)."""
     n = len(graph.buckets)
     if graph.agg_strategy != "scatter" or n < 2:
         return False
-    starts = np.cumsum([0] + [b.var_ids.numel() for b in graph.buckets])
-    return bool(separate_buckets(starts, graph.var_costs.shape[0])
-                >> (n - 1) & 1)
+    return bool(graph.agg_sep >> (n - 1) & 1)
 
 
 def var_to_factor(graph: TorchFactorGraph, f2v: Msgs,

@@ -197,14 +197,18 @@ def positional_fold(sizes: Sequence[int], n_rows: int
 
 def segment_sum_reference(msgs: torch.Tensor, perm: torch.Tensor,
                           offsets: torch.Tensor, buckets: torch.Tensor,
-                          var_costs: torch.Tensor, one_sum: bool = False
+                          var_costs: torch.Tensor, one_sum: bool = False,
+                          sep: Optional[int] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The definition, walked edge rank by edge rank: each variable's
     running sum starts at +0.0 and takes its edges in CSR (edge) order,
     each add flushed to zero like the reference's (``ops/flush.py``).
     Across buckets it is the form XLA gives the reference's jitted sum
-    of per-bucket segment_sums: a bucket that :func:`separate_buckets`
-    marks is summed on its own from +0.0 and added to the running sum
+    of per-bucket segment_sums: a bucket that ``sep`` marks (bit b for
+    the b-th bucket of ``buckets``; ``None``: :func:`separate_buckets`
+    of their sizes, the fold when no bucket of one edge moves — the
+    graph's ``agg_sep`` holds :func:`positional_fold`'s) is summed on
+    its own from +0.0 and added to the running sum
     when the walk leaves it — every marked bucket is left, so its sum
     (+0.0 where the variable has no edge there) is added to every
     variable, as the reference adds whole arrays; any other bucket is
@@ -219,7 +223,7 @@ def segment_sum_reference(msgs: torch.Tensor, perm: torch.Tensor,
     above r at once; the variables are taken in decreasing degree, so
     those are a prefix.  The walk reads the degrees on the host."""
     sums = _walk(msgs, perm, offsets, buckets,
-                 torch.zeros_like(var_costs), one_sum)
+                 torch.zeros_like(var_costs), one_sum, sep)
     return ftz(var_costs + sums), sums
 
 
@@ -251,9 +255,10 @@ def _walk(msgs, perm, offsets, buckets, acc, one_sum, sep=None):
     starts = offsets[:-1][order]
     perm = perm.to(torch.int64)
     n_buckets = buckets.shape[0] - 1
-    if sep is None:
-        sep = (0 if one_sum or n_buckets < 2
-               else separate_buckets(buckets.tolist(), n_seg))
+    if one_sum or n_buckets < 2:
+        sep = 0
+    elif sep is None:
+        sep = separate_buckets(buckets.tolist(), n_seg)
     acc = acc[order]
     part = torch.zeros_like(acc)
     at = torch.zeros((n_seg,), dtype=torch.int64, device=dev)
@@ -383,15 +388,16 @@ def segment_sum(msgs: Messages, perm: torch.Tensor,
                 offsets: torch.Tensor, buckets: torch.Tensor,
                 var_costs: torch.Tensor,
                 tiles: Optional[torch.Tensor] = None,
-                one_sum: bool = False
+                one_sum: bool = False, sep: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Beliefs and sums [V+1, D] f32, in the order of
-    :func:`segment_sum_reference` (``one_sum`` as there).
+    :func:`segment_sum_reference` (``one_sum`` and ``sep`` as there).
 
     ``msgs`` is either one [E, D] f32 tensor, every bucket's edges in
-    bucket order, or the buckets' own f2v tensors in bucket order
-    (each [..., D], e.g. [F, arity, D]), which the kernel reads where
-    they lie.  perm [E] int32, offsets [V+2] int32, buckets
+    bucket order, or the buckets' own f2v tensors (each [..., D], e.g.
+    [F, arity, D]), which the kernel reads where they lie; the buckets'
+    order is the one ``perm`` and ``buckets`` index (the graph's
+    ``agg_order``).  perm [E] int32, offsets [V+2] int32, buckets
     [n_buckets + 1] int32, var_costs [V+1, D] f32; ``tiles`` is the
     placement plan of :func:`aggregation_plan` on the same device.
 
@@ -408,7 +414,7 @@ def segment_sum(msgs: Messages, perm: torch.Tensor,
             parts[0].reshape(-1, d) if len(parts) == 1
             else torch.cat([p.reshape(-1, d) for p in parts]))
         return segment_sum_reference(whole, perm, offsets, buckets,
-                                     var_costs, one_sum)
+                                     var_costs, one_sum, sep)
     n_seg, d = var_costs.shape
     n_buckets = buckets.shape[0] - 1
     if flat and n_buckets > 1:
@@ -429,7 +435,7 @@ def segment_sum(msgs: Messages, perm: torch.Tensor,
     if perm.device.index != torch.cuda.current_device():
         with torch.cuda.device(perm.device):
             return segment_sum(msgs, perm, offsets, buckets, var_costs,
-                               tiles, one_sum)
+                               tiles, one_sum, sep)
     sums = torch.empty_like(var_costs)
     beliefs = torch.empty_like(var_costs)
     if sums.numel() == 0:
@@ -437,12 +443,15 @@ def segment_sum(msgs: Messages, perm: torch.Tensor,
     bases = (ctypes.c_void_p * n_buckets)(*(p.data_ptr() for p in parts))
     edge_starts = np.cumsum([0] + [p.numel() // d for p in parts]).tolist()
     starts = (ctypes.c_int * (n_buckets + 1))(*edge_starts)
+    if one_sum:
+        sep = 0
+    elif sep is None:
+        sep = separate_buckets(edge_starts, n_seg)
     err = _launcher()(bases, starts, n_buckets, perm.data_ptr(),
                       offsets.data_ptr(), tiles.data_ptr(), tiles.shape[0],
                       var_costs.data_ptr(), sums.data_ptr(),
                       beliefs.data_ptr(), n_seg, d, _load_width(parts, d),
-                      pass_edges(d), int(one_sum),
-                      0 if one_sum else separate_buckets(edge_starts, n_seg),
+                      pass_edges(d), int(one_sum), sep,
                       torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"segment_sum launch failed: CUDA error {err}")

@@ -47,6 +47,7 @@ from pydcop_tpu_torch.engine.convert import (
 from pydcop_tpu_torch.ops import _build
 from pydcop_tpu_torch.ops import maxsum as T
 from pydcop_tpu_torch.ops.segment_sum import (
+    positional_fold,
     segment_sum,
     segment_sum_reference,
     separate_buckets,
@@ -489,3 +490,118 @@ def test_domain_mean_after_a_fold_ending_on_its_own(d):
             np.testing.assert_array_equal(np.asarray(a), b.numpy(),
                                           err_msg=name)
     assert bool(js.stable) == bool(ts.stable)
+
+
+# Bucket layouts with one-factor arity-1 buckets (one edge each, a real
+# variable, not padding) among buckets of more and of fewer than V + 1
+# edges: (arity, F) per bucket.  XLA rewrites a one-row scatter into a
+# one-row update and moves it (segment_sum.positional_fold).
+ONE_EDGE_LAYOUTS = {
+    "first": [(1, 1), (2, 30)],
+    "middle": [(2, 30), (1, 1), (2, 25)],
+    "last": [(2, 30), (1, 1)],
+    "two_in_a_row": [(2, 30), (1, 1), (1, 1), (2, 30)],
+    "after_small": [(2, 2), (1, 1), (2, 30)],
+    "arity1_around": [(1, 60), (1, 1), (1, 50)],
+}
+
+
+def one_edge_graph(layout, n_rows, d, seed, aggregation="scatter",
+                   real_costs=False):
+    """(JAX graph, port graph on the CPU) of ``ONE_EDGE_LAYOUTS[layout]``
+    over ``n_rows`` = V + 1 rows, built from the same arrays; every
+    factor's variables are real ones.  With ``real_costs`` the cost
+    tables spread over seven decades (a MaxSum run whose sums are
+    order-sensitive), else zero."""
+    rng = np.random.default_rng(seed)
+    n_vars = n_rows - 1
+    buckets = []
+    for arity, f in ONE_EDGE_LAYOUTS[layout]:
+        ids = np.stack([rng.choice(n_vars, size=arity, replace=False)
+                        for _ in range(f)]).astype(np.int32)
+        shape = (f,) + (d,) * arity
+        costs = ((rng.normal(size=shape)
+                  * 10.0 ** rng.integers(-3, 4, size=shape))
+                 if real_costs else np.zeros(shape)).astype(np.float32)
+        buckets.append((costs, ids))
+    var_costs = (rng.normal(size=(n_rows, d)) * 10).astype(np.float32)
+    var_valid = np.ones_like(var_costs, bool)
+    fb = tuple(FactorBucket(c, i) for c, i in buckets)
+    perm, ss, st, en, ell = build_aggregation_arrays(fb, n_rows,
+                                                     aggregation)
+    g = CompiledFactorGraph(var_costs, var_valid, fb, agg_perm=perm,
+                            agg_sorted_seg=ss, agg_starts=st, agg_ends=en,
+                            agg_ell=ell)
+    return g, graph_from_numpy(var_costs, var_valid, buckets, device="cpu",
+                               aggregation=aggregation)
+
+
+@pytest.mark.parametrize("n_rows", [5, 21, 41])
+@pytest.mark.parametrize("d", [1, 3, 5])
+@pytest.mark.parametrize("layout", list(ONE_EDGE_LAYOUTS))
+def test_one_edge_buckets_equal_reference(layout, d, n_rows):
+    """ROADMAP Queue C's belief-sum fault: aggregate_beliefs equals the
+    reference's jitted one (graph an argument) bit for bit, beliefs and
+    sums, with one-factor buckets first, in the middle, last, two in a
+    row, after a bucket of fewer than V + 1 edges and among arity-1
+    buckets."""
+    g, tg = one_edge_graph(layout, n_rows, d, seed=n_rows + d)
+    f2v = _messages(g, 40 + d)
+    jb, js = jax.jit(J.aggregate_beliefs)(g, tuple(f2v))
+    tb, ts = T.aggregate_beliefs(tg, tuple(torch.from_numpy(m) for m in f2v))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+
+
+@pytest.mark.parametrize("layout", list(ONE_EDGE_LAYOUTS))
+def test_one_edge_fold_is_placed_once(layout):
+    """The placement takes the buckets in positional_fold's order over
+    their edge counts: ``agg_perm``/``agg_buckets`` are those of the
+    buckets in ``agg_order``, ``agg_sep`` its mask; the offsets are the
+    reference's (a variable has the same edges in any bucket order)."""
+    g, tg = one_edge_graph(layout, 21, 3, seed=1)
+    sizes = [b.var_ids.size for b in g.buckets]
+    order, sep = positional_fold(sizes, 21)
+    assert (tg.agg_order, tg.agg_sep) == (order, sep)
+    # A one-edge bucket merged into its neighbours' scatter stays put.
+    moved = order != tuple(range(len(sizes)))
+    assert moved == (layout not in ("first", "after_small"))
+    ids = np.concatenate([g.buckets[b].var_ids.reshape(-1) for b in order])
+    np.testing.assert_array_equal(tg.agg_perm.numpy(),
+                                  np.argsort(ids, kind="stable"))
+    np.testing.assert_array_equal(
+        tg.agg_buckets.numpy(), np.cumsum([0] + [sizes[b] for b in order]))
+    _, _, starts, ends, _ = build_aggregation_arrays(g.buckets, 21,
+                                                     "boundary")
+    np.testing.assert_array_equal(tg.agg_offsets.numpy()[:-1], starts)
+    np.testing.assert_array_equal(tg.agg_offsets.numpy()[1:], ends)
+    for strategy in ("sorted", "ell"):
+        _, other = one_edge_graph(layout, 21, 3, seed=1,
+                                  aggregation=strategy)
+        assert other.agg_order == tuple(range(len(sizes)))
+
+
+@pytest.mark.parametrize("layout", list(ONE_EDGE_LAYOUTS))
+def test_one_edge_buckets_sorted_is_unaffected(layout):
+    """The ``sorted`` aggregation is one segment_sum over every edge in
+    CSR order: one scatter, never a one-row one here, so its sum is
+    the one running sum whatever the buckets."""
+    g, tg = one_edge_graph(layout, 21, 3, seed=5, aggregation="sorted")
+    f2v = _messages(g, 50)
+    jb, js = jax.jit(J.aggregate_beliefs)(g, tuple(f2v))
+    tb, ts = T.aggregate_beliefs(tg, tuple(torch.from_numpy(m) for m in f2v))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+
+
+@pytest.mark.parametrize("layout", ["middle", "two_in_a_row"])
+def test_one_edge_buckets_superstep_state_40_cycles(layout):
+    """40 supersteps of a MaxSum run on a graph with one-edge buckets
+    and order-sensitive costs equal the reference's jitted superstep
+    after every cycle, every message and count."""
+    g, tg = one_edge_graph(layout, 21, 3, seed=8, real_costs=True)
+    step = jax.jit(lambda s, gr: J.superstep(s, gr, **KW))
+    js, ts = J.init_state(g), T.init_state(tg)
+    for _ in range(40):
+        js, ts = step(js, g), T.superstep(ts, tg, **KW)
+        _same_state(js, ts)

@@ -18,6 +18,9 @@ repository's root conftest imports JAX, so where JAX is missing run:
   shared-memory passes and bucket boundaries (each bucket's messages
   read in place), ``binary_factor_update`` at every templated D, a
   generic D, a ragged F and an unaligned view.
+- ``aggregate_beliefs`` with one-edge buckets (ROADMAP Queue C's
+  belief-sum fault) equals the CPU's bit for bit under ``scatter`` and
+  ``sorted``, and 40 supersteps on such a graph equal the CPU's.
 - ``aggregate_beliefs`` on the card concatenates nothing (``torch.cat``
   is made to raise during the call) and equals the CPU's result; the
   wrapper refuses one [E, D] tensor for several buckets and a call
@@ -257,6 +260,65 @@ def test_aggregate_beliefs_reads_buckets_in_place(monkeypatch):
     torch.cuda.synchronize()
     monkeypatch.undo()
     assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+# One-factor arity-1 buckets (one edge each) among buckets of more and
+# of fewer than V + 1 edges, (arity, F) per bucket: XLA moves their
+# one-row updates (segment_sum.positional_fold; ROADMAP Queue C).
+ONE_EDGE_LAYOUTS = [
+    [(1, 1), (2, 30)], [(2, 30), (1, 1), (2, 25)], [(2, 30), (1, 1)],
+    [(2, 30), (1, 1), (1, 1), (2, 30)], [(2, 2), (1, 1), (2, 30)],
+    [(1, 60), (1, 1), (1, 50)],
+]
+
+
+def one_edge_arrays(layout, n_rows, d, seed):
+    """(var_costs, var_valid, buckets) of a layout over real variables,
+    the cost tables spread over seven decades."""
+    rng = np.random.default_rng(seed)
+    buckets = []
+    for arity, f in layout:
+        ids = np.stack([rng.choice(n_rows - 1, size=arity, replace=False)
+                        for _ in range(f)]).astype(np.int32)
+        shape = (f,) + (d,) * arity
+        buckets.append(((rng.normal(size=shape)
+                         * 10.0 ** rng.integers(-3, 4, size=shape))
+                        .astype(np.float32), ids))
+    var_costs = (rng.normal(size=(n_rows, d)) * 10).astype(np.float32)
+    return var_costs, np.ones_like(var_costs, bool), buckets
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 3, 5])
+def test_one_edge_buckets_card_equals_cpu(d):
+    """The belief sum with one-edge buckets, under scatter and sorted:
+    the card equals the CPU bit for bit (beliefs and sums) at V + 1 in
+    {5, 21, 41}; 40 supersteps on the card equal 40 on the CPU."""
+    _need_card()
+    for i, layout in enumerate(ONE_EDGE_LAYOUTS):
+        for n_rows in (5, 21, 41):
+            arrays = one_edge_arrays(layout, n_rows, d, seed=i + n_rows)
+            for strategy in ("scatter", "sorted"):
+                card, cpu = (graph_from_numpy(*arrays, device=dev,
+                                              aggregation=strategy)
+                             for dev in ("cuda", "cpu"))
+                f2v = _bucket_messages(card, 30 + i)
+                got = ops.aggregate_beliefs(card, f2v)
+                want = ops.aggregate_beliefs(cpu, tuple(m.cpu()
+                                                        for m in f2v))
+                for g, w in zip(got, want):
+                    assert torch.equal(g.cpu(), w), (layout, n_rows, strategy)
+    arrays = one_edge_arrays(ONE_EDGE_LAYOUTS[3], 21, d, seed=8)
+    card, cpu = (graph_from_numpy(*arrays, device=dev)
+                 for dev in ("cuda", "cpu"))
+    runs = [ops.run_maxsum(g, 40, stop_on_convergence=False)
+            for g in (card, cpu)]
+    (s0, v0), (s1, v1) = ((state_to_numpy(s), v.cpu().numpy())
+                          for s, v in runs)
+    np.testing.assert_array_equal(v0, v1)
+    for field in ("v2f", "f2v", "v2f_count", "f2v_count"):
+        for a, b in zip(s0[field], s1[field]):
+            np.testing.assert_array_equal(a, b, err_msg=field)
 
 
 @pytest.mark.gpu

@@ -32,6 +32,14 @@ without one it skips.  Where JAX is missing run:
 - The DSA, MGM and MGM2 loops read nothing from the card:
   ``torch.cuda.set_sync_debug_mode("error")`` around them raises on
   any synchronising call.
+- DBA (hard CSP, early stop, ``infinity``, ell), GDBA (three mode
+  triples, ell) and MixedDSA (variants A, B, C on hard equality tables
+  with soft tables on half the edges) solved on the card equal the CPU
+  solve and a second card solve; the contributions entry of the
+  positional sum counted launches.  DBA's chunk of gated steps reads
+  nothing from the card, and a whole ``run_dba`` synchronises at most
+  ceil(cycles / chunk) + 1 times (counted under
+  ``set_sync_debug_mode("warn")``), with the cycles of a chunk of 1.
 """
 
 import numpy as np
@@ -336,3 +344,111 @@ def test_loops_read_nothing_from_the_card():
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+def csp_dcop(n_vars: int, seed: int = 0, infinity: float = 10000.0,
+             extra_soft: bool = False, n_colors: int = 3):
+    """A ring with ~n/3 random chords over 3 colours, equal colours
+    costing ``infinity`` (the reference's ``coloring_csp``), and with
+    ``extra_soft`` seeded real tables on the first half of its edges."""
+    rng = np.random.default_rng(seed)
+    dom = objects.Domain("colors", "color", list(range(n_colors)))
+    dcop = dcop_mod.DCOP(f"csp_{n_vars}", objective="min")
+    vs = [objects.Variable(f"v{i:05d}", dom) for i in range(n_vars)]
+    for v in vs:
+        dcop.add_variable(v)
+    eq = np.where(np.eye(n_colors) > 0, infinity, 0.0)
+    edges = [(i, (i + 1) % n_vars) for i in range(n_vars)]
+    seen = set(edges)
+    for _ in range(n_vars // 3):
+        i, j = (int(x) for x in rng.choice(n_vars, size=2, replace=False))
+        if (i, j) not in seen and (j, i) not in seen:
+            edges.append((i, j))
+            seen.add((i, j))
+    for k, (i, j) in enumerate(edges):
+        dcop.add_constraint(relations.NAryMatrixRelation(
+            [vs[i], vs[j]], eq, f"c{k}"))
+    if extra_soft:
+        for k, (i, j) in enumerate(edges[: n_vars // 2]):
+            dcop.add_constraint(relations.NAryMatrixRelation(
+                [vs[i], vs[j]], rng.random((n_colors, n_colors)), f"s{k}"))
+    dcop.add_agents([objects.AgentDef("a0")])
+    return dcop
+
+
+BREAKOUT_CASES = [
+    ("dba", "csp", {"max_distance": 10}),
+    ("dba", "csp", {"aggregation": "ell", "seed": 2}),
+    ("dba", "real", {"infinity": 1}),
+    ("gdba", "real", {}),
+    ("gdba", "real", {"modifier": "M", "violation": "NM",
+                      "increase_mode": "R"}),
+    ("gdba", "real", {"violation": "MX", "increase_mode": "T",
+                      "aggregation": "ell"}),
+    ("mixeddsa", "mixed", {"variant": "A"}),
+    ("mixeddsa", "mixed", {"variant": "B"}),
+    ("mixeddsa", "mixed", {"variant": "C"}),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo,problem,params", BREAKOUT_CASES)
+def test_breakout_card_solve_equals_cpu_solve(algo, problem, params):
+    _need_card()
+    dcop = {"csp": lambda: csp_dcop(900, seed=4),
+            "real": lambda: real_cost_dcop(600, seed=3),
+            "mixed": lambda: csp_dcop(900, seed=6, infinity=float("inf"),
+                                      extra_soft=True)}[problem]()
+    before = dict(_build.launch_counts)
+    card = [solve(dcop, algo, max_cycles=120, algo_params=params)
+            for _ in range(2)]
+    grew = _build.launch_counts[POSITIONAL] - before.get(POSITIONAL, 0)
+    cpu = solve(dcop, algo, max_cycles=120, algo_params=params,
+                device="cpu")
+    for res in card:
+        assert res["metrics"]["device"].startswith("cuda")
+        assert res["assignment"] == cpu["assignment"]
+        assert (res["cycles"], res["cost"]) == (cpu["cycles"], cpu["cost"])
+    if params.get("aggregation") != "ell" or algo == "mixeddsa":
+        assert grew > 0
+    if problem == "csp":
+        assert card[0]["cycles"] < 120
+
+
+@pytest.mark.gpu
+def test_dba_chunk_reads_nothing_and_run_reads_once_a_chunk():
+    _need_card()
+    import math
+    import warnings
+
+    from pydcop_tpu_torch.algorithms.mgm import lexic_ranks
+    from pydcop_tpu_torch.device import to_device_graph
+    from pydcop_tpu_torch.engine.compile import compile_dcop
+    from pydcop_tpu_torch.ops import dba
+
+    host, meta = compile_dcop(csp_dcop(900, seed=4))
+    graph = to_device_graph(host, "cuda")
+    ranks = torch.tensor(lexic_ranks(meta), device="cuda")
+    kw = dict(infinity=10000.0, max_distance=10, lexic_ranks=ranks)
+    state = dba.init_state(graph, 0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dba.run_chunk(state, graph, 16, max_cycles=400, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = dba.run_dba(graph, 400, chunk=1, **kw)
+    for chunk in (4, 16):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                values, cost, cycles = dba.run_dba(graph, 400, chunk=chunk,
+                                                   **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        reads = sum("synchroniz" in str(w.message) for w in seen)
+        assert cycles == want[2] < 400
+        assert 1 <= reads <= math.ceil(cycles / chunk) + 1, reads
+        assert torch.equal(values, want[0]) and float(cost) == float(want[1])

@@ -2,8 +2,11 @@
 and its CLI) against ``pydcop_tpu.api.solve`` on the CPU.
 
 For dsa (A/B/C, p_mode fixed and arity, stop_cycle), adsa (lockstep and
-staggered), dsatuto, mgm (lexic, random), mgm2 (each favor, thresholds)
-and the ``ell`` aggregation, on the repository's fixtures and on a
+staggered), dsatuto, mgm (lexic, random), mgm2 (each favor, thresholds),
+dba (max_distance, infinity, stop_cycle: accepted and unused), gdba
+(modifier, violation and increase modes, stop_cycle unused), mixeddsa
+(variants, probabilities, stop_cycle: the run's length, status
+FINISHED) and the ``ell`` aggregation, on the repository's fixtures and on a
 mixed real-cost problem, the port's solve with ``device="cpu"`` equals
 the reference's: the same assignment, cycles, status and cost (the
 host's ``solution_cost``, exactly); ``metrics['device_cost']`` is held
@@ -16,8 +19,12 @@ and ``compile_time`` 0 with ``warmup=True``; ``schedule``,
 span in a traced solve and a ``("device_fn", "run_dsa")`` profiler
 entry in a metered one.  The quality checks of the reference's
 ``tests/unit/test_algorithms_device.py`` (DSA quality, MGM monotone,
-MGM2 quality) hold on the port.  Without ``device="cpu"`` and without a
-card, the solve raises.
+MGM2 quality) hold on the port, and so do those of its ``TestDba``,
+``TestGdba`` and ``TestMixedDsa``: DBA solves colourable CSPs, stops on
+its counters before ``max_cycles`` with the reference's cycle count
+(also with an unconstrained variable) and refuses ``objective="max"``;
+GDBA and MixedDSA reach the reference's quality.  Without
+``device="cpu"`` and without a card, the solve raises.
 """
 
 import contextlib
@@ -39,6 +46,7 @@ from pydcop_tpu.api import solve as jax_solve
 from pydcop_tpu_torch import dcop_cli
 from pydcop_tpu_torch.api import solve
 from test_torch_compile import INSTANCES, build_coloring, load_both
+from test_torch_dba import coloring_csp
 from test_torch_dsa import build_mixed_real
 
 
@@ -64,6 +72,16 @@ CASES = [
     ("mgm", {"aggregation": "ell"}),
     ("mgm2", {}), ("mgm2", {"favor": "no", "threshold": 0.3}),
     ("mgm2", {"favor": "coordinated", "aggregation": "ell"}),
+    ("dba", {}), ("dba", {"max_distance": 5, "seed": 3, "stop_cycle": 7}),
+    ("dba", {"infinity": 1, "aggregation": "ell"}),
+    ("gdba", {}),
+    ("gdba", {"modifier": "M", "violation": "NM", "increase_mode": "R",
+              "stop_cycle": 5}),
+    ("gdba", {"violation": "MX", "increase_mode": "T",
+              "aggregation": "ell"}),
+    ("mixeddsa", {}),
+    ("mixeddsa", {"variant": "A", "proba_hard": 0.9, "aggregation": "ell"}),
+    ("mixeddsa", {"variant": "C", "stop_cycle": 12, "proba_soft": 0.3}),
 ]
 
 PROBLEMS = ["coloring_12_3.yml", "secp_lamps.yaml", "pref_ring.yaml",
@@ -181,3 +199,90 @@ def test_seeds_past_32_bits_equal_reference():
                     algo_params={"seed": seed}, device="cpu")
         assert out["assignment"] == ref["assignment"]
         assert np.isfinite(out["cost"])
+
+
+@pytest.mark.parametrize("algo", ["dba", "gdba", "mixeddsa"])
+def test_breakout_cli_equals_reference(algo):
+    jdcop, _ = load_both("coloring_12_3.yml")
+    ref = jax_solve(jdcop, algo, max_cycles=20, algo_params={"seed": 4})
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = dcop_cli.main(["solve", "-a", algo, "-c", "20", "-p",
+                            "seed:4", "--device", "cpu",
+                            os.path.join(INSTANCES, "coloring_12_3.yml")])
+    assert rc == 0
+    out = json.loads(buf.getvalue())
+    assert out["assignment"] == ref["assignment"]
+    assert out["cost"] == ref["cost"]
+    assert out["cycle"] == ref["cycles"]
+    assert out["status"] == ref["status"]
+
+
+def csp_both(n_vars, seed, **kw):
+    return (coloring_csp(jo, jr, jd, n_vars, seed=seed, **kw),
+            coloring_csp(to, tr, td, n_vars, seed=seed, **kw))
+
+
+@pytest.mark.parametrize("n_vars,seed,params,lonely", [
+    (8, 2, {"max_distance": 8}, False),
+    (12, 0, {}, False),
+    (20, 1, {"seed": 3}, False),
+    (20, 5, {"max_distance": 10}, True),
+])
+def test_dba_stops_on_its_counters_like_the_reference(n_vars, seed, params,
+                                                      lonely):
+    """The reference's TestDba instances: a colourable CSP is solved
+    (cost 0) and the run stops on its counters before max_cycles, at
+    the reference's cycle; an unconstrained variable does not stop it
+    early."""
+    jdcop, tdcop = csp_both(n_vars, seed)
+    if lonely:
+        jdcop.add_variable(jo.Variable("lonely", jo.Domain("d", "",
+                                                           [0, 1, 2])))
+        tdcop.add_variable(to.Variable("lonely", to.Domain("d", "",
+                                                           [0, 1, 2])))
+    ref = jax_solve(jdcop, "dba", max_cycles=400, algo_params=params)
+    out = solve(tdcop, "dba", max_cycles=400, algo_params=params,
+                device="cpu")
+    assert_same_solve(out, ref)
+    assert out["cost"] == 0 and out["cycles"] < 400
+
+
+def test_dba_refuses_max_and_breakout_seeds_past_32_bits():
+    _, tdcop = load_both("coloring_12_3.yml")
+    tdcop.objective = "max"
+    with pytest.raises(ValueError, match="minimization"):
+        solve(tdcop, "dba", max_cycles=10, device="cpu")
+    jdcop, tdcop = csp_both(20, 1, infinity=float("inf"), extra_soft=True)
+    for algo in ("dba", "gdba", "mixeddsa"):
+        for seed in (2 ** 40 + 3,):
+            ref = jax_solve(jdcop, algo, max_cycles=10,
+                            algo_params={"seed": seed})
+            out = solve(tdcop, algo, max_cycles=10,
+                        algo_params={"seed": seed}, device="cpu")
+            assert out["assignment"] == ref["assignment"]
+            assert out["cycles"] == ref["cycles"]
+
+
+def test_breakout_quality_of_the_reference_battery():
+    """TestGdba / TestMixedDsa's invariants on the port: no violated
+    hard constraint left, and soft quality no worse than the
+    reference's solve."""
+    jdcop, tdcop = csp_both(12, 30, infinity=float("inf"), extra_soft=True)
+    out = solve(tdcop, "mixeddsa", max_cycles=200, device="cpu")
+    assert out["violations"] == 0
+    assert out["cost"] == jax_solve(jdcop, "mixeddsa",
+                                    max_cycles=200)["cost"]
+    jdcop, tdcop = load("mixed_real")
+    out = solve(tdcop, "gdba", max_cycles=100, device="cpu")
+    assert out["violations"] == 0
+    assert out["cost"] == jax_solve(jdcop, "gdba", max_cycles=100)["cost"]
+
+
+def test_breakout_solves_without_a_card_raise():
+    _, tdcop = load_both("coloring_12_3.yml")
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    for algo in ("dba", "gdba", "mixeddsa"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            solve(tdcop, algo, max_cycles=5)
