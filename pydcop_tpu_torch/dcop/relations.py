@@ -4,12 +4,13 @@ Ported copy of ``pydcop_tpu/dcop/relations.py``: the port imports
 nothing of the JAX package, so it keeps its own copy of the
 host-side modelling layer.  Behaviour is kept identical (the
 compiled arrays must match the reference bit for bit); only what
-the MaxSum solve path reaches is kept.
+the device solvers reach is kept, with DPOP's relation algebra
+(``find_arg_optimal``, ``join``, ``projection``) copied byte for byte.
 
 Reference parity: pydcop/dcop/relations.py (RelationProtocol :48,
 NAryFunctionRelation :456, NAryMatrixRelation :672, assignment_matrix
 :1155, constraint_from_str :1275, constraint_from_external_definition
-:1314).
+:1314, find_arg_optimal :1554, join :1672, projection :1717).
 
 Every constraint — intentional (expression) or extensional (table) — can
 materialize a dense **cost hypercube** (`to_array()`: one axis per
@@ -496,3 +497,74 @@ def assignment_matrix(variables: List[Variable],
     """A cost hypercube over `variables` filled with `default_value`."""
     shape = tuple(len(v.domain) for v in variables)
     return np.full(shape, default_value, dtype=DEFAULT_TYPE)
+
+
+def find_arg_optimal(variable: Variable, relation: Constraint, mode: str):
+    """Optimal value(s) of `variable` for a unary relation over it.
+
+    Returns (list of optimal values in domain order, optimal cost) — taking
+    ``values[0]`` gives the reference's first-optimum tie-breaking.
+    """
+    if relation.arity != 1 or relation.dimensions[0] != variable:
+        raise ValueError(
+            f"find_arg_optimal requires a unary relation on {variable.name}"
+        )
+    arr = np.asarray(
+        [relation(**{variable.name: v}) for v in variable.domain],
+        dtype=DEFAULT_TYPE,
+    )
+    opt = arr.min() if mode == "min" else arr.max()
+    vals = [v for v, c in zip(variable.domain, arr) if c == opt]
+    return vals, float(opt)
+
+
+def join(r1: Constraint, r2: Constraint) -> NAryMatrixRelation:
+    """Pointwise sum of two relations over the union of their dims.
+
+    This is DPOP's UTIL accumulation: the result's hypercube is the
+    broadcast-add of the two inputs aligned on shared variables
+    (reference semantics: relations.py:1672; here it is a pure numpy
+    broadcast instead of per-assignment enumeration).
+    """
+    dims1, dims2 = r1.dimensions, r2.dimensions
+    union = list(dims1) + [v for v in dims2 if v not in dims1]
+    a1 = np.asarray(r1.to_array(), dtype=DEFAULT_TYPE)
+    a2 = np.asarray(r2.to_array(), dtype=DEFAULT_TYPE)
+    # Align each array to the union axis order via transpose + reshape.
+    a1_aligned = _align(a1, dims1, union)
+    a2_aligned = _align(a2, dims2, union)
+    return NAryMatrixRelation(
+        union, a1_aligned + a2_aligned, name=f"joined_{r1.name}_{r2.name}"
+    )
+
+
+def _align(arr: np.ndarray, dims: List[Variable],
+           union: List[Variable]) -> np.ndarray:
+    """Transpose/expand `arr` (axes=dims) to broadcast along `union`."""
+    if not dims:
+        return arr
+    order = [dims.index(v) for v in union if v in dims]
+    arr_t = np.transpose(arr, order)
+    shape = tuple(
+        len(v.domain) if v in dims else 1 for v in union
+    )
+    return arr_t.reshape(shape)
+
+
+def projection(relation: Constraint, variable: Variable,
+               mode: str = "min") -> NAryMatrixRelation:
+    """Eliminate `variable` by min- (or max-) reducing its axis.
+
+    DPOP's UTIL projection (reference semantics: relations.py:1717).
+    """
+    dims = relation.dimensions
+    if variable not in dims:
+        raise ValueError(
+            f"Cannot project {variable.name} out of {relation.name}: "
+            "not in dimensions"
+        )
+    axis = dims.index(variable)
+    arr = np.asarray(relation.to_array(), dtype=DEFAULT_TYPE)
+    reduced = arr.min(axis=axis) if mode == "min" else arr.max(axis=axis)
+    remaining = [v for v in dims if v != variable]
+    return NAryMatrixRelation(remaining, reduced, name=relation.name)

@@ -75,17 +75,19 @@ class EngineProbe:
         import torch
 
         from pydcop_tpu_torch.ops import maxsum as maxsum_ops
+        from pydcop_tpu_torch.ops.window_sum import add
 
         graph = self.engine.graph
-        cost = maxsum_ops.assignment_constraint_cost(graph, values)
+        cost = maxsum_ops.assignment_constraint_cost(graph, values,
+                                                     site="probe")
         base = self.engine.meta.var_base_costs
         if base is not None:
             if self._base is None:
                 self._base = torch.as_tensor(
                     base, dtype=graph.var_costs.dtype,
                     device=graph.var_costs.device)
-            cost = cost + torch.sum(torch.gather(
-                self._base, 1, values.to(torch.int64)[:, None]))
+            cost = add(cost, maxsum_ops.variable_cost(self._base, values,
+                                                      site="probe"))
         return cost
 
     @staticmethod
@@ -95,14 +97,28 @@ class EngineProbe:
         bucket by bucket, and the fraction of flipped values.  Each
         mean is a sum times the float32 reciprocal of the count, the
         form XLA gives the reference's ``jnp.mean`` and division by a
-        constant (so the flip rate is the reference's bit for bit)."""
+        constant.  Each bucket's |Δ| is summed in XLA's order
+        (``window_tree_sum`` over the [F, arity, D] messages, in the
+        row lanes of ``residual_lanes``) and the sums are added in
+        bucket order, so the residual is the reference's bit for bit
+        where those forms were probed; the flip rate sums integer
+        values, exact in any order."""
         import numpy as np
         import torch
+
+        from pydcop_tpu_torch.ops.flush import ftz
+        from pydcop_tpu_torch.ops.window_sum import (
+            add,
+            residual_lanes,
+            window_tree_sum,
+        )
 
         num = torch.zeros((), dtype=torch.float32, device=values.device)
         den = 0
         for a, b in zip(prev_msgs, msgs):
-            num = num + torch.sum(torch.abs(b.float() - a.float()))
+            num = add(num, window_tree_sum(
+                ftz(torch.abs(b.float() - a.float())),
+                lanes=residual_lanes(a.shape)))
             den += a.numel()
         residual = num * float(np.float32(1.0 / max(den, 1)))
         flips = (torch.sum((values != prev_values).to(torch.float32))

@@ -36,6 +36,11 @@ from pydcop_tpu_torch.ops import segment_sum as _segment_sum
 from pydcop_tpu_torch.ops import threefry
 from pydcop_tpu_torch.ops.ell import gather_reduce
 from pydcop_tpu_torch.ops.flush import ftz
+from pydcop_tpu_torch.ops.window_sum import (
+    add,
+    gather_stages,
+    window_tree_sum,
+)
 from pydcop_tpu_torch.utils.prng import Words
 
 
@@ -216,16 +221,20 @@ def assignment_cost(graph: TorchFactorGraph,
                     values: torch.Tensor) -> torch.Tensor:
     """Scalar float32 total cost (constraints + unary) of the
     assignment; ``values`` is the full [V+1] array (sentinel row
-    excluded from the unary costs; padding factors cost 0).  The sums
-    run in float64 and round once, so they can differ from the
-    reference's float32 ``jnp.sum`` in its last bits (its reduction
-    order is XLA's); the solve's ``cost`` is computed on the host."""
+    excluded from the unary costs; padding factors cost 0).  Each sum
+    is ``window_tree_sum`` (XLA's order for the reference's ``jnp.sum``)
+    and the bucket sums are added in the reference's source order, so
+    the total is the reference's bit for bit."""
+    d = graph.var_costs.shape[1]
     unary = torch.gather(graph.var_costs[:-1], 1,
-                         values[:-1, None].long()).squeeze(1)
-    total = unary.sum(dtype=torch.float64)
-    for costs in factor_current_costs(graph, values):
-        total = total + costs.sum(dtype=torch.float64)
-    return total.to(torch.float32)
+                         values[:-1, None].long())
+    total = window_tree_sum(
+        unary, gather_stages("localsearch", 0, d, unary.shape[0]))
+    for b, costs in zip(graph.buckets,
+                        factor_current_costs(graph, values)):
+        total = add(total, window_tree_sum(costs, gather_stages(
+            "localsearch", b.var_ids.shape[1], d, costs.shape[0])))
+    return total
 
 
 def _others(vals: torch.Tensor, p: int, combine, fill) -> torch.Tensor:

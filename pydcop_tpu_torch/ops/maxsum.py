@@ -59,6 +59,11 @@ from pydcop_tpu_torch.ops.var_update import (
     v2f_update,
     var_messages,
 )
+from pydcop_tpu_torch.ops.window_sum import (
+    add,
+    gather_stages,
+    window_tree_sum,
+)
 
 Msgs = Tuple[torch.Tensor, ...]  # one [F, arity, D] tensor per bucket
 
@@ -404,16 +409,23 @@ def superstep(state: MaxSumState, graph: TorchFactorGraph, *,
 
 
 def assignment_constraint_cost(graph: TorchFactorGraph,
-                               values: torch.Tensor) -> torch.Tensor:
+                               values: torch.Tensor,
+                               site: str = "maxsum") -> torch.Tensor:
     """Total factor-table cost of an assignment ([V] value indices).
-    Padding rows contribute 0; variable-side costs are not included."""
+    Padding rows contribute 0; variable-side costs are not included.
+    Each bucket's sum is ``window_tree_sum`` (XLA's order for the
+    reference's ``jnp.sum`` at ``site``, ``window_sum.gather_stages``)
+    and the bucket sums are added in bucket order from the first (XLA
+    drops the reference's ``0.0 +``), so the total is the reference's
+    bit for bit."""
     vals = torch.cat(
         [values.to(torch.int64),
          torch.zeros((1,), dtype=torch.int64, device=values.device)]
     )
-    total = torch.zeros((), dtype=graph.var_costs.dtype,
-                        device=graph.var_costs.device)
+    total = None
     d = graph.var_costs.shape[1]
+    widest = max((b.var_ids.shape[1] for b in graph.buckets
+                  if b.var_ids.shape[0] > 1), default=0)
     for bucket in graph.buckets:
         f, arity = bucket.var_ids.shape
         idx = vals[bucket.var_ids]               # [F, arity]
@@ -421,9 +433,25 @@ def assignment_constraint_cost(graph: TorchFactorGraph,
         for p in range(arity):
             flat = flat * d + idx[:, p]
         table = bucket.costs.reshape(f, -1)
-        total = total + torch.sum(
-            torch.gather(table, 1, flat[:, None]))
+        part = window_tree_sum(
+            torch.gather(table, 1, flat[:, None]),
+            gather_stages(site, arity, d, f, widest))
+        total = part if total is None else add(total, part)
+    if total is None:
+        return torch.zeros((), dtype=graph.var_costs.dtype,
+                           device=graph.var_costs.device)
     return total
+
+
+def variable_cost(var_base_costs: torch.Tensor, values: torch.Tensor,
+                  site: str = "maxsum") -> torch.Tensor:
+    """The reference's ``jnp.sum(take_along_axis(var_base_costs,
+    values[:, None], 1))`` ([V, D] costs, [V] values) in its order at
+    ``site``."""
+    v, d = var_base_costs.shape
+    return window_tree_sum(
+        torch.gather(var_base_costs, 1, values.to(torch.int64)[:, None]),
+        gather_stages(site, 0, d, v))
 
 
 def run_maxsum(graph: TorchFactorGraph, max_cycles: int, *,
@@ -532,8 +560,7 @@ def run_maxsum_trace(graph: TorchFactorGraph, max_cycles: int, *,
     def cost_of(values):
         cost = assignment_constraint_cost(graph, values)
         if var_base_costs is not None:
-            cost = cost + torch.sum(torch.gather(
-                var_base_costs, 1, values.to(torch.int64)[:, None]))
+            cost = add(cost, variable_cost(var_base_costs, values))
         return cost
 
     costs = torch.zeros((max_cycles,), dtype=graph.var_costs.dtype,

@@ -147,7 +147,8 @@ def test_run_gdba_and_converter_equal_reference():
                                       **kw)
     np.testing.assert_array_equal(values.numpy(), np.asarray(ref[0]))
     assert cycles == int(ref[2]) == 12
-    assert float(cost) == pytest.approx(float(ref[1]), rel=1e-6)
+    assert cost.dtype == torch.float32
+    assert cost.numpy().tobytes() == np.asarray(ref[1]).tobytes()
     step = jax.jit(lambda s, g, mm: J.gdba_step(
         s, g, minmax=mm, lexic_ranks=jnp.asarray(ranks), modifier_mode="A",
         violation_mode="NZ", increase_mode="E"))

@@ -4,13 +4,15 @@ Checked in a fresh interpreter (this test process already imported jax
 through the root conftest): every module of pydcop_tpu_torch is
 imported (among them the resilience modules, the PRNG, the
 delegating algorithms, the fused per-edge update, the observability
-modules and the local-search slice: its algorithms, ops, the threefry
-kernel's wrapper and the copied computation graphs), then
+modules, the local-search slice: its algorithms, ops, the threefry
+kernel's wrapper and the copied computation graphs, and the exact
+slice: DPOP's ops, engine and algorithm, SyncBB, NCBB, the pseudo-tree
+and ordered graph, and the window sum's wrapper), then
 ``sys.modules`` must hold no ``jax*``
 module and no ``pydcop_tpu``/``pydcop_tpu.*`` module.  The sources of
 the package, of chip_smoke.py, chip_compare.py,
-chip_var_update_compare.py and of the card-only test file of the local
-search are also scanned for such imports.
+chip_var_update_compare.py and of the card-only test files of the local
+search and of the exact slice are also scanned for such imports.
 """
 
 import ast
@@ -85,6 +87,16 @@ REQUIRED = [
     "pydcop_tpu_torch.algorithms.dsatuto",
     "pydcop_tpu_torch.algorithms.mgm",
     "pydcop_tpu_torch.algorithms.mgm2",
+    "pydcop_tpu_torch.ops.window_sum",
+    "pydcop_tpu_torch.ops.dpop",
+    "pydcop_tpu_torch.engine.dpop",
+    "pydcop_tpu_torch.algorithms.dpop",
+    "pydcop_tpu_torch.algorithms.syncbb",
+    "pydcop_tpu_torch.algorithms.ncbb",
+    "pydcop_tpu_torch.computations_graph.pseudotree",
+    "pydcop_tpu_torch.computations_graph.ordered_graph",
+    "pydcop_tpu_torch.utils.graphs",
+    "pydcop_tpu_torch.infrastructure.computations",
 ]
 
 
@@ -115,7 +127,8 @@ SOURCES = sorted(
     for p in list((REPO / "pydcop_tpu_torch").rglob("*.py"))
     + [REPO / "chip_smoke.py", REPO / "chip_compare.py",
        REPO / "chip_var_update_compare.py",
-       REPO / "tests" / "test_torch_gpu_localsearch.py"]
+       REPO / "tests" / "test_torch_gpu_localsearch.py",
+       REPO / "tests" / "test_torch_gpu_dpop.py"]
 )
 
 

@@ -107,7 +107,8 @@ def test_run_mgm2_and_converter_equal_reference():
                                        lexic_ranks=ranks, seed=2)
     np.testing.assert_array_equal(values.numpy(), np.asarray(ref[0]))
     assert cycles == int(ref[2]) == 15
-    assert float(cost) == pytest.approx(float(ref[1]), rel=1e-6)
+    assert cost.dtype == torch.float32
+    assert cost.numpy().tobytes() == np.asarray(ref[1]).tobytes()
     jstate = J2.init_state(jg, 9)
     tstate = localsearch_state_from_numpy(
         "mgm2", np.asarray(jstate.values), np.asarray(jstate.key), 0,

@@ -128,7 +128,8 @@ def test_run_mixeddsa_and_converter_equal_reference():
                                           proba_hard=0.9, seed=4)
     np.testing.assert_array_equal(values.numpy(), np.asarray(ref[0]))
     assert cycles == int(ref[2]) == 15
-    assert float(cost) == pytest.approx(float(ref[1]), rel=1e-6)
+    assert cost.dtype == torch.float32
+    assert cost.numpy().tobytes() == np.asarray(ref[1]).tobytes()
     step = jax.jit(lambda s, g, c: J.mixeddsa_step(
         s, g, variant="B", proba_hard=0.7, proba_soft=0.5, classes=c))
     classes = J.classify_factors(jg)
