@@ -29,7 +29,11 @@ positional sum with its gathers) at both sizes, ``threefry.uniform``
 and ``threefry.best_choice`` at [1,000,001 x 3] (40 % masked) and
 ``binary_factor_update`` at 1.5M factors, each in a CUDA graph as
 above.  The last lines are one JSON object of milliseconds per shape
-and checkout and the card's name and power limit.  It needs one CUDA card and exits 1
+and checkout and the card's name and power limit.  A window-sum leg:
+``window_tree_sum`` over 1.5M values beside ``torch.sum``, and the traced
+flagship MaxSum cycle (the cost of each cycle's assignment with the
+variable costs) against the untraced one, in ms/cycle and CUDA kernels a
+cycle, with the cost's own kernels a call.  It needs one CUDA card and exits 1
 without one; it imports nothing of JAX and nothing of the JAX package.
 """
 
@@ -84,7 +88,7 @@ def graph_ms(torch, fn, reps: int) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(reps):
             fn()
     times = []
@@ -100,7 +104,7 @@ def graph_ms(torch, fn, reps: int) -> float:
 
 
 def worker(root: str):
-    """Check and time aggregate_beliefs of the checkout at ``root``."""
+    """Check and time every leg of the checkout at ``root``."""
     sys.path.insert(0, root)
     import torch
 
@@ -130,7 +134,80 @@ def worker(root: str):
         del card, cpu, f2v_card
     out.update(run_timings(torch, ops, graph_from_numpy))
     out.update(localsearch_timings(torch, graph_from_numpy))
+    out.update(window_timings(torch, ops, graph_from_numpy))
     print(json.dumps(out), flush=True)
+
+
+def cost_of(ops, graph, base):
+    """The traced cycle's cost function of the checkout: one
+    ``assignment_total`` where the checkout has it, else the constraint
+    cost plus the variable-side sum chained with ``window_sum.add``."""
+    if hasattr(ops, "assignment_total"):
+        return lambda v: ops.assignment_total(graph, v, base)
+    from pydcop_tpu_torch.ops.window_sum import add
+
+    return lambda v: add(ops.assignment_constraint_cost(graph, v),
+                         ops.variable_cost(base, v))
+
+
+def window_timings(torch, ops, graph_from_numpy):
+    """The whole-graph totals: ``window_tree_sum`` over 1.5M values, and
+    the traced flagship MaxSum cycle (chip_smoke.py's flagship with soft
+    tables on half its edges and its variable costs: the cost of each
+    cycle's assignment) against the untraced one: ms/cycle (best of
+    three) and CUDA kernels a cycle; the cost alone in kernels a call."""
+    import time
+
+    sys.path.insert(0, HERE)
+    import chip_smoke
+
+    from pydcop_tpu_torch.dcop import dcop as dcop_mod
+    from pydcop_tpu_torch.dcop import objects, relations
+    from pydcop_tpu_torch.engine.compile import compile_dcop
+    from pydcop_tpu_torch.ops import window_sum
+
+    out = {}
+    x = torch.tensor(np.random.default_rng(1).standard_normal(
+        1_500_000).astype(np.float32), device="cuda")
+    out["window_tree_sum_1.5M"] = graph_ms(
+        torch, lambda: window_sum.window_tree_sum(x), 200)
+    out["torch_sum_1.5M"] = graph_ms(torch, lambda: torch.sum(x), 200)
+    host, meta = compile_dcop(chip_smoke.build_flagship(
+        objects, relations, dcop_mod, chip_smoke.FLAGSHIP_VARS,
+        extra_soft=True))
+    graph = graph_from_numpy(host.var_costs, host.var_valid,
+                             [(b.costs, b.var_ids) for b in host.buckets],
+                             "cuda")
+    base = torch.tensor(meta.var_base_costs, dtype=torch.float32,
+                        device="cuda")
+    cycles = 200
+    runs = {
+        "traced": lambda n: ops.run_maxsum_trace(
+            graph, n, var_base_costs=base, stop_on_convergence=False),
+        "untraced": lambda n: ops.run_maxsum(graph, n,
+                                             stop_on_convergence=False),
+    }
+    for label, fn in runs.items():
+        def run(n, fn=fn):
+            fn(n)
+            torch.cuda.synchronize()
+
+        run(cycles)                                   # warm
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run(cycles)
+            times.append(time.perf_counter() - t0)
+        out[f"flagship_{label}_ms_per_cycle"] = min(times) / cycles * 1e3
+        out[f"flagship_{label}_kernels_per_cycle"] = kernels_per_cycle(
+            torch, run, 20)
+    values = ops.select_values(graph, ops.aggregate_beliefs(
+        graph, ops.init_state(graph).f2v)[0])
+    cost = cost_of(ops, graph, base)
+    out["flagship_cost_kernels_per_call"] = kernels_per_cycle(
+        torch, lambda n: [cost(values) for _ in range(n)], 20)
+    out["flagship_cost_ms"] = graph_ms(torch, lambda: cost(values), 200)
+    return out
 
 
 def kernels_per_cycle(torch, run, cycles: int) -> float:

@@ -165,7 +165,7 @@ def graph_ms(torch, fn, reps: int) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -573,6 +573,8 @@ def phase_prune_ttc(ctx):
     dense traces and the CPU's pruned trace equal bit for bit in values,
     every final message and the cost curve."""
     torch, _build = ctx["torch"], ctx["_build"]
+    from pydcop_tpu_torch.ops import window_sum
+
     t_phase = time.perf_counter()
     arrays = ttc_arrays(TTC_VARS)
     card = ctx["graph_from_numpy"](*arrays, device="cuda")
@@ -584,7 +586,7 @@ def phase_prune_ttc(ctx):
     want = {"binary_factor_update": TTC_CYCLES - fast,
             "segment_sum": 2 * TTC_CYCLES + 1,
             "var_update": 2 * TTC_CYCLES,
-            "window_sum:window_tree_sum": TTC_CYCLES}
+            window_sum.COUNTER: TTC_CYCLES}
     if launches != want or fast == 0:
         fail(f"prune_ttc launched {launches}, expected {want} "
              f"({fast} pruned cycles)")
@@ -2466,6 +2468,7 @@ def phase_localsearch_flagship(ctx):
     from pydcop_tpu_torch.device import to_device_graph
     from pydcop_tpu_torch.engine.compile import compile_dcop
     from pydcop_tpu_torch.ops import segment_sum
+    from pydcop_tpu_torch.ops.window_sum import COUNTER as WINDOW_COUNTER
 
     objects, relations, dcop_mod = (ctx["objects"], ctx["relations"],
                                     ctx["dcop_mod"])
@@ -2510,7 +2513,7 @@ def phase_localsearch_flagship(ctx):
         # order): it sums no float total.
         if (launches["threefry:best_choice"] == 0
                 or (algo != "dba"
-                    and launches["window_sum:window_tree_sum"] == 0) or (
+                    and launches[WINDOW_COUNTER] == 0) or (
                     (params.get("aggregation") != "ell"
                      or algo == "mixeddsa") and launches[entry] == 0)):
             fail(f"{label}: launches {launches}")
@@ -2780,6 +2783,23 @@ def run_localsearch_phases(ctx, scale_graph):
 WINDOW_SIZES = [1, 31, 32, 33, 1_025, 15_000, 1_000_001, 1_500_000]
 WINDOW_TIMED = 1_500_000
 WINDOW_TRACE_CYCLES = 30
+# The residual shapes [F, arity, D] checked on the card: row lanes over
+# axis 1 (direct and windowed), rows in lanes over axis 0 (unit inner
+# axis: direct, windows of 32 rows, windows ending on padding), an axis
+# longer than 32 inside (boxes over two axes), arity 16 (no form).
+WINDOW_RESIDUALS = [(14_999, 2, 3), (1_500_000, 2, 3), (17, 4, 3),
+                    (17, 8, 12), (20, 4, 9), (64, 1, 3), (1_024, 1, 8),
+                    (63, 2, 1), (95, 1, 5), (23, 1, 2), (8, 12, 1),
+                    (100, 1, 16), (300, 2, 128), (5, 40, 50),
+                    (40, 16, 2)]
+# Graphs of the fused cost totals: (label, variables, D, factors of
+# arity 1, 2, ...): unary to 5-ary buckets, a one-factor bucket, a unit
+# domain, and buckets of 8..32 factors (every head form's neighbours).
+WINDOW_GRAPHS = [("mixed_arity", 300, 3, (40, 500, 60, 20, 9)),
+                 ("one_factor", 200, 3, (0, 300, 1)),
+                 ("unit_domain", 120, 1, (0, 22, 17, 30, 8)),
+                 ("heads", 60, 2, (23, 20, 24, 32, 16, 8)),
+                 ("scale_mixed", 100_000, 4, (5_000, 150_000, 30_000))]
 DPOP_WARM_REPS = 5
 # benchmarks/bench_dpop.py's trees (n, D), seed 0 — BASELINE.md config
 # #3 — and bench.py build_dpop_exact_dcop's (n, D, seed).
@@ -2853,14 +2873,123 @@ def window_inputs(size: int, kind: str, seed: int):
     return x
 
 
+def gather_bound(table, ids, values):
+    """Bytes the card must move for the total of one cost gather
+    (``table[f, flat(values[ids[f]])]``): every id, each 32-byte sector
+    of the values and of the table that this assignment reads (counted
+    from the data: a sector serves every entry in it), and the result."""
+    ids = np.asarray(ids, np.int64)
+    vals = np.concatenate([np.asarray(values, np.int64), [0]])
+    f, arity = ids.shape
+    d = int(round(table.shape[1] ** (1.0 / arity))) if arity else 0
+    flat = np.zeros(f, np.int64)
+    for p in range(arity):
+        flat = flat * d + vals[np.minimum(ids[:, p], len(vals) - 1)]
+    entries = np.arange(f, dtype=np.int64) * table.shape[1] + flat
+    used = np.unique(ids[ids < len(values)])
+    return (ids.size * 4 + np.unique(used * 4 // 32).size * 32
+            + np.unique(entries * 4 // 32).size * 32 + 4)
+
+
+def window_gather_timing(torch, ops, _build, graph, cpu_buckets, values):
+    """The fused total of the scale graph's cost gathers (1.5M binary
+    factors) at ``values`` on the card: its launches in one call (it
+    fails unless one), timed in a CUDA graph beside its bound in sectors
+    and the unfused torch ops (gather, then ``torch.sum``: other bits, a
+    yardstick only)."""
+    from pydcop_tpu_torch.ops import window_sum as ws
+
+    launches = one_call_launches(
+        _build, ws.COUNTER,
+        lambda: ops.assignment_constraint_cost(graph, values))
+    if launches != 1:
+        fail(f"window_sum: the scale graph's cost took {launches} "
+             "launches, not 1")
+    k_ms = graph_ms(torch, lambda: ops.assignment_constraint_cost(
+        graph, values), 100)
+    vals = torch.cat([values.long(), torch.zeros(1, dtype=torch.int64,
+                                                 device=values.device)])
+
+    def torch_ops():
+        total = None
+        d = graph.var_costs.shape[1]
+        for b in graph.buckets:
+            f, arity = b.var_ids.shape
+            idx = vals[b.var_ids]
+            flat = idx[:, 0]
+            for p in range(1, arity):
+                flat = flat * d + idx[:, p]
+            part = torch.sum(torch.gather(b.costs.reshape(f, -1), 1,
+                                          flat[:, None]))
+            total = part if total is None else total + part
+        return total
+
+    t_ms = graph_ms(torch, torch_ops, 20)
+    plain = ops.constraint_operands(graph)
+    p_ms = graph_ms(torch, lambda: ws.window_total_plain(plain, values), 3)
+    host_vals = values.cpu().numpy()
+    moved = sum(gather_bound(c.reshape(c.shape[0], -1), i, host_vals)
+                for c, i in cpu_buckets)
+    return dict(n_factors=int(sum(i.shape[0] for _, i in cpu_buckets)),
+                ms=k_ms[2], ms_spread=[k_ms[0], k_ms[-1]],
+                plain_ms=p_ms[2], torch_ops_ms=t_ms[2], bytes=int(moved),
+                bound_ms=moved / H100_BYTES_PER_S * 1e3, bound_by="bytes",
+                library_ms=None, launches_per_call=launches,
+                note="bound counts every id, the 32-byte sectors of values "
+                "and table this assignment reads, and the result")
+
+
+def one_call_launches(_build, counter: str, fn) -> int:
+    """The launches ``counter`` counts in one call of ``fn`` (set to 0
+    just before it and read just after)."""
+    _build.launch_counts[counter] = 0
+    fn()
+    return _build.launch_counts[counter]
+
+
+def mixed_arrays(rng, n_vars: int, d: int, counts):
+    """A graph of ``counts[k]`` random factors of arity k + 1 (unary
+    included) over ``n_vars`` variables of domain ``d``, with real costs
+    over eight decades, as (var_costs, var_valid, buckets) arrays."""
+    var_costs = (rng.standard_normal((n_vars + 1, d))
+                 * 10.0 ** rng.uniform(-4, 4, (n_vars + 1, d))).astype(
+                     np.float32)
+    var_costs[-1] = 0.0
+    buckets = []
+    for arity, count in enumerate(counts, start=1):
+        if not count:
+            continue
+        ids = np.stack([rng.choice(n_vars, arity, replace=False)
+                        for _ in range(count)]).astype(np.int32)
+        shape = (count,) + (d,) * arity
+        costs = (rng.standard_normal(shape)
+                 * 10.0 ** rng.uniform(-4, 4, shape)).astype(np.float32)
+        buckets.append((costs, ids))
+    return var_costs, np.ones((n_vars + 1, d), bool), buckets
+
+
+def window_heads(ws):
+    """Every head form ``gather_stages`` gives (arity 0-8, D 1-5)."""
+    return sorted({ws.gather_stages(site, arity, d, n, widest)
+                   for site in ("localsearch", "maxsum", "probe")
+                   for arity in range(9) for d in range(1, 6)
+                   for n in range(2, 33) for widest in (2, 3)})
+
+
 def phase_window_sum(ctx, ls_main_launches):
     """``csrc/window_sum.cu`` bit for bit against its plain version on the
     card and the numpy model (every size, subnormal and +-inf inputs,
-    every head form, the residual's [F, 2, 3] rows in lanes); timed at
-    1.5M values beside its bound and ``torch.sum``; its launches per
-    local-search solve and per traced MaxSum cycle; and the flagship's
-    ``device_cost`` and cost trace on the card equal the CPU's."""
+    every head form); the residual's row forms against the plain
+    version; the fused cost totals (the flagship's, multi-bucket graphs
+    with unary to 5-ary buckets and a one-factor bucket, a unit domain)
+    card = CPU; timed at 1.5M values beside its bound and
+    ``torch.sum``; its launches per local-search solve and per traced
+    MaxSum cycle, and of one traced cycle's cost (it fails unless one);
+    and the flagship's ``device_cost`` and cost trace on the card equal
+    the CPU's."""
     torch, api, _build = ctx["torch"], ctx["api"], ctx["_build"]
+    ops = ctx["ops"]
+    from pydcop_tpu_torch.ops import localsearch
     from pydcop_tpu_torch.ops import window_sum as ws
 
     t_phase = time.perf_counter()
@@ -2869,11 +2998,8 @@ def phase_window_sum(ctx, ls_main_launches):
         (1_025, "subnormal"), (1_000_001, "subnormal"), (31, "subnormal"),
         (1_025, "inf"), (15_000, "inf"), (33, "posinf"),
         (1_500_000, "posinf")]
-    heads = sorted({ws.gather_stages(site, arity, d, n, widest)
-                    for site in ("localsearch", "maxsum", "probe")
-                    for arity in range(5) for d in (2, 3, 4, 5)
-                    for n in range(8, 33) for widest in (2, 3)})
-    cases += [(n, head) for head in heads for n in (8, 20, 23, 31, 32)]
+    heads = window_heads(ws)
+    cases += [(n, head) for head in heads for n in (4, 8, 20, 23, 31, 32)]
     for idx, (n, how) in enumerate(cases):
         head = () if isinstance(how, str) else how
         x = window_inputs(n, how if isinstance(how, str) else "signed",
@@ -2892,15 +3018,60 @@ def phase_window_sum(ctx, ls_main_launches):
             fail(f"window_sum n={n} {how}: kernel {out.item()} plain "
                  f"{plain.item()} numpy {model}")
         checked.append([n, how if isinstance(how, str) else list(head)])
-    for shape in ((14_999, 2, 3), (1_500_000, 2, 3), (17, 4, 3)):
+    # The residual's row forms: lanes over axis 1, rows in lanes over
+    # axis 0 (direct, windows of 32 rows, windows ending on padding), a
+    # long inner axis (boxes over two axes), several operands from +0.0.
+    for shape in WINDOW_RESIDUALS:
         x = torch.from_numpy(np.abs(window_inputs(
             int(np.prod(shape)), "signed", 7)).reshape(shape)).cuda()
-        lanes = ws.residual_lanes(shape)
-        if not torch.equal(ws.window_tree_sum(x, lanes=lanes).view(
-                torch.int32), ws.window_tree_sum_plain(
-                x, lanes=lanes).view(torch.int32)):
-            fail(f"window_sum residual rows {shape} != plain")
-        checked.append([list(shape), f"residual lanes {lanes}"])
+        lanes, rows = ws.residual_lanes(shape), ws.residual_rows(shape)
+        part = x[: max(1, shape[0] // 3)].contiguous()
+        both = [ws.Plain(x, (), lanes, rows),
+                ws.Plain(part, (), ws.residual_lanes(part.shape),
+                         ws.residual_rows(part.shape))]
+        for operands in (both[:1], both):
+            card = ws.window_total(operands, from_zero=True)
+            plain = ws.window_total_plain(
+                [o._replace(x=o.x.cpu()) for o in operands], None, True)
+            if card.cpu().view(torch.int32) != plain.view(torch.int32):
+                fail(f"window_sum residual {shape} ({len(operands)} "
+                     f"operands): kernel {card.item()} != plain "
+                     f"{plain.item()}")
+        checked.append([list(shape), f"residual lanes {lanes} rows {rows}"])
+    # The fused cost gathers: whole totals card = CPU at every site.
+    rng = np.random.default_rng(29)
+    graphs = [("flagship", ctx["ls_flagship_graph"], None)]
+    for label, n_vars, d, counts in WINDOW_GRAPHS:
+        arrays = mixed_arrays(rng, n_vars, d, counts)
+        graphs.append((label, ctx["graph_from_numpy"](*arrays,
+                                                      device="cuda"),
+                       arrays))
+    for label, graph, arrays in graphs:
+        if arrays is None:
+            arrays = (graph.var_costs.cpu().numpy(),
+                      graph.var_valid.cpu().numpy(),
+                      [(b.costs.cpu().numpy(), b.var_ids.cpu().numpy())
+                       for b in graph.buckets])
+        cpu = ctx["graph_from_numpy"](*arrays, device="cpu")
+        n_vars, d = arrays[0].shape[0] - 1, arrays[0].shape[1]
+        values = rng.integers(0, d, n_vars + 1).astype(np.int32)
+        base = (rng.standard_normal((n_vars, d))).astype(np.float32)
+        full = torch.from_numpy(values)
+        for site in ("maxsum", "probe"):
+            card = ops.assignment_total(graph, full[:-1].cuda(),
+                                        torch.from_numpy(base).cuda(),
+                                        site=site)
+            plain = ops.assignment_total(cpu, full[:-1],
+                                         torch.from_numpy(base), site=site)
+            if card.cpu().view(torch.int32) != plain.view(torch.int32):
+                fail(f"window_sum {label} cost_of at {site}: card "
+                     f"{card.item()} != CPU {plain.item()}")
+        card = localsearch.assignment_cost(graph, full.cuda())
+        plain = localsearch.assignment_cost(cpu, full)
+        if card.cpu().view(torch.int32) != plain.view(torch.int32):
+            fail(f"window_sum {label} assignment_cost: card {card.item()} "
+                 f"!= CPU {plain.item()}")
+        checked.append([label, "cost totals at maxsum, probe, localsearch"])
 
     x = torch.from_numpy(window_inputs(WINDOW_TIMED, "signed", 1)).cuda()
     k_ms = graph_ms(torch, lambda: ws.window_tree_sum(x), 200)
@@ -2910,7 +3081,12 @@ def phase_window_sum(ctx, ls_main_launches):
     timing = dict(N=WINDOW_TIMED, ms=k_ms[2], ms_spread=[k_ms[0], k_ms[-1]],
                   plain_ms=p_ms[2], library_ms=l_ms[2],
                   library_ms_spread=[l_ms[0], l_ms[-1]], bound_ms=bound_ms,
-                  bound_by="bytes", library="torch.sum (other bits)")
+                  bound_by="bytes", library="torch.sum (other bits)",
+                  launches_per_call=one_call_launches(
+                      _build, ws.COUNTER, lambda: ws.window_tree_sum(x)))
+    if timing["launches_per_call"] != 1:
+        fail(f"window_sum at {WINDOW_TIMED} values took "
+             f"{timing['launches_per_call']} launches, not 1")
 
     # The flagship with real soft tables on half its edges: the local
     # search's device_cost and MaxSum's cost trace, card = CPU.
@@ -2941,10 +3117,30 @@ def phase_window_sum(ctx, ls_main_launches):
         fail(f"window_sum launched {per_solve} a DSA solve, {per_cycle} a "
              f"traced cycle, {ls_main_launches} on the main local-search "
              "path")
+    # One traced cycle's cost (constraint + variable costs) in device
+    # kernels: the whole cost_of of run_maxsum_trace.
+    base = torch.as_tensor(eng.meta.var_base_costs, dtype=torch.float32,
+                           device="cuda")
+    values = ops.select_values(eng.graph, ops.aggregate_beliefs(
+        eng.graph, ops.init_state(eng.graph).f2v)[0])
+    slot = torch.zeros((1,), dtype=torch.float32, device="cuda")
+    cost_of = one_call_launches(_build, ws.COUNTER, lambda: (
+        ops.assignment_total(eng.graph, values, base, out=slot[0])))
+    if cost_of != 1:
+        fail(f"one traced cycle's cost took {cost_of} window_sum "
+             "launches, not 1")
+    cost_ms = graph_ms(torch, lambda: ops.assignment_total(
+        eng.graph, values, base, out=slot[0]), 100)
     return dict(
         checked=checked, tolerance="exact (uint32 views: kernel = plain on "
         "the card = numpy model; a NaN sum is NaN in all three)",
         max_abs_err=0.0, timing=timing,
+        scale_gather=ctx.get("window_scale_gather"),
+        traced_cycle_cost=dict(
+            shape=[[int(b.var_ids.shape[0]), int(b.var_ids.shape[1])]
+                   for b in eng.graph.buckets] + [list(base.shape)],
+            launches=cost_of, ms=cost_ms[2],
+            ms_spread=[cost_ms[0], cost_ms[-1]]),
         launches_main_localsearch_path=ls_main_launches,
         launches_per_dsa_solve=per_solve,
         launches_per_traced_maxsum_cycle=per_cycle,
@@ -3635,6 +3831,11 @@ def main() -> int:
             fail(f"scale leg: {name} on the card {float(on_card)} != CPU "
                  f"{float(on_cpu)}")
         scale_totals[name] = float(on_card)
+    # The fused cost gather at scale: one launch, timed beside its bound.
+    ctx["window_scale_gather"] = window_gather_timing(
+        torch, ops, _build, graph,
+        [(b.costs.numpy(), b.var_ids.numpy()) for b in cpu_graph.buckets],
+        final_values.cuda())
     del first, cpu_scale, cpu_graph
     emit("scale_leg", n_vars=SCALE_VARS, n_factors=graph.buckets[0]
          .costs.shape[0], cycles=SCALE_CYCLES,
@@ -3809,7 +4010,10 @@ def main() -> int:
         "max_abs_err": wsum["max_abs_err"], "ms": wt["ms"],
         "plain_ms": wt["plain_ms"], "bound_ms": wt["bound_ms"],
         "bound_by": wt["bound_by"], "library_ms": wt["library_ms"],
-        "shapes": {}})
+        "shapes": {"scale_gather": {k: wsum["scale_gather"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "torch_ops_ms", "launches_per_call")}} if wsum.get(
+                "scale_gather") else {}})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

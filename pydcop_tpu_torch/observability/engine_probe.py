@@ -71,24 +71,20 @@ class EngineProbe:
     def _cost(self, values):
         """The selected assignment's cost on the device, as a 0-d
         tensor: constraint cost + variable base costs (the reference's
-        ``cost_of``, ``run_maxsum_trace``'s sum)."""
+        ``cost_of``, ``run_maxsum_trace``'s sum), one total at the
+        probe's site (the reference closes the graph over)."""
         import torch
 
         from pydcop_tpu_torch.ops import maxsum as maxsum_ops
-        from pydcop_tpu_torch.ops.window_sum import add
 
         graph = self.engine.graph
-        cost = maxsum_ops.assignment_constraint_cost(graph, values,
-                                                     site="probe")
         base = self.engine.meta.var_base_costs
-        if base is not None:
-            if self._base is None:
-                self._base = torch.as_tensor(
-                    base, dtype=graph.var_costs.dtype,
-                    device=graph.var_costs.device)
-            cost = add(cost, maxsum_ops.variable_cost(self._base, values,
-                                                      site="probe"))
-        return cost
+        if base is not None and self._base is None:
+            self._base = torch.as_tensor(
+                base, dtype=graph.var_costs.dtype,
+                device=graph.var_costs.device)
+        return maxsum_ops.assignment_total(graph, values, self._base,
+                                           site="probe")
 
     @staticmethod
     def _convergence(prev_msgs, msgs, prev_values, values):
@@ -97,29 +93,31 @@ class EngineProbe:
         bucket by bucket, and the fraction of flipped values.  Each
         mean is a sum times the float32 reciprocal of the count, the
         form XLA gives the reference's ``jnp.mean`` and division by a
-        constant.  Each bucket's |Δ| is summed in XLA's order
-        (``window_tree_sum`` over the [F, arity, D] messages, in the
-        row lanes of ``residual_lanes``) and the sums are added in
-        bucket order, so the residual is the reference's bit for bit
-        where those forms were probed; the flip rate sums integer
-        values, exact in any order."""
+        constant.  The residual is one ``window_total`` from +0.0 (the
+        port adds into zeros) of each bucket's |Δ| over the [F, arity,
+        D] messages, in the lanes of ``residual_lanes`` and
+        ``residual_rows``, so it is the reference's bit for bit where
+        those forms were probed; the flip rate sums integer values,
+        exact in any order."""
         import numpy as np
         import torch
 
         from pydcop_tpu_torch.ops.flush import ftz
         from pydcop_tpu_torch.ops.window_sum import (
-            add,
+            Plain,
             residual_lanes,
-            window_tree_sum,
+            residual_rows,
+            window_total,
         )
 
-        num = torch.zeros((), dtype=torch.float32, device=values.device)
-        den = 0
+        ops, den = [], 0
         for a, b in zip(prev_msgs, msgs):
-            num = add(num, window_tree_sum(
-                ftz(torch.abs(b.float() - a.float())),
-                lanes=residual_lanes(a.shape)))
+            ops.append(Plain(ftz(torch.abs(b.float() - a.float())),
+                             lanes=residual_lanes(a.shape),
+                             rows=residual_rows(a.shape)))
             den += a.numel()
+        num = (window_total(ops, from_zero=True) if ops else
+               torch.zeros((), dtype=torch.float32, device=values.device))
         residual = num * float(np.float32(1.0 / max(den, 1)))
         flips = (torch.sum((values != prev_values).to(torch.float32))
                  * float(np.float32(1.0 / max(values.numel(), 1))))

@@ -37,9 +37,9 @@ from pydcop_tpu_torch.ops import threefry
 from pydcop_tpu_torch.ops.ell import gather_reduce
 from pydcop_tpu_torch.ops.flush import ftz
 from pydcop_tpu_torch.ops.window_sum import (
-    add,
+    Gather,
     gather_stages,
-    window_tree_sum,
+    window_total,
 )
 from pydcop_tpu_torch.utils.prng import Words
 
@@ -221,20 +221,24 @@ def assignment_cost(graph: TorchFactorGraph,
                     values: torch.Tensor) -> torch.Tensor:
     """Scalar float32 total cost (constraints + unary) of the
     assignment; ``values`` is the full [V+1] array (sentinel row
-    excluded from the unary costs; padding factors cost 0).  Each sum
-    is ``window_tree_sum`` (XLA's order for the reference's ``jnp.sum``)
-    and the bucket sums are added in the reference's source order, so
-    the total is the reference's bit for bit."""
+    excluded from the unary costs; padding factors cost 0).  One
+    :func:`window_sum.window_total` (one launch on the card): the unary
+    costs, then each bucket's, gathered and summed in XLA's order for
+    the reference's ``jnp.sum`` and added in the reference's source
+    order, so the total is the reference's bit for bit."""
     d = graph.var_costs.shape[1]
-    unary = torch.gather(graph.var_costs[:-1], 1,
-                         values[:-1, None].long())
-    total = window_tree_sum(
-        unary, gather_stages("localsearch", 0, d, unary.shape[0]))
-    for b, costs in zip(graph.buckets,
-                        factor_current_costs(graph, values)):
-        total = add(total, window_tree_sum(costs, gather_stages(
-            "localsearch", b.var_ids.shape[1], d, costs.shape[0])))
-    return total
+    v = graph.var_costs.shape[0] - 1
+    beside_wide = any(b.var_ids.shape[1] >= 5
+                      and 2 <= b.var_ids.shape[0] <= 32
+                      for b in graph.buckets)
+    ops = [Gather(graph.var_costs, None, v, d,
+                  gather_stages("localsearch", 0, d, v,
+                                beside_wide=beside_wide))]
+    for b in graph.buckets:
+        f, arity = b.var_ids.shape
+        ops.append(Gather(b.costs.reshape(f, -1), b.var_ids32, f, d,
+                          gather_stages("localsearch", arity, d, f)))
+    return window_total(ops, values)
 
 
 def _others(vals: torch.Tensor, p: int, combine, fill) -> torch.Tensor:

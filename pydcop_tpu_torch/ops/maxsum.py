@@ -44,7 +44,7 @@ holds for the messages about to be consumed), read together with
 a device tensor, with no host sync of its own.
 """
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -60,9 +60,9 @@ from pydcop_tpu_torch.ops.var_update import (
     var_messages,
 )
 from pydcop_tpu_torch.ops.window_sum import (
-    add,
+    Gather,
     gather_stages,
-    window_tree_sum,
+    window_total,
 )
 
 Msgs = Tuple[torch.Tensor, ...]  # one [F, arity, D] tensor per bucket
@@ -408,39 +408,45 @@ def superstep(state: MaxSumState, graph: TorchFactorGraph, *,
     )
 
 
-def assignment_constraint_cost(graph: TorchFactorGraph,
-                               values: torch.Tensor,
-                               site: str = "maxsum") -> torch.Tensor:
-    """Total factor-table cost of an assignment ([V] value indices).
-    Padding rows contribute 0; variable-side costs are not included.
-    Each bucket's sum is ``window_tree_sum`` (XLA's order for the
-    reference's ``jnp.sum`` at ``site``, ``window_sum.gather_stages``)
-    and the bucket sums are added in bucket order from the first (XLA
-    drops the reference's ``0.0 +``), so the total is the reference's
-    bit for bit."""
-    vals = torch.cat(
-        [values.to(torch.int64),
-         torch.zeros((1,), dtype=torch.int64, device=values.device)]
-    )
-    total = None
+def constraint_operands(graph: TorchFactorGraph,
+                        site: str = "maxsum") -> List[Gather]:
+    """Each bucket's cost gather for :func:`window_sum.window_total`, in
+    bucket order, with the head of its sum at ``site``
+    (``window_sum.gather_stages``)."""
     d = graph.var_costs.shape[1]
     widest = max((b.var_ids.shape[1] for b in graph.buckets
                   if b.var_ids.shape[0] > 1), default=0)
+    ops = []
     for bucket in graph.buckets:
         f, arity = bucket.var_ids.shape
-        idx = vals[bucket.var_ids]               # [F, arity]
-        flat = torch.zeros((f,), dtype=torch.int64, device=idx.device)
-        for p in range(arity):
-            flat = flat * d + idx[:, p]
-        table = bucket.costs.reshape(f, -1)
-        part = window_tree_sum(
-            torch.gather(table, 1, flat[:, None]),
-            gather_stages(site, arity, d, f, widest))
-        total = part if total is None else add(total, part)
-    if total is None:
-        return torch.zeros((), dtype=graph.var_costs.dtype,
-                           device=graph.var_costs.device)
-    return total
+        ops.append(Gather(bucket.costs.reshape(f, -1), bucket.var_ids32, f,
+                          d, gather_stages(site, arity, d, f, widest)))
+    return ops
+
+
+def variable_operand(var_base_costs: torch.Tensor,
+                     site: str = "maxsum") -> Gather:
+    """The gather of ``var_base_costs[v, values[v]]`` ([V, D] costs) for
+    :func:`window_sum.window_total`."""
+    v, d = var_base_costs.shape
+    return Gather(var_base_costs.contiguous(), None, v, d,
+                  gather_stages(site, 0, d, v))
+
+
+def assignment_constraint_cost(graph: TorchFactorGraph,
+                               values: torch.Tensor,
+                               site: str = "maxsum",
+                               out: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """Total factor-table cost of an assignment ([V] value indices).
+    Padding rows contribute 0; variable-side costs are not included.
+    One :func:`window_sum.window_total` (one launch on the card): each
+    bucket's gathered costs summed in XLA's order for the reference's
+    ``jnp.sum`` at ``site``, the bucket sums added in bucket order from
+    the first (XLA drops the reference's ``0.0 +``), so the total is the
+    reference's bit for bit.  ``out``, when given, receives it."""
+    return window_total(constraint_operands(graph, site), values,
+                        out=out)
 
 
 def variable_cost(var_base_costs: torch.Tensor, values: torch.Tensor,
@@ -448,10 +454,20 @@ def variable_cost(var_base_costs: torch.Tensor, values: torch.Tensor,
     """The reference's ``jnp.sum(take_along_axis(var_base_costs,
     values[:, None], 1))`` ([V, D] costs, [V] values) in its order at
     ``site``."""
-    v, d = var_base_costs.shape
-    return window_tree_sum(
-        torch.gather(var_base_costs, 1, values.to(torch.int64)[:, None]),
-        gather_stages(site, 0, d, v))
+    return window_total([variable_operand(var_base_costs, site)], values)
+
+
+def assignment_total(graph: TorchFactorGraph, values: torch.Tensor,
+                     var_base_costs: Optional[torch.Tensor] = None,
+                     site: str = "maxsum",
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The reference's ``cost_of``: :func:`assignment_constraint_cost`
+    plus, with ``var_base_costs``, :func:`variable_cost`, added with
+    XLA's flushing add: one total, one launch on the card."""
+    ops = constraint_operands(graph, site)
+    if var_base_costs is not None:
+        ops.append(variable_operand(var_base_costs, site))
+    return window_total(ops, values, out=out)
 
 
 def run_maxsum(graph: TorchFactorGraph, max_cycles: int, *,
@@ -557,11 +573,9 @@ def run_maxsum_trace(graph: TorchFactorGraph, max_cycles: int, *,
     :func:`run_maxsum_from`: pruning never changes a cost.
 
     Returns (final state, selected values [V], costs [max_cycles])."""
-    def cost_of(values):
-        cost = assignment_constraint_cost(graph, values)
-        if var_base_costs is not None:
-            cost = add(cost, variable_cost(var_base_costs, values))
-        return cost
+    ops = constraint_operands(graph)
+    if var_base_costs is not None:
+        ops.append(variable_operand(var_base_costs))
 
     costs = torch.zeros((max_cycles,), dtype=graph.var_costs.dtype,
                         device=graph.var_costs.device)
@@ -574,8 +588,9 @@ def run_maxsum_trace(graph: TorchFactorGraph, max_cycles: int, *,
             damp_vars=damp_vars, damp_factors=damp_factors,
             stability=stability):
         beliefs, _ = aggregate_beliefs(graph, state.f2v)
-        last = cost_of(select_values(graph, beliefs))
-        costs[n] = last
+        # The total lands in its slot: no copy.
+        last = window_total(ops, select_values(graph, beliefs),
+                            out=costs[n])
         n += 1
     # An early exit leaves the tail unwritten: hold the final cost.
     costs[n:] = last
