@@ -54,7 +54,13 @@ chunk) + 1) and its chunk sizes timed — and DBA, GDBA and MixedDSA-B to
 ``localsearch_scale`` (card = CPU state by state: values, keys,
 weights, counters, modifiers); and the belief sum on graphs with
 one-edge buckets (card = plain version, bit for bit) to the
-``segment_sum`` kernel check.
+``segment_sum`` kernel check.  The portfolio and dynamic slice adds
+``portfolio`` (``api.solve(flagship, "auto")``: every race leg's cost
+equal to the same leg on the CPU, the replay of the stored decision
+without a race, the domino chain resolved to DPOP at cost 1.0) and
+``dynamic`` (``replay_scenario`` on the flagship: the card equal to the
+CPU after every run, every message tensor; the patched graph equal to
+its placement; a card checkpoint restored and run on the CPU).
 Each phase prints one JSON line (with ``t_s``, the seconds since the
 start); any failure raises and the
 script exits non-zero without the final line.  On success the last
@@ -83,7 +89,9 @@ BIG = np.float32(1e9)
 FLAGSHIP_VARS = 10_000
 N_COLORS = 3
 SCALE_VARS = 1_000_000
-SCALE_CYCLES = 30
+# The scale leg's cycles (30 until the portfolio and dynamic phases were
+# added: cut to make room for them; its CPU run is 1.6 s a cycle).
+SCALE_CYCLES = 15
 FIXED_CYCLES = 200
 # binary_factor_update shapes (F, D): one factor, blocks short of and
 # past the kernel's 128-factor block, every templated D (1..8), two
@@ -1934,7 +1942,10 @@ UNIFORM_SHAPES = [(1,), (7,), (10_001,), (10_001, 3), (1_000_001,),
                   (1_000_001, 3), (241, 128)]
 BEST_CHOICE_KS = [1, 2, 3, 5, 8, 9, 33, 128]
 BEST_CHOICE_DENSITIES = [0.0, 0.1, 0.4, 0.9, 1.0]
-LS_CYCLES = 200
+# The flagship local-search solves' cycles (200 until the portfolio and
+# dynamic phases were added: cut to make room for them; their CPU runs
+# are most of the phase).  DBA's CSP must stop before it (at 121).
+LS_CYCLES = 130
 # The flagship ops loop is timed over this many cycles and profiled over
 # LS_PROFILE_CYCLES (200 and 20 before the exact slice's phases were
 # added: cut to make room for them); the solves still run LS_CYCLES, and
@@ -2786,12 +2797,13 @@ WINDOW_TRACE_CYCLES = 30
 # The residual shapes [F, arity, D] checked on the card: row lanes over
 # axis 1 (direct and windowed), rows in lanes over axis 0 (unit inner
 # axis: direct, windows of 32 rows, windows ending on padding), an axis
-# longer than 32 inside (boxes over two axes), arity 16 (no form).
+# longer than 32 inside (boxes over two axes), arity 16 (row lanes 8
+# and 4, each lane two or four of the row's slots).
 WINDOW_RESIDUALS = [(14_999, 2, 3), (1_500_000, 2, 3), (17, 4, 3),
                     (17, 8, 12), (20, 4, 9), (64, 1, 3), (1_024, 1, 8),
                     (63, 2, 1), (95, 1, 5), (23, 1, 2), (8, 12, 1),
                     (100, 1, 16), (300, 2, 128), (5, 40, 50),
-                    (40, 16, 2)]
+                    (40, 16, 2), (17, 16, 8), (40, 16, 7)]
 # Graphs of the fused cost totals: (label, variables, D, factors of
 # arity 1, 2, ...): unary to 5-ary buckets, a one-factor bucket, a unit
 # domain, and buckets of 8..32 factors (every head form's neighbours).
@@ -2800,7 +2812,9 @@ WINDOW_GRAPHS = [("mixed_arity", 300, 3, (40, 500, 60, 20, 9)),
                  ("unit_domain", 120, 1, (0, 22, 17, 30, 8)),
                  ("heads", 60, 2, (23, 20, 24, 32, 16, 8)),
                  ("scale_mixed", 100_000, 4, (5_000, 150_000, 30_000))]
-DPOP_WARM_REPS = 5
+# Warm DPOP solves timed an instance (5 until the portfolio and dynamic
+# phases were added).
+DPOP_WARM_REPS = 3
 # benchmarks/bench_dpop.py's trees (n, D), seed 0 — BASELINE.md config
 # #3 — and bench.py build_dpop_exact_dcop's (n, D, seed).
 DPOP_TREES = [(3_000, 3), (10_000, 8)]
@@ -3229,7 +3243,8 @@ def phase_dpop_exact(ctx):
     benchmarks/bench_dpop.py's trees and bench.py's exact instance:
     equal to the CPU's jit solve (every metric) and to the numpy sweep
     (assignment, cost, cycles, msg_count; msg_size against the jit solve
-    without CEC, whose tables are not pruned); cold and warm (best of 5)
+    without CEC, whose tables are not pruned); cold and warm (best of
+    DPOP_WARM_REPS)
     times, the tree's sizes and the card's busy share."""
     torch, api = ctx["torch"], ctx["api"]
     from pydcop_tpu_torch.computations_graph import pseudotree as pt
@@ -3438,6 +3453,372 @@ def phase_dpop_cli(ctx):
                 cost=card["cost"], cycle=card["cycle"],
                 msg_count=card["msg_count"], msg_size=card["msg_size"],
                 keys=sorted(card))
+
+
+# The portfolio and dynamic slice.
+DYN_SLACK = 0.02
+DYN_CYCLES = 200
+DYN_EVENT_CYCLES = 100
+DYN_MARGIN = 0.1
+DYN_AFTER_RESTORE = 50
+DOMINO_VARS = 140
+
+
+def f32_bits(x) -> int:
+    return int(np.float32(x).view(np.uint32))
+
+
+def domino_chain(objects, relations, dcop_mod, n: int = DOMINO_VARS):
+    """The reference's exact-inference battery's agreement chain
+    (tests/unit/test_exact_inference_battery.py): one weak link in the
+    middle, opposing biases at the ends; only DPOP reaches its optimum,
+    cost 1, in a race leg."""
+    weak_at = n // 2
+    dom = objects.Domain("b", "", [0, 1])
+    dcop = dcop_mod.DCOP("domino", objective="min")
+    vs = [objects.Variable(f"v{i}", dom) for i in range(n)]
+    for v in vs:
+        dcop.add_variable(v)
+    for i in range(n - 1):
+        m = (np.array([[0.0, 1.0], [1.0, 0.0]]) if i == weak_at
+             else np.array([[0.0, 5.0], [5.0, 0.0]]))
+        if i == 0:
+            m = m + np.array([[0.0, 0.0], [3.0, 3.0]])
+        if i == n - 2:
+            m = m + np.array([[3.0, 0.0], [3.0, 0.0]])
+        dcop.add_constraint(relations.NAryMatrixRelation(
+            [vs[i], vs[i + 1]], m, f"m{i}"))
+    dcop.add_agents([objects.AgentDef(f"a{i}") for i in range(n)])
+    return dcop
+
+
+def portfolio_legs_equal_cpu(label, dcop, info):
+    """Each raced leg's cost on the card against the same leg run once
+    on the CPU: bit for bit."""
+    from pydcop_tpu_torch.engine import autotune
+    from pydcop_tpu_torch.engine.compile import compile_dcop
+
+    graph, meta = compile_dcop(dcop, noise_level=0.01)
+    cpu = autotune._portfolio_runners(
+        graph, autotune.PORTFOLIO_RACE_CYCLES, meta=meta, device="cpu")
+    if info["portfolio_costs"].get("dpop") is not None:
+        cpu["dpop"] = autotune.dpop_portfolio_runner(dcop, graph, meta,
+                                                     "cpu")
+    legs = {}
+    for name, cost in info["portfolio_costs"].items():
+        if cost is None:
+            continue
+        t0 = time.perf_counter()
+        cpu_cost = cpu[name]()
+        if f32_bits(cpu_cost) != f32_bits(cost):
+            fail(f"portfolio {label}: leg {name} costs {cost} on the card, "
+                 f"{cpu_cost} on the CPU")
+        legs[name] = dict(race_ms=info["portfolio_timings_ms"][name],
+                          cost=cost, cpu_s=time.perf_counter() - t0)
+    return legs
+
+
+def phase_portfolio(ctx, card="cuda"):
+    """``api.solve(flagship, "auto")`` on the card with a fresh cache
+    file: the race of every leg (each leg's cost equal to the CPU run
+    of the same leg, bit for bit), the DPOP gate's verdict, the winner's
+    solve; a second solve replays the decision without building a leg;
+    the domino chain resolves to DPOP at cost 1.0."""
+    api, _build = ctx["api"], ctx["_build"]
+    from pydcop_tpu_torch.engine import autotune
+
+    t_phase = time.perf_counter()
+    cache = os.path.join(HERE, "build", "chip_smoke_portfolio.json")
+    os.makedirs(os.path.dirname(cache), exist_ok=True)
+    if os.path.exists(cache):
+        os.remove(cache)
+    os.environ["PYDCOP_AGG_AUTOTUNE_CACHE"] = cache
+    dcop = ctx["dcop"]
+    _build.launch_counts.clear()
+    t0 = time.perf_counter()
+    first = api.solve(dcop, "auto", max_cycles=FIXED_CYCLES, device=card)
+    first_s = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    info = first["metrics"]["portfolio"]
+    raced = {n for n, c in info["portfolio_costs"].items() if c is not None}
+    # The flagship is far past DPOP's race gate (its pseudo-tree's
+    # separators reach ~2,000 variables): every leg but DPOP's races.
+    want = set(autotune.PORTFOLIO_CANDIDATES) - {"dpop"}
+    if info["portfolio_source"] != "measured" or raced != want:
+        fail(f"portfolio: raced {sorted(raced)}, expected {sorted(want)}")
+    if not np.isfinite(first["cost"]):
+        fail(f"portfolio: non-finite cost {first['cost']}")
+    legs = portfolio_legs_equal_cpu("flagship", dcop, info)
+
+    built = [0]
+    runners = autotune._portfolio_runners
+
+    def counting(*args, **kwargs):
+        built[0] += 1
+        return runners(*args, **kwargs)
+
+    autotune._portfolio_runners = counting
+    try:
+        _build.launch_counts.clear()
+        t0 = time.perf_counter()
+        second = api.solve(dcop, "auto", max_cycles=FIXED_CYCLES,
+                           device=card)
+        second_s = time.perf_counter() - t0
+        replay_launches = dict(_build.launch_counts)
+    finally:
+        autotune._portfolio_runners = runners
+    info2 = second["metrics"]["portfolio"]
+    if (info2["portfolio_source"] != "cache" or built[0]
+            or info2["algo"] != info["algo"]
+            or second["assignment"] != first["assignment"]):
+        fail(f"portfolio: the second solve did not replay ({info2}, "
+             f"{built[0]} races)")
+
+    domino = domino_chain(ctx["objects"], ctx["relations"], ctx["dcop_mod"])
+    _build.launch_counts.clear()
+    dres = api.solve(domino, "auto", device=card)
+    domino_launches = dict(_build.launch_counts)
+    dinfo = dres["metrics"]["portfolio"]
+    if dinfo["algo"] != "dpop" or dres["cost"] != 1.0:
+        fail(f"portfolio: the domino chain resolved to {dinfo['algo']} "
+             f"at cost {dres['cost']}")
+    domino_legs = portfolio_legs_equal_cpu("domino", domino, dinfo)
+    os.remove(cache)
+    return dict(
+        winner=info["algo"], target_cost=info["portfolio_target_cost"],
+        legs=legs, dpop_gate=dict(
+            feasible="dpop" in raced, gate=autotune.DPOP_RACE_MAX_ELEMENTS),
+        race_cycles=autotune.PORTFOLIO_RACE_CYCLES,
+        solve=dict(cycles=first["cycles"], cost=first["cost"],
+                   status=first["status"], total_s=first_s),
+        launches=launches,
+        replay=dict(source=info2["portfolio_source"], races=built[0],
+                    total_s=second_s, launches=replay_launches),
+        domino=dict(winner=dinfo["algo"], cost=dres["cost"],
+                    legs=domino_legs, launches=domino_launches),
+        seconds=time.perf_counter() - t_phase)
+
+
+def dynamic_scenario(scenario_mod, dcop, seed: int = 5):
+    """Events on the flagship: a cost-only change of 100 factors; 50
+    factors removed and 50 added on new scopes (inside the slack); a
+    delay; 400 factors added (beyond the slack: a recompile that
+    carries the messages); a new variable with a factor on it."""
+    E, A = scenario_mod.DcopEvent, scenario_mod.EventAction
+    rng = np.random.default_rng(seed)
+    names = list(dcop.constraints)
+    var_names = list(dcop.variables)
+
+    def table():
+        return rng.integers(0, 4, (N_COLORS, N_COLORS)).astype(
+            float).tolist()
+
+    def pairs(k):
+        out = set()
+        while len(out) < k:
+            i, j = rng.choice(len(var_names), 2, replace=False)
+            out.add((var_names[min(i, j)], var_names[max(i, j)]))
+        return sorted(out)
+
+    changed = rng.choice(len(names), 100, replace=False)
+    removed = rng.choice(len(names), 50, replace=False)
+    return scenario_mod.Scenario([
+        E("change", actions=[A("change_factor", name=names[k],
+                               table=table()) for k in changed]),
+        E("move", actions=[A("remove_factor", name=names[k])
+                           for k in removed]
+          + [A("add_factor", name=f"m{k}", variables=list(p),
+               table=table()) for k, p in enumerate(pairs(50))]),
+        E("settle", delay=1.0),
+        E("grow", actions=[A("add_factor", name=f"g{k}", variables=list(p),
+                             table=table())
+                           for k, p in enumerate(pairs(400))]),
+        E("new_variable", actions=[
+            A("add_variable", name="w0", domain=list(range(N_COLORS))),
+            A("add_factor", name="cw", variables=["w0", var_names[0]],
+              table=table())]),
+    ])
+
+
+def engine_state(engine):
+    """Host copies of a dynamic engine's state (copies also of a CPU
+    engine's: its edits zero message rows in place)."""
+    st = engine._state
+    return {f: [t.cpu().numpy().copy() for t in getattr(st, f)]
+            for f in ("v2f", "f2v", "v2f_count", "f2v_count")} | {
+                "stable": bool(st.stable), "cycle": int(st.cycle)}
+
+
+def state_difference(a, b, graph):
+    """None when two ``engine_state`` snapshots are equal bit for bit,
+    else where they first differ (field, bucket, the rows and whether
+    they are slack rows of ``graph``, the host copy)."""
+    for f in a:
+        if not isinstance(a[f], list):
+            if a[f] != b[f]:
+                return f"{f}: {a[f]} vs {b[f]}"
+            continue
+        for bi, (x, y) in enumerate(zip(a[f], b[f])):
+            if x.tobytes() == y.tobytes():
+                continue
+            bad = np.nonzero((x.view(np.uint8) != y.view(np.uint8)).reshape(
+                x.shape[0], -1).any(axis=1))[0]
+            ids = np.asarray(graph.buckets[bi].var_ids)[bad[:4]]
+            return (f"{f}[{bi}]: {bad.size} rows differ, first {bad[:4]} "
+                    f"(var ids {ids.tolist()}, slack id "
+                    f"{graph.var_costs.shape[0] - 1}): "
+                    f"{x[bad[0]].tolist()} vs {y[bad[0]].tolist()}")
+    return None
+
+
+def same_placed(a, b) -> bool:
+    """Two TorchFactorGraphs equal field by field (tensors bit for bit,
+    compared on the host)."""
+    for x, y in zip(a, b):
+        if isinstance(x, tuple) and x and hasattr(x[0], "_fields"):
+            if len(x) != len(y) or not all(same_placed(p, q)
+                                           for p, q in zip(x, y)):
+                return False
+        elif hasattr(x, "dtype") or hasattr(y, "dtype"):
+            if (x is None) != (y is None):
+                return False
+            if x is not None and (x.dtype != y.dtype or not np.array_equal(
+                    x.cpu().numpy(), y.cpu().numpy())):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def phase_dynamic(ctx, card="cuda"):
+    """``replay_scenario`` on the flagship on the card and on the CPU:
+    after every event the assignment, cycles, convergence, cost and
+    every message tensor equal, and the card's patched graph equals
+    ``to_device_graph`` of its host arrays; then a card checkpoint
+    restored into a CPU engine runs on to the card's result."""
+    _build, dcop = ctx["_build"], ctx["dcop"]
+    from pydcop_tpu_torch.dcop import scenario as scenario_mod
+    from pydcop_tpu_torch.device import to_device_graph
+    from pydcop_tpu_torch.engine import dynamic
+
+    t_phase = time.perf_counter()
+    scenario = dynamic_scenario(scenario_mod, dcop)
+    params = {"noise": 0.01, "slack": DYN_SLACK}
+
+    def replay(device):
+        engine = dynamic.build_dynamic_engine(dcop, params, device=device)
+        run = engine.run
+        results, per_event = [], []
+        last = {"rows_s": 0.0, "scope_s": 0.0, "row_patches": 0,
+                "scope_rebuilds": 0}
+
+        def recording_run(*args, **kwargs):
+            res = run(*args, **kwargs)
+            results.append((res, engine_state(engine), engine.graph))
+            return res
+
+        def on_event(rec):
+            stats = dict(engine.edit_stats)
+            entry = dict(
+                id=rec["id"],
+                rec={k: v for k, v in rec.items() if k != "wall_s"},
+                patch_ms=(stats["rows_s"] - last["rows_s"]) * 1e3,
+                scope_ms=(stats["scope_s"] - last["scope_s"]) * 1e3,
+                patches=stats["row_patches"] - last["row_patches"],
+                scope_rebuilds=(stats["scope_rebuilds"]
+                                - last["scope_rebuilds"]),
+                run_ms_per_cycle=(engine.last_run_s * 1e3
+                                  / max(engine.last_run_cycles, 1)),
+                cycles_run=engine.last_run_cycles,
+                placed_equal=same_placed(
+                    engine.placed, to_device_graph(engine.graph, device)))
+            last.update(stats)
+            per_event.append(entry)
+
+        engine.run = recording_run
+        t0 = time.perf_counter()
+        out = dynamic.replay_scenario(
+            dcop, scenario, params=params, max_cycles=DYN_CYCLES,
+            event_cycles=DYN_EVENT_CYCLES, decimation_margin=DYN_MARGIN,
+            on_event=on_event, device=device, engine=engine)
+        engine.run = run
+        return engine, out, per_event, results, time.perf_counter() - t0
+
+    _build.launch_counts.clear()
+    card_engine, card_out, card_events, card_runs, card_s = replay(card)
+    launches = dict(_build.launch_counts)
+    for kernel in ("binary_factor_update", "segment_sum", "var_update"):
+        if card != "cpu" and not launches.get(kernel):
+            fail(f"dynamic: {kernel} never launched ({launches})")
+    cpu_engine, cpu_out, cpu_events, cpu_runs, cpu_s = replay("cpu")
+    if len(card_events) != len(cpu_events) or len(card_runs) != len(
+            cpu_runs):
+        fail("dynamic: the replays saw different events")
+    for a, b in zip(card_events, cpu_events):
+        if not a["placed_equal"]:
+            fail(f"dynamic: after {a['id']} the card's patched graph != "
+                 "to_device_graph of its host arrays")
+        if a["rec"] != b["rec"]:
+            fail(f"dynamic: after {a['id']} the card's record != the CPU's")
+    # Every run (the initial solve, each event's and the delay's): the
+    # same assignment, cycles, convergence and state, bit for bit.
+    for k, ((ra, sa, ga), (rb, sb, _)) in enumerate(zip(card_runs,
+                                                        cpu_runs)):
+        diff = state_difference(sa, sb, ga)
+        if (diff or ra.assignment != rb.assignment or ra.cycles != rb.cycles
+                or ra.converged != rb.converged):
+            fail(f"dynamic: run {k} (cycle {ra.cycles}) card != CPU: "
+                 f"{diff or 'assignment/cycles/converged'}")
+    if any(card_out[k] != cpu_out[k] for k in card_out if k != "events"):
+        fail("dynamic: the final results differ")
+    if card_out["recompiles"] < 2 or not any(
+            e["scope_rebuilds"] for e in card_events):
+        fail(f"dynamic: {card_out['recompiles']} recompiles")
+
+    # Checkpoint on the card, restore into a CPU engine built from the
+    # final factor set (its rows laid out anew), run on: equal.
+    import tempfile
+
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_dyn_"),
+                        "state.npz")
+    card_engine.checkpoint(path)
+    fresh = dynamic.DynamicMaxSumEngine(
+        card_engine.variables, list(card_engine.factors.values()),
+        mode=dcop.objective, noise_level=0.01, slack=DYN_SLACK,
+        device="cpu")
+    fresh.clamp_variables(dict(card_engine.clamps))
+    fresh.restore(path)
+    os.remove(path)
+    os.rmdir(os.path.dirname(path))
+    r_card = card_engine.run(DYN_AFTER_RESTORE, stop_on_convergence=False)
+    r_cpu = fresh.run(DYN_AFTER_RESTORE, stop_on_convergence=False)
+    by_name = {}
+    for eng in (card_engine, fresh):
+        by_name[id(eng)] = {
+            n: eng._state.f2v[bi][row].cpu().numpy().tobytes()
+            for n, (bi, row) in eng.slots.items()}
+    if (r_card.assignment != r_cpu.assignment
+            or r_card.cycles != r_cpu.cycles
+            or r_card.converged != r_cpu.converged
+            or by_name[id(card_engine)] != by_name[id(fresh)]):
+        fail("dynamic: the CPU engine restored from the card's checkpoint "
+             "ran to another result")
+    events = [{k: e[k] for k in (
+        "id", "patch_ms", "scope_ms", "patches", "scope_rebuilds",
+        "run_ms_per_cycle", "cycles_run")} | {
+            "recompiles": e["rec"]["recompiles"], "cost": e["rec"]["cost"],
+            "converged": e["rec"].get("converged")}
+        for e in card_events]
+    return dict(n_vars=len(card_engine.variables),
+                n_factors=len(card_engine.factors),
+                events=events, cost=card_out["cost"],
+                cycles=card_out["cycles"], converged=card_out["converged"],
+                recompiles=card_out["recompiles"],
+                clamped=len(card_out["clamped"]), launches=launches,
+                card_replay_s=card_s, cpu_replay_s=cpu_s,
+                restored_on_cpu=dict(cycles=r_cpu.cycles,
+                                     assignment_equal=True),
+                seconds=time.perf_counter() - t_phase)
 
 
 def main() -> int:
@@ -3903,6 +4284,18 @@ def main() -> int:
     emit("tree_search", **phase_tree_search(ctx))
     emit("dpop_cli", **phase_dpop_cli(ctx))
 
+    # 12. This slice: the portfolio race behind algo="auto" and the
+    # dynamic engine's scenario replay, each with the launch counts set
+    # to 0 just before it and read just after.
+    portfolio = phase_portfolio(ctx)
+    emit("portfolio", **portfolio)
+    dyn = phase_dynamic(ctx)
+    emit("dynamic", **dyn)
+    new_paths = {"portfolio": portfolio["launches"],
+                 "portfolio_replay": portfolio["replay"]["launches"],
+                 "portfolio_domino": portfolio["domino"]["launches"],
+                 "dynamic": dyn["launches"]}
+
     # 7. Fixture parity: the verify oracle.
     fixture = os.path.join(HERE, "tests", "instances", "coloring_12_3.yml")
     fres = api.solve(load_dcop_from_file(fixture), "maxsum", max_cycles=60)
@@ -4014,6 +4407,18 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "torch_ops_ms", "launches_per_call")}} if wsum.get(
                 "scale_gather") else {}})
+    counter_of = {
+        "binary_factor_update": "binary_factor_update",
+        "segment_sum": "segment_sum", "var_update": "var_update",
+        "segment_sum: positional_table": seg_mod.POSITIONAL_TABLE,
+        "segment_sum: positional": seg_mod.POSITIONAL,
+        "threefry: uniform_f32": threefry.UNIFORM,
+        "threefry: best_choice": threefry.BEST_CHOICE,
+        "window_sum": window_sum_mod.COUNTER}
+    for row in rows:
+        by_path = row.setdefault("launches_by_path", {})
+        for path, counts in new_paths.items():
+            by_path[path] = counts.get(counter_of[row["name"]], 0)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

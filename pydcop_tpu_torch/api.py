@@ -87,8 +87,17 @@ def solve(dcop: DCOP, algo_def: Union[str, AlgorithmDef],
     ``torch.profiler``, or an unavailable marker on the CPU).  With
     ``checkpoint_dir`` the segments follow ``checkpoint_every``;
     ``warmup=True`` keeps the plain path, traced but without curves.
-    All default off and cost nothing while off."""
+    All default off and cost nothing while off.
+
+    ``algo_def="auto"`` picks the algorithm with the portfolio racer
+    (``engine/autotune.py``): a stored decision for the DCOP's shape is
+    replayed before compiling, else the candidates race on the compiled
+    graph on ``device``; ``metrics["portfolio"]`` says which and how."""
     resolve_device(device)
+    portfolio_info = None
+    if isinstance(algo_def, str) and algo_def == "auto":
+        algo_def, portfolio_info = _resolve_auto_algo(
+            dcop, algo_params or {}, device)
     if isinstance(algo_def, str):
         algo_def = AlgorithmDef.build_with_default_param(
             algo_def, algo_params or {}, mode=dcop.objective
@@ -113,7 +122,7 @@ def solve(dcop: DCOP, algo_def: Union[str, AlgorithmDef],
 
         with tracer.span("solve", "api", algo=algo_def.algo,
                          backend="device", max_cycles=max_cycles):
-            return _solve(
+            result = _solve(
                 dcop, algo_def, module, max_cycles=max_cycles,
                 warmup=warmup, checkpoint_dir=checkpoint_dir,
                 checkpoint_every=checkpoint_every,
@@ -122,9 +131,61 @@ def solve(dcop: DCOP, algo_def: Union[str, AlgorithmDef],
                 recovery=recovery, observing=session is not None,
                 metrics_file=metrics_file, metrics_every=metrics_every,
                 device=device)
+            if portfolio_info is not None:
+                result.setdefault("metrics", {})[
+                    "portfolio"] = portfolio_info
+            return result
     finally:
         if session is not None:
             session.finish()
+
+
+def _resolve_auto_algo(dcop: DCOP, algo_params: Dict[str, Any],
+                       device: DeviceLike):
+    """Resolve ``algo="auto"`` through the portfolio racer: replay a
+    stored decision for the DCOP's shape, else compile once and race
+    the candidates (DPOP under its width gate) on ``device``.  Returns
+    ``(AlgorithmDef, info)``, the winner's extra parameters merged over
+    the caller's (those the winner does not take are dropped, with a
+    warning)."""
+    from pydcop_tpu_torch.engine.autotune import (
+        PORTFOLIO_PARAMS,
+        autotune_portfolio,
+        cached_portfolio_choice,
+        dcop_portfolio_key,
+        dpop_portfolio_runner,
+    )
+
+    dev = resolve_device(device)
+    key = dcop_portfolio_key(dcop, dev.type)
+    choice = cached_portfolio_choice(key)
+    if choice is not None:
+        info = {"algo": choice, "portfolio_source": "cache",
+                "portfolio_key": key}
+    else:
+        from pydcop_tpu_torch.engine.compile import compile_dcop
+
+        graph, meta = compile_dcop(
+            dcop, noise_level=float(
+                algo_params.get("noise", 0.01) or 0.0))
+        info = autotune_portfolio(
+            graph, key=key, meta=meta, device=dev,
+            extra_runners={
+                "dpop": dpop_portfolio_runner(dcop, graph, meta, dev)})
+    algo, extra = PORTFOLIO_PARAMS[info["algo"]]
+    module = load_algorithm_module(algo)
+    allowed = {p.name for p in module.algo_params}
+    params = {k: v for k, v in algo_params.items() if k in allowed}
+    dropped = sorted(set(algo_params) - set(params))
+    if dropped:
+        import logging
+
+        logging.getLogger("pydcop_tpu_torch.api").warning(
+            "algo='auto' winner %s does not take parameter(s) %s; "
+            "ignored", algo, ", ".join(dropped))
+    params.update(extra)
+    return AlgorithmDef.build_with_default_param(
+        algo, params, mode=dcop.objective), info
 
 
 def _solve(dcop: DCOP, algo_def: AlgorithmDef, module, *,

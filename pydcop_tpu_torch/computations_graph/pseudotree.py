@@ -205,18 +205,25 @@ def build_computation_graph(
 
 
 def node_depths(graph: ComputationPseudoTree) -> Dict[str, int]:
-    """Depth of every node (root = 0), memoized over parent links."""
+    """Depth of every node (root = 0), memoized over parent links, in
+    the reference's order of assignment.  A loop up each chain, where
+    the reference recurses: a tree deeper than the interpreter's
+    recursion limit (the flagship's DFS tree) raises there, not here."""
     nodes = {n.name: n for n in graph.nodes}
     depth: Dict[str, int] = {}
-
-    def _depth(name: str) -> int:
-        if name not in depth:
-            parent = nodes[name].parent
-            depth[name] = 0 if parent is None else _depth(parent) + 1
-        return depth[name]
-
     for name in nodes:
-        _depth(name)
+        chain = []
+        while name not in depth:
+            parent = nodes[name].parent
+            if parent is None:
+                depth[name] = 0
+                break
+            chain.append(name)
+            name = parent
+        d = depth[name]
+        for below in reversed(chain):
+            d += 1
+            depth[below] = d
     return depth
 
 

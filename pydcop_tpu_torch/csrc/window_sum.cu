@@ -25,8 +25,9 @@
 //     sums slots [previous end, end_s) in lanes_s strided lanes (lane 0
 //     from the running sum, the others from +0.0) folded by halves;
 //   - row lanes over axis 1 at the first level (lane k sums the row's
-//     axis-1 slot k over axis 2, lane 0 from the running sum, the
-//     others from -0.0, folded into the running sum row by row);
+//     axis-1 slots k, k + lanes1, ... in order, each over axis 2, lane 0
+//     from the running sum, the others from -0.0, folded into the
+//     running sum row by row);
 //   - rows in lanes over axis 0 at the first level (the box's rows
 //     [0, end0) in lanes0 lanes, row r into lane r % lanes0, each row's
 //     values in order, lane 0 from +0.0, the others from -0.0, folded by
@@ -227,8 +228,9 @@ __device__ __forceinline__ void fold(float* s, int lanes) {
 
 // The sum from +0.0 of the box of shape win at origin (a0, b0, c0) of an
 // array of shape n read from src (row-major; slots outside the array are
-// +0.0), in row-major order, with row lanes over axis 1 (lanes1 > 1,
-// lanes1 = win[1]) or rows in lanes over axis 0 (lanes0 > 1, over the
+// +0.0), in row-major order, with row lanes over axis 1 (lanes1 > 1
+// dividing win[1], slot i1 into lane i1 % lanes1) or rows in lanes over
+// axis 0 (lanes0 > 1, over the
 // box's rows [0, end0)): the residual's and the long inner axes' path,
 // one thread a box.
 __device__ __forceinline__ float box_sum(const Src& src, const long long* n,
@@ -257,7 +259,7 @@ __device__ __forceinline__ float box_sum(const Src& src, const long long* n,
     }
     for (long long i1 = 0; i1 < win[1]; ++i1) {
       const long long b = b0 + i1;
-      float lane = lane_rows ? rsum : lanes1 > 1 ? s[i1] : acc;
+      float lane = lane_rows ? rsum : lanes1 > 1 ? s[i1 % lanes1] : acc;
       for (long long i2 = 0; i2 < win[2]; ++i2) {
         const long long c = c0 + i2;
         const bool in = a >= 0 && a < n[0] && b >= 0 && b < n[1] &&
@@ -267,7 +269,7 @@ __device__ __forceinline__ float box_sum(const Src& src, const long long* n,
       if (lane_rows) {
         rsum = lane;
       } else if (lanes1 > 1) {
-        s[i1] = lane;
+        s[i1 % lanes1] = lane;
       } else {
         acc = lane;
       }

@@ -1,13 +1,16 @@
-"""YAML loading for DCOPs (domains, variables, constraints, agents).
+"""YAML (de)serialization for DCOPs, agents and scenarios.
 
 Ported copy of ``pydcop_tpu/dcop/yamldcop.py``: the port imports
 nothing of the JAX package, so it keeps its own copy of the
 host-side modelling layer.  Behaviour is kept identical (the
-compiled arrays must match the reference bit for bit); only what
-the MaxSum solve path reaches is kept.
+compiled arrays must match the reference bit for bit; the writers
+give the reference's text).  Not copied yet: the distribution files
+(``load_dist*``, ``yaml_dist``), which need the agent runtime's
+``Distribution``.
 
 Reference parity: pydcop/dcop/yamldcop.py (load_dcop_from_file :63,
-load_dcop :96, _build_constraints :217, _build_agents :316).  Format spec:
+load_dcop :96, dcop_yaml :119, _build_constraints :217, _build_agents
+:316, yaml_agents :397, scenario load :504).  Format spec:
 docs/usage/file_formats/dcop_format.yml in the reference — this module
 accepts the exact same files (round-trip tested against the reference's
 fixtures in tests/instances/).
@@ -15,7 +18,7 @@ fixtures in tests/instances/).
 
 import os
 import re
-from typing import Dict, Iterable, List, Optional, Union
+from typing import Any, Dict, Iterable, List, Optional, Union
 
 import yaml
 
@@ -35,6 +38,7 @@ from pydcop_tpu_torch.dcop.relations import (
     constraint_from_external_definition,
     constraint_from_str,
 )
+from pydcop_tpu_torch.dcop.scenario import DcopEvent, EventAction, Scenario
 from pydcop_tpu_torch.distribution.objects import DistributionHints
 
 _RANGE_RE = re.compile(r"^\s*(-?\d+)\s*\.\.\s*(-?\d+)\s*$")
@@ -226,6 +230,14 @@ def _split_assignment_tokens(assignment: str) -> List[str]:
     return [t.strip("'\"") for t in tokens]
 
 
+def _quote_token(token: str) -> str:
+    """Quote an extensional-assignment token if it contains whitespace,
+    so dumped files re-load through _split_assignment_tokens."""
+    if re.search(r"\s", token):
+        return "'" + token + "'"
+    return token
+
+
 def _build_agents(dcop: DCOP, agents_spec, routes_spec, hosting_spec):
     if agents_spec is None:
         return
@@ -265,3 +277,193 @@ def _build_agents(dcop: DCOP, agents_spec, routes_spec, hosting_spec):
             **aspec,
         )
         dcop.add_agents(agent)
+
+
+# --------------------------------------------------------------------- #
+# Dumping
+
+
+def dcop_yaml(dcop: DCOP) -> str:
+    """Serialize a DCOP back to the YAML format."""
+    data: Dict[str, Any] = {
+        "name": dcop.name,
+        "objective": dcop.objective,
+    }
+    if dcop.description:
+        data["description"] = dcop.description
+    data["domains"] = {
+        d.name: {
+            "values": list(d.values),
+            **({"type": d.type} if d.type else {}),
+        }
+        for d in dcop.domains.values()
+    }
+    variables = {}
+    for v in dcop.variables.values():
+        vspec: Dict[str, Any] = {"domain": v.domain.name}
+        if v.initial_value is not None:
+            vspec["initial_value"] = v.initial_value
+        if isinstance(v, VariableNoisyCostFunc):
+            vspec["cost_function"] = v.cost_func.expression
+            vspec["noise_level"] = v.noise_level
+        elif isinstance(v, VariableWithCostFunc):
+            if hasattr(v.cost_func, "expression"):
+                vspec["cost_function"] = v.cost_func.expression
+        variables[v.name] = vspec
+    data["variables"] = variables
+    if dcop.external_variables:
+        data["external_variables"] = {
+            v.name: {"domain": v.domain.name, "initial_value": v.value}
+            for v in dcop.external_variables.values()
+        }
+    constraints = {}
+    for c in dcop.constraints.values():
+        if isinstance(c, NAryMatrixRelation):
+            values: Dict[float, List[str]] = {}
+            import numpy as np
+
+            for idx in np.ndindex(*c.matrix.shape):
+                val = float(c.matrix[idx])
+                if val == 0:
+                    continue
+                assignment = " ".join(
+                    _quote_token(str(v.domain[i]))
+                    for v, i in zip(c.dimensions, idx)
+                )
+                values.setdefault(val, []).append(assignment)
+            constraints[c.name] = {
+                "type": "extensional",
+                "variables": c.scope_names,
+                "values": {
+                    (int(v) if float(v).is_integer() else v):
+                        " | ".join(assts)
+                    for v, assts in values.items()
+                },
+            }
+        else:
+            expr = getattr(c, "expression", None)
+            if expr is None:
+                raise ValueError(
+                    f"Cannot serialize constraint {c.name}: no expression"
+                )
+            constraints[c.name] = {"type": "intention", "function": expr}
+    data["constraints"] = constraints
+    if dcop.agents:
+        data["agents"] = {
+            a.name: (
+                {**a.extra_attr} if a.extra_attr else {}
+            )
+            for a in dcop.agents.values()
+        }
+        # Routes (symmetric: dump each pair once) and hosting costs.
+        routes: Dict[str, Dict[str, float]] = {}
+        dumped_pairs = set()
+        hosting: Dict[str, Any] = {}
+        for a in dcop.agents.values():
+            for other, cost in a.routes.items():
+                pair = frozenset((a.name, other))
+                if pair in dumped_pairs:
+                    continue
+                dumped_pairs.add(pair)
+                routes.setdefault(a.name, {})[other] = cost
+            h: Dict[str, Any] = {}
+            if a.default_hosting_cost:
+                h["default"] = a.default_hosting_cost
+            if a.hosting_costs:
+                h["computations"] = a.hosting_costs
+            if h:
+                hosting[a.name] = h
+        default_routes = {a.default_route for a in dcop.agents.values()}
+        if default_routes != {1} and len(default_routes) == 1:
+            routes = {"default": default_routes.pop(), **routes}
+        if routes:
+            data["routes"] = routes
+        if hosting:
+            data["hosting_costs"] = hosting
+    if dcop.dist_hints is not None:
+        hints: Dict[str, Any] = {}
+        if dcop.dist_hints.must_host_map:
+            hints["must_host"] = dcop.dist_hints.must_host_map
+        if hints:
+            data["distribution_hints"] = hints
+    return yaml.safe_dump(data, sort_keys=False, default_flow_style=False)
+
+
+def yaml_agents(agents: List[AgentDef]) -> str:
+    """Serialize a list of AgentDefs (``pydcop generate agents`` output)."""
+    data: Dict[str, Any] = {}
+    hosting: Dict[str, Any] = {}
+    routes: Dict[str, Any] = {}
+    for a in agents:
+        data[a.name] = dict(a.extra_attr)
+        if a.hosting_costs or a.default_hosting_cost:
+            h: Dict[str, Any] = {}
+            if a.default_hosting_cost:
+                h["default"] = a.default_hosting_cost
+            if a.hosting_costs:
+                h["computations"] = a.hosting_costs
+            hosting[a.name] = h
+        if a.routes:
+            routes[a.name] = a.routes
+    out: Dict[str, Any] = {"agents": data}
+    if hosting:
+        out["hosting_costs"] = hosting
+    if routes:
+        out["routes"] = routes
+    return yaml.safe_dump(out, sort_keys=False)
+
+
+def load_agents_from_file(filename: str) -> List[AgentDef]:
+    with open(filename, encoding="utf-8") as f:
+        return load_agents(f.read())
+
+
+def load_agents(yaml_str: str) -> List[AgentDef]:
+    data = yaml.safe_load(yaml_str) or {}
+    dcop = DCOP("agents_only")
+    _build_agents(dcop, data.get("agents"), data.get("routes"),
+                  data.get("hosting_costs"))
+    return list(dcop.agents.values())
+
+
+# --------------------------------------------------------------------- #
+# Scenario
+
+
+def load_scenario_from_file(filename: str) -> Scenario:
+    with open(filename, encoding="utf-8") as f:
+        return load_scenario(f.read())
+
+
+def load_scenario(yaml_str: str) -> Scenario:
+    data = yaml.safe_load(yaml_str) or {}
+    events = []
+    for espec in data.get("events") or []:
+        if "delay" in espec:
+            events.append(DcopEvent(espec.get("id", "delay"),
+                                    delay=float(espec["delay"])))
+        else:
+            actions = [
+                EventAction(
+                    a["type"],
+                    **{k: v for k, v in a.items() if k != "type"},
+                )
+                for a in espec.get("actions", [])
+            ]
+            events.append(DcopEvent(espec["id"], actions=actions))
+    return Scenario(events)
+
+
+def yaml_scenario(scenario: Scenario) -> str:
+    events = []
+    for e in scenario.events:
+        if e.is_delay:
+            events.append({"id": e.id, "delay": e.delay})
+        else:
+            events.append({
+                "id": e.id,
+                "actions": [
+                    {"type": a.type, **a.args} for a in e.actions
+                ],
+            })
+    return yaml.safe_dump({"events": events}, sort_keys=False)

@@ -7,12 +7,18 @@
 [--resume]] [--recovery [--recovery_max_restarts N] [--recovery_noise S]
 [--recovery_damping_bump B]] [--trace FILE [--trace_format chrome|jsonl]]
 [--metrics FILE.jsonl] [--metrics_every N] [--serve_metrics PORT]
-FILE.yaml`` solves a DCOP on one torch device with ALGO (maxsum,
-amaxsum, maxsum_dynamic, dsa, adsa, dsatuto, mgm, mgm2, dba, gdba,
-mixeddsa) and prints the
+[--scenario FILE [--scenario_event_cycles N]] FILE.yaml`` solves a DCOP
+on one torch device with ALGO (maxsum, amaxsum, maxsum_dynamic, dsa,
+adsa, dsatuto, mgm, mgm2, dba, gdba, mixeddsa, dpop, syncbb, ncbb, or
+``auto``: the portfolio racer picks one, ``-p`` parameters the winner
+does not take are dropped with a warning) and prints the
 JSON result ``pydcop solve`` prints for a device solve (status, assignment,
 cost, violation, time, msg_count, msg_size, cycle, compile_time,
-backend).  The resilience and observability flags are the reference's,
+backend).  ``--scenario`` replays a dynamic-DCOP event script
+(``dcop/yamldcop.py::load_scenario``) through
+``engine/dynamic.py::replay_scenario`` after the initial solve, for the
+MaxSum family, and prints the reference's scenario JSON (``scenario``
+block included).  The resilience and observability flags are the reference's,
 with its defaults (``--metrics_file`` is accepted for ``--metrics``).
 With ``--device cuda`` the command first checks, in a child process,
 that CUDA initialises and runs a tiny launch
@@ -62,7 +68,8 @@ def make_parser() -> argparse.ArgumentParser:
     solve.add_argument("-a", "--algo", required=True,
                        help="algorithm name (maxsum, amaxsum, "
                             "maxsum_dynamic, dsa, adsa, dsatuto, mgm, "
-                            "mgm2, dba, gdba, mixeddsa)")
+                            "mgm2, dba, gdba, mixeddsa, dpop, syncbb, "
+                            "ncbb, or auto: the portfolio racer)")
     solve.add_argument("-p", "--algo_params", action="append",
                        help="algorithm parameter as name:value")
     solve.add_argument("-c", "--cycles", type=int, default=1000,
@@ -71,6 +78,16 @@ def make_parser() -> argparse.ArgumentParser:
                        choices=["cuda", "cpu"],
                        help="torch device (default cuda; there is no "
                             "silent CPU fallback)")
+    solve.add_argument("--scenario", default=None, metavar="FILE",
+                       help="dynamic DCOP: replay this scenario yaml's "
+                            "events through the incremental "
+                            "DynamicMaxSumEngine after the initial "
+                            "solve converges (maxsum family)")
+    solve.add_argument("--scenario_event_cycles",
+                       "--scenario-event-cycles", type=int,
+                       default=None, metavar="CYCLES",
+                       help="re-convergence cycle budget per scenario "
+                            "event (default: --cycles)")
     solve.add_argument("--collect_on", default="value_change",
                        choices=["value_change", "cycle_change", "period"])
     solve.add_argument("--run_metrics", default=None,
@@ -160,9 +177,18 @@ def run_solve(args) -> int:
     from pydcop_tpu_torch.dcop.yamldcop import load_dcop_from_file
 
     dcop = load_dcop_from_file(args.dcop_files)
-    algo_def = AlgorithmDef.build_with_default_param(
-        args.algo, parse_algo_params(args.algo_params),
-        mode=dcop.objective)
+    auto_params = None
+    if args.algo == "auto":
+        # api.solve races the portfolio (or replays its decision) and
+        # builds the winner's AlgorithmDef itself.
+        algo_def = "auto"
+        auto_params = parse_algo_params(args.algo_params)
+    else:
+        algo_def = AlgorithmDef.build_with_default_param(
+            args.algo, parse_algo_params(args.algo_params),
+            mode=dcop.objective)
+    if args.scenario:
+        return _run_scenario_cmd(args, dcop, algo_def)
     recovery = None
     if args.recovery:
         from pydcop_tpu_torch.resilience.recovery import RecoveryPolicy
@@ -173,6 +199,7 @@ def run_solve(args) -> int:
             damping_bump=args.recovery_damping_bump,
         )
     res = solve(dcop, algo_def, max_cycles=args.cycles,
+                algo_params=auto_params,
                 checkpoint_dir=args.checkpoint_dir,
                 checkpoint_every=args.checkpoint_every,
                 checkpoint_async=args.checkpoint_async,
@@ -195,8 +222,9 @@ def run_solve(args) -> int:
         "compile_time": res["compile_time"],
         "backend": "device",
     }
-    params = algo_def.params
+    params = {} if isinstance(algo_def, str) else algo_def.params
     if (args.run_metrics and args.collect_on == "cycle_change"
+            and not isinstance(algo_def, str)
             and algo_def.algo in ("maxsum", "amaxsum")
             and not params.get("decimation")
             and not params.get("decimation_margin")):
@@ -215,6 +243,53 @@ def run_solve(args) -> int:
     for path in (args.run_metrics, args.end_metrics):
         if path:
             add_csvline(path, args.collect_on, result)
+    print(json.dumps(result, sort_keys=True, indent="  "))
+    return 0
+
+
+def _run_scenario_cmd(args, dcop, algo_def) -> int:
+    """``solve --scenario FILE``: replay the events through the
+    incremental engine on ``--device`` and print the reference's
+    scenario JSON."""
+    import time
+
+    from pydcop_tpu_torch.dcop.yamldcop import load_scenario_from_file
+    from pydcop_tpu_torch.engine.dynamic import replay_scenario
+
+    if isinstance(algo_def, str) or algo_def.algo not in (
+            "maxsum", "maxsum_dynamic", "amaxsum"):
+        raise ValueError(
+            "--scenario needs a maxsum-family algorithm (the "
+            "incremental engine is MaxSum); got "
+            f"{algo_def if isinstance(algo_def, str) else algo_def.algo!r}")
+    scenario = load_scenario_from_file(args.scenario)
+    params = dict(algo_def.params)
+    # decimation_margin 0.0 is off, as in decimation_plan_from_params.
+    margin = params.get("decimation_margin") or None
+    t0 = time.perf_counter()
+    out = replay_scenario(
+        dcop, scenario, params=params, max_cycles=args.cycles,
+        event_cycles=args.scenario_event_cycles,
+        decimation_margin=margin, device=args.device,
+    )
+    result = {
+        "status": "FINISHED" if out["converged"] else "TIMEOUT",
+        "assignment": out["assignment"],
+        # Cost and violations of the live (edited) factor set.
+        "cost": out["cost"],
+        "violation": out["violations"],
+        "time": time.perf_counter() - t0,
+        "cycle": out["cycles"],
+        "backend": "device",
+        "scenario": {
+            "file": args.scenario,
+            "events_applied": out["event_count"],
+            "recompiles": out["recompiles"],
+            "clamped": out["clamped"],
+            "orphaned_computations": out["orphaned"],
+            "events": out["events"],
+        },
+    }
     print(json.dumps(result, sort_keys=True, indent="  "))
     return 0
 

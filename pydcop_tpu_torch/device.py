@@ -204,18 +204,19 @@ def edge_valid_bits(var_valid: np.ndarray,
     return rows[np.asarray(var_ids)]
 
 
-def to_device_graph(graph: CompiledFactorGraph,
-                    device: DeviceLike = "cuda") -> TorchFactorGraph:
-    """Move a host-compiled graph onto ``device`` (resolved by the
-    device rule), with its aggregation strategy and arrays."""
-    dev = resolve_device(device)
-
+def _placer(dev: torch.device):
     def put(arr, dtype):
         # A copy: the caller's arrays may be read-only or strided.
         return torch.tensor(np.asarray(arr), dtype=dtype, device=dev)
 
+    return put
+
+
+def _scope_fields(graph: CompiledFactorGraph, strategy: str, put):
+    """The placed fields that follow the buckets' ``var_ids``: the
+    belief sum's CSR (``agg_*`` but ``agg_ell``) and the positional
+    order (``pos_*``)."""
     n_rows = graph.var_costs.shape[0]
-    strategy = aggregation_strategy(graph)
     order = tuple(range(len(graph.buckets)))
     sep = 0
     if strategy == "scatter":
@@ -225,6 +226,29 @@ def to_device_graph(graph: CompiledFactorGraph,
         [graph.buckets[b].var_ids for b in order], n_rows)
     tiles = aggregation_plan(offsets, graph.var_costs.shape[1])
     pos = positional_arrays([b.var_ids for b in graph.buckets], n_rows)
+    return dict(
+        agg_perm=put(perm, torch.int32),
+        agg_offsets=put(offsets, torch.int32),
+        agg_buckets=put(starts, torch.int32),
+        agg_tiles=put(tiles, torch.int32),
+        agg_order=order,
+        agg_sep=sep,
+        pos_perm=put(pos.perm, torch.int32),
+        pos_units=put(pos.starts, torch.int32),
+        pos_order=pos.order,
+        pos_sep=pos.sep,
+        pos_mid=None if pos.mid is None else put(pos.mid, torch.int32),
+        pos_other=(None if pos.other is None
+                   else put(pos.other, torch.int32)),
+    )
+
+
+def to_device_graph(graph: CompiledFactorGraph,
+                    device: DeviceLike = "cuda") -> TorchFactorGraph:
+    """Move a host-compiled graph onto ``device`` (resolved by the
+    device rule), with its aggregation strategy and arrays."""
+    put = _placer(resolve_device(device))
+    strategy = aggregation_strategy(graph)
 
     def bucket(b):
         bits = edge_valid_bits(graph.var_valid, b.var_ids)
@@ -237,20 +261,63 @@ def to_device_graph(graph: CompiledFactorGraph,
         var_costs=put(graph.var_costs, torch.float32),
         var_valid=put(graph.var_valid, torch.bool),
         buckets=tuple(bucket(b) for b in graph.buckets),
-        agg_perm=put(perm, torch.int32),
-        agg_offsets=put(offsets, torch.int32),
-        agg_buckets=put(starts, torch.int32),
-        agg_tiles=put(tiles, torch.int32),
         agg_strategy=strategy,
         agg_ell=(None if graph.agg_ell is None
                  else put(graph.agg_ell, torch.int32)),
-        agg_order=order,
-        agg_sep=sep,
-        pos_perm=put(pos.perm, torch.int32),
-        pos_units=put(pos.starts, torch.int32),
-        pos_order=pos.order,
-        pos_sep=pos.sep,
-        pos_mid=None if pos.mid is None else put(pos.mid, torch.int32),
-        pos_other=(None if pos.other is None
-                   else put(pos.other, torch.int32)),
+        **_scope_fields(graph, strategy, put),
     )
+
+
+# --------------------------------------------------------------------- #
+# Patching a placed graph in place (the dynamic engine's edits).  Each
+# function leaves the placed graph equal, field by field, to
+# ``to_device_graph`` of the patched host graph.
+
+
+def place_bucket_rows(placed: TorchFactorGraph,
+                      graph: CompiledFactorGraph, bucket: int,
+                      rows) -> None:
+    """Write rows ``rows`` of host bucket ``bucket`` (costs and
+    ``var_ids``, with what they feed on the bucket: ``var_ids32`` and
+    the ``edge_valid`` bits) into ``placed``'s tensors in place.  When a
+    row's scope changed, :func:`replace_scope` must follow."""
+    host = graph.buckets[bucket]
+    dest = placed.buckets[bucket]
+    dev = dest.costs.device
+    rows = np.asarray(sorted(rows), np.int64)
+    idx = torch.from_numpy(rows).to(dev)
+    ids = np.asarray(host.var_ids)[rows]
+    dest.costs.index_copy_(0, idx, torch.from_numpy(
+        np.ascontiguousarray(np.asarray(host.costs)[rows],
+                             np.float32)).to(dev))
+    dest.var_ids.index_copy_(0, idx, torch.from_numpy(
+        ids.astype(np.int64)).to(dev))
+    dest.var_ids32.index_copy_(0, idx, torch.from_numpy(
+        ids.astype(np.int32)).to(dev))
+    if dest.edge_valid is not None:
+        bits = edge_valid_bits(graph.var_valid, ids)
+        dest.edge_valid.index_copy_(0, idx, torch.from_numpy(bits).to(dev))
+
+
+def place_var_rows(placed: TorchFactorGraph, graph: CompiledFactorGraph,
+                   rows) -> None:
+    """Write rows ``rows`` of the host ``var_costs`` into ``placed`` in
+    place (``var_valid`` is unchanged: a domain change recompiles)."""
+    dev = placed.var_costs.device
+    rows = np.asarray(sorted(rows), np.int64)
+    placed.var_costs.index_copy_(
+        0, torch.from_numpy(rows).to(dev),
+        torch.from_numpy(np.ascontiguousarray(
+            np.asarray(graph.var_costs)[rows], np.float32)).to(dev))
+
+
+def replace_scope(placed: TorchFactorGraph,
+                  graph: CompiledFactorGraph) -> TorchFactorGraph:
+    """``placed`` with the fields that follow ``var_ids`` (the belief
+    sum's CSR, the positional order) rebuilt from ``graph``'s host
+    arrays, as :func:`to_device_graph` builds them: after an edit that
+    moved edges between variables.  The costs, ids and ``edge_valid``
+    are shared."""
+    put = _placer(placed.var_costs.device)
+    return placed._replace(
+        **_scope_fields(graph, placed.agg_strategy, put))

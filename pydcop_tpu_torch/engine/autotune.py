@@ -1,7 +1,8 @@
-"""Aggregation autotuner: ``aggregation='auto'`` picks the belief
-aggregation by measurement.
+"""Autotuners: ``aggregation='auto'`` picks the belief aggregation and
+``algo='auto'`` the algorithm, each by measurement.
 
-Port of the aggregation half of ``pydcop_tpu/engine/autotune.py``: time
+Port of ``pydcop_tpu/engine/autotune.py`` up to its pack fitting.  The
+aggregation autotuner: time
 one ``aggregate_beliefs`` pass of each strategy on the actual compiled
 graph (same bucket shapes and edge distribution, random messages), on
 the device the solve runs on, and choose the fastest of
@@ -16,15 +17,25 @@ metrics.
   strategy is timed fails the solve.
 - **numerics**: ``boundary`` is timed for the record but never chosen.
 
+The portfolio racer (:func:`autotune_portfolio`) runs each candidate
+algorithm for a short budget of cycles on the placed graph and picks
+the fastest whose final cost comes within ``_PORTFOLIO_COST_TOL`` of the
+best; DPOP races only under :data:`DPOP_RACE_MAX_ELEMENTS`.  As for the
+aggregation, only the refusals a leg raises by design on a valid graph
+(:data:`LEG_REFUSALS`) drop it from the race: a kernel that fails to
+build or launch fails the solve.
+
 Decisions persist in a JSON file keyed by (backend, graph shape); the
-backend is the torch device type (``"cuda"``/``"cpu"``), so a key never
-matches one of the JAX package's.  The default file is
+backend is the torch device type (``"cuda"``/``"cpu"``), which on the
+CPU is also the JAX package's token, and both packages read
+``PYDCOP_AGG_AUTOTUNE_CACHE``.  So every entry this module stores
+carries ``WRITER_KEY: WRITER``, and it replays only entries that do:
+never a decision the JAX package measured.  The default file is
 ``~/.cache/pydcop_tpu_torch/agg_autotune.json``;
 ``PYDCOP_AGG_AUTOTUNE_CACHE`` names another.  A file that cannot be
 written is logged and skipped.
 
-Not ported here: the whole-algorithm portfolio racer and its pack
-fitting (they come with batched solving).
+Not ported here: the pack fitting (it comes with batched solving).
 """
 
 import json
@@ -43,6 +54,7 @@ from pydcop_tpu_torch.engine.compile import (
     FactorBucket,
     build_aggregation_arrays,
 )
+from pydcop_tpu_torch.ops.dpop import UtilTooLargeError
 from pydcop_tpu_torch.ops.ell import multi_bucket_form
 
 logger = logging.getLogger("pydcop_tpu_torch.engine.autotune")
@@ -51,6 +63,11 @@ logger = logging.getLogger("pydcop_tpu_torch.engine.autotune")
 SELECTABLE = ("scatter", "sorted", "ell")
 
 _CACHE_VERSION = 1
+
+# The field every entry this module stores carries, and the only
+# entries it replays.
+WRITER_KEY = "writer"
+WRITER = "pydcop_tpu_torch"
 
 
 def cache_path() -> str:
@@ -121,10 +138,18 @@ def cached_choice(key: str,
                   cache_file: Optional[str] = None) -> Optional[str]:
     """The stored decision for ``key``, or None when there is none or
     it is not a selectable strategy."""
-    cached = _load_cache(cache_file or cache_path()).get(key)
-    if isinstance(cached, dict) \
-            and cached.get("aggregation") in SELECTABLE:
+    cached = _cached_entry(_load_cache(cache_file or cache_path()), key)
+    if cached is not None and cached.get("aggregation") in SELECTABLE:
         return cached["aggregation"]
+    return None
+
+
+def _cached_entry(data: Dict[str, Any], key: str
+                  ) -> Optional[Dict[str, Any]]:
+    """The entry stored under ``key`` when this module wrote it."""
+    cached = data.get(key)
+    if isinstance(cached, dict) and cached.get(WRITER_KEY) == WRITER:
+        return cached
     return None
 
 
@@ -140,8 +165,10 @@ def _load_cache(path: str) -> Dict[str, Any]:
 
 
 def _store_cache(path: str, data: Dict[str, Any]) -> None:
-    """Merge ``data`` into the file and replace it atomically; an
-    ``OSError`` is logged and the decision is not persisted."""
+    """Merge ``data`` (each entry marked with :data:`WRITER`) into the
+    file and replace it atomically; an ``OSError`` is logged and the
+    decision is not persisted."""
+    data = {k: {**v, WRITER_KEY: WRITER} for k, v in data.items()}
     try:
         directory = os.path.dirname(os.path.abspath(path))
         os.makedirs(directory, exist_ok=True)
@@ -243,9 +270,8 @@ def autotune_aggregation(graph: CompiledFactorGraph, *,
 
     path = cache_file or cache_path()
     if use_cache:
-        cached = _load_cache(path).get(key)
-        if (isinstance(cached, dict)
-                and cached.get("aggregation") in SELECTABLE):
+        cached = _cached_entry(_load_cache(path), key)
+        if cached is not None and cached.get("aggregation") in SELECTABLE:
             return {
                 "aggregation": cached["aggregation"],
                 "aggregation_source": "cache",
@@ -299,5 +325,333 @@ def autotune_aggregation(graph: CompiledFactorGraph, *,
             "aggregation": choice,
             "aggregation_timings_ms": timings_ms,
             "backend": backend,
+        }})
+    return result
+
+
+# --------------------------------------------------------------------- #
+# Whole-algorithm portfolio racer: each candidate races a short budget
+# of cycles on the placed graph; the winner is the fastest candidate
+# whose final cost reaches the best cost any candidate achieved (within
+# tolerance).  Decisions persist in the aggregation autotuner's file
+# under their own key prefix, so a same-structure solve replays them.
+
+# Candidate order is the tie-break (maxsum first).  "dpop" races only
+# when the caller passes its runner in ``extra_runners``, which
+# :func:`dpop_portfolio_runner` builds only under the width gate.
+PORTFOLIO_CANDIDATES = (
+    "maxsum", "maxsum_prune", "maxsum_decim", "dsa", "mgm", "gdba",
+    "dpop",
+)
+
+# Winner -> (algorithm name, extra algo_params) for api.solve.
+PORTFOLIO_PARAMS = {
+    "maxsum": ("maxsum", {}),
+    "maxsum_prune": ("maxsum", {"prune": True}),
+    "maxsum_decim": ("maxsum", {"decimation": 10}),
+    "dsa": ("dsa", {}),
+    "mgm": ("mgm", {}),
+    "gdba": ("gdba", {}),
+    "dpop": ("dpop", {}),
+}
+
+# Width gate for racing exact inference, far below
+# ops/dpop.MAX_NODE_ELEMENTS: past it DPOP is reachable only by name.
+DPOP_RACE_MAX_ELEMENTS = 2 ** 20
+
+_PORTFOLIO_PREFIX = f"portfolio-v{_CACHE_VERSION}|"
+
+# A candidate's final cost must come within this fraction of the best
+# (plus an absolute epsilon for zero-cost targets) to win on time.
+_PORTFOLIO_COST_TOL = 0.02
+_PORTFOLIO_RACE_CYCLES = 60
+# The cycle count a race leg runs (consumers scale its time by it).
+PORTFOLIO_RACE_CYCLES = _PORTFOLIO_RACE_CYCLES
+
+
+# The exceptions a leg raises by design on a valid graph (DPOP's UTIL
+# table past MAX_NODE_ELEMENTS): a leg that raises one is dropped from
+# the race; anything else fails it.
+LEG_REFUSALS = (UtilTooLargeError,)
+
+
+def portfolio_key(shape: str) -> str:
+    return _PORTFOLIO_PREFIX + shape
+
+
+def dcop_portfolio_key(dcop, backend: str) -> str:
+    return portfolio_key(dcop_shape_key(dcop, backend))
+
+
+def _portfolio_entry(data: Dict[str, Any], key: str
+                     ) -> Optional[Dict[str, Any]]:
+    cached = _cached_entry(data, key)
+    if cached is not None and cached.get("algo") in PORTFOLIO_CANDIDATES:
+        return cached
+    return None
+
+
+def cached_portfolio_choice(key: str,
+                            cache_file: Optional[str] = None
+                            ) -> Optional[str]:
+    """The stored portfolio decision for ``key``, or None."""
+    cached = _portfolio_entry(_load_cache(cache_file or cache_path()), key)
+    return None if cached is None else cached["algo"]
+
+
+def cached_portfolio_timing_ms(key: str,
+                               cache_file: Optional[str] = None,
+                               data: Optional[Dict[str, Any]] = None
+                               ) -> Optional[float]:
+    """The stored winner's race time (ms over
+    :data:`PORTFOLIO_RACE_CYCLES` cycles) for ``key``, or None.
+    ``data`` is an already-loaded cache dict."""
+    if data is None:
+        data = _load_cache(cache_file or cache_path())
+    cached = _portfolio_entry(data, key)
+    if cached is not None:
+        timing = (cached.get("portfolio_timings_ms")
+                  or {}).get(cached["algo"])
+        if isinstance(timing, (int, float)) and timing > 0:
+            return float(timing)
+    return None
+
+
+def _portfolio_runners(graph: CompiledFactorGraph, race_cycles: int,
+                       meta=None, device: DeviceLike = "cuda"):
+    """name -> zero-arg callable returning a leg's final cost (a host
+    float), each on the graph placed once on ``device``.  A leg's
+    first call builds its kernels; the caller times the second.
+
+    ``meta`` (a FactorGraphMeta) gives mgm and gdba the lexical-name
+    tie-break ranks the deployed winner uses; without it, index order
+    with the +inf sentinel."""
+    from pydcop_tpu_torch.engine.compile import BIG
+    from pydcop_tpu_torch.ops import dsa as dsa_ops
+    from pydcop_tpu_torch.ops import gdba as gdba_ops
+    from pydcop_tpu_torch.ops import maxsum as maxsum_ops
+    from pydcop_tpu_torch.ops import mgm as mgm_ops
+    from pydcop_tpu_torch.ops.localsearch import assignment_cost
+
+    dev = resolve_device(device)
+    placed = to_device_graph(graph, dev)
+    n_rows = graph.var_costs.shape[0]
+    if meta is not None:
+        from pydcop_tpu_torch.algorithms.mgm import lexic_ranks
+
+        ranks = torch.tensor(lexic_ranks(meta), device=dev)
+    else:
+        ranks = torch.cat([
+            torch.arange(n_rows - 1, dtype=torch.float32, device=dev),
+            torch.tensor([np.inf], dtype=torch.float32, device=dev),
+        ])
+
+    def cost_of(values):
+        # The reference scores inside the leg's jit with the graph
+        # closed over (ROADMAP Queue C: the form there is the local
+        # search's on the graphs probed).
+        full = torch.cat([values, torch.zeros(
+            (1,), dtype=values.dtype, device=values.device)])
+        return assignment_cost(placed, full)
+
+    def maxsum_runner(prune: bool):
+        def run():
+            _, values = maxsum_ops.run_maxsum(
+                placed, race_cycles, stop_on_convergence=False,
+                prune=prune)
+            return float(cost_of(values))
+
+        return run
+
+    def decim_runner():
+        half = max(race_cycles // 2, 1)
+
+        def run():
+            state, values = maxsum_ops.run_maxsum(
+                placed, half, stop_on_convergence=False)
+            margin = _belief_margin(placed, state).cpu().numpy()
+            vals = values.cpu().numpy()
+            var_costs = placed.var_costs.cpu().numpy().copy()
+            n_vars = var_costs.shape[0] - 1
+            k = max(1, n_vars // 5)
+            chosen = np.argsort(-margin, kind="stable")[:k]
+            d = var_costs.shape[1]
+            for i in chosen:
+                keep = int(vals[i])
+                row = np.full((d,), BIG, var_costs.dtype)
+                row[keep] = var_costs[i, keep]
+                var_costs[i] = row
+            g2 = placed._replace(var_costs=torch.tensor(var_costs,
+                                                        device=dev))
+            state = state._replace(stable=torch.tensor(False, device=dev))
+            _, values = maxsum_ops.run_maxsum_from(
+                g2, state, half, stop_on_convergence=False)
+            # Scored against the unclamped graph, as the reference.
+            return float(cost_of(values))
+
+        return run
+
+    def ls_runner(run_fn, **kw):
+        return lambda: float(run_fn(placed, race_cycles, **kw)[1])
+
+    return {
+        "maxsum": maxsum_runner(False),
+        "maxsum_prune": maxsum_runner(True),
+        "maxsum_decim": decim_runner(),
+        "dsa": ls_runner(dsa_ops.run_dsa),
+        "mgm": ls_runner(mgm_ops.run_mgm, lexic_ranks=ranks),
+        "gdba": ls_runner(gdba_ops.run_gdba, lexic_ranks=ranks),
+    }
+
+
+def dpop_portfolio_runner(dcop, graph: CompiledFactorGraph, meta,
+                          device: DeviceLike = "cuda"):
+    """The exact-inference race leg, or None past the width gate
+    (decided from the pseudo-tree before any table exists, CEC
+    shrinkage included).  The leg scores its assignment with the
+    compiled graph's ``assignment_cost``, as the iterative legs do."""
+    from pydcop_tpu_torch.computations_graph import pseudotree as pt
+    from pydcop_tpu_torch.engine.dpop import DpopEngine, dpop_feasibility
+    from pydcop_tpu_torch.ops.localsearch import assignment_cost
+
+    ptree = pt.build_computation_graph(dcop)
+    verdict = dpop_feasibility(
+        ptree, mode=dcop.objective, cec=True,
+        max_elements=DPOP_RACE_MAX_ELEMENTS)
+    if not verdict["feasible"]:
+        logger.debug(
+            "portfolio: dpop leg skipped (max_elements %s > gate %s)",
+            verdict["max_elements"], DPOP_RACE_MAX_ELEMENTS)
+        return None
+    dev = resolve_device(device)
+    engine = DpopEngine(ptree, mode=dcop.objective, cec=True, device=dev)
+    placed = to_device_graph(graph, dev)
+    index_of = {
+        name: {v: i for i, v in enumerate(dom)}
+        for name, dom in zip(meta.var_names, meta.domains)
+    }
+
+    def run():
+        res = engine.run()
+        idx = torch.tensor(
+            [index_of[n][res.assignment[n]] for n in meta.var_names]
+            + [0], dtype=torch.int32, device=dev)
+        # The reference scores this leg op by op, outside any jit.
+        return float(assignment_cost(placed, idx, site="eager"))
+
+    return run
+
+
+def _belief_margin(graph, state) -> torch.Tensor:
+    """[V]: second-best minus best belief over each variable's valid
+    slots (the decimation leg's confidence)."""
+    from pydcop_tpu_torch.ops.flush import ftz
+    from pydcop_tpu_torch.ops.maxsum import aggregate_beliefs
+
+    beliefs, _ = aggregate_beliefs(graph, state.f2v)
+    masked = torch.where(graph.var_valid, beliefs, torch.inf)[:-1]
+    best2 = torch.sort(masked, dim=1).values[:, :2]
+    return ftz(best2[:, 1] - best2[:, 0])
+
+
+def autotune_portfolio(graph: CompiledFactorGraph, *,
+                       key: Optional[str] = None,
+                       race_cycles: int = _PORTFOLIO_RACE_CYCLES,
+                       use_cache: bool = True,
+                       cache_file: Optional[str] = None,
+                       candidates=PORTFOLIO_CANDIDATES,
+                       meta=None,
+                       extra_runners=None,
+                       device: DeviceLike = "cuda",
+                       ) -> Dict[str, Any]:
+    """Race whole algorithms on ``graph`` toward a cost target, on
+    ``device``.
+
+    Every candidate runs ``race_cycles`` cycles twice; the second run
+    is timed, up to the host's read of its cost.  The target is the
+    best final cost of any candidate; the winner is the fastest
+    candidate within ``_PORTFOLIO_COST_TOL`` of it, ties going to the
+    earlier candidate.  A leg that raises one of :data:`LEG_REFUSALS`
+    is dropped with a note; any other exception fails the race.
+
+    Returns ``{"algo", "portfolio_source", "portfolio_timings_ms",
+    "portfolio_costs", "portfolio_target_cost", "portfolio_key"}`` and
+    stores the decision under ``key`` (``portfolio_source`` is
+    ``"cache"`` on a replay, ``"measured"`` otherwise)."""
+    import time as _time
+
+    dev = resolve_device(device)
+    if key is None:
+        key = portfolio_key(graph_shape_key(graph, dev.type))
+    path = cache_file or cache_path()
+    if use_cache:
+        cached = _portfolio_entry(_load_cache(path), key)
+        if cached is not None:
+            return {
+                "algo": cached["algo"],
+                "portfolio_source": "cache",
+                "portfolio_timings_ms": cached.get(
+                    "portfolio_timings_ms", {}),
+                "portfolio_costs": cached.get("portfolio_costs", {}),
+                "portfolio_target_cost": cached.get(
+                    "portfolio_target_cost"),
+                "portfolio_key": key,
+            }
+
+    runners = _portfolio_runners(graph, race_cycles, meta=meta, device=dev)
+    if extra_runners:
+        # A None runner: the candidate does not race on this structure.
+        runners.update(
+            {k: v for k, v in extra_runners.items() if v is not None})
+    timings_ms: Dict[str, Optional[float]] = {}
+    costs: Dict[str, Optional[float]] = {}
+    notes: Dict[str, str] = {}
+    for name in candidates:
+        runner = runners.get(name)
+        if runner is None:
+            continue
+        try:
+            runner()  # builds the kernels; discarded
+            t0 = _time.perf_counter()
+            cost = runner()
+            timings_ms[name] = round(
+                (_time.perf_counter() - t0) * 1e3, 4)
+            costs[name] = cost
+        except LEG_REFUSALS as e:
+            notes[name] = f"{type(e).__name__}"
+            logger.warning("portfolio: %s refused to race: %s", name, e)
+            timings_ms[name] = None
+            costs[name] = None
+
+    scored = {n: (costs[n], timings_ms[n]) for n in candidates
+              if costs.get(n) is not None
+              and timings_ms.get(n) is not None}
+    if not scored:
+        choice = "maxsum"
+        target = None
+    else:
+        target = min(c for c, _ in scored.values())
+        tol = abs(target) * _PORTFOLIO_COST_TOL + 1e-9
+        eligible = {n: t for n, (c, t) in scored.items()
+                    if c <= target + tol}
+        order = {n: i for i, n in enumerate(candidates)}
+        choice = min(eligible, key=lambda n: (eligible[n], order[n]))
+    result = {
+        "algo": choice,
+        "portfolio_source": "measured",
+        "portfolio_timings_ms": timings_ms,
+        "portfolio_costs": costs,
+        "portfolio_target_cost": target,
+        "portfolio_key": key,
+    }
+    if notes:
+        result["portfolio_notes"] = notes
+    if use_cache:
+        _store_cache(path, {key: {
+            "algo": choice,
+            "portfolio_timings_ms": timings_ms,
+            "portfolio_costs": costs,
+            "portfolio_target_cost": target,
+            "backend": dev.type,
         }})
     return result

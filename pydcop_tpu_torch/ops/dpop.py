@@ -51,6 +51,7 @@ or off — pruning only shrinks every hypercube axis the variable touches
 and thereby raises the width ceiling under ``MAX_NODE_ELEMENTS``.
 """
 
+import math
 from collections import defaultdict
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -156,7 +157,11 @@ def tree_stats(graph, survivors: Optional[Dict[str, np.ndarray]] = None
     max_elements = 0
     total_elements = 0
     for name, (dims, shape) in layout.items():
-        n = int(np.prod(shape, dtype=np.float64))
+        with np.errstate(over="ignore"):
+            n = np.prod(shape, dtype=np.float64)
+        # Past float64's range, the exact product (the reference raises
+        # there: the flagship's separators reach hundreds of variables).
+        n = int(n) if np.isfinite(n) else math.prod(shape)
         max_elements = max(max_elements, n)
         total_elements += n
     return {

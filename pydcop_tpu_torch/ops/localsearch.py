@@ -218,26 +218,28 @@ def factor_current_costs(graph: TorchFactorGraph,
 
 
 def assignment_cost(graph: TorchFactorGraph,
-                    values: torch.Tensor) -> torch.Tensor:
+                    values: torch.Tensor,
+                    site: str = "localsearch") -> torch.Tensor:
     """Scalar float32 total cost (constraints + unary) of the
     assignment; ``values`` is the full [V+1] array (sentinel row
     excluded from the unary costs; padding factors cost 0).  One
     :func:`window_sum.window_total` (one launch on the card): the unary
     costs, then each bucket's, gathered and summed in XLA's order for
     the reference's ``jnp.sum`` and added in the reference's source
-    order, so the total is the reference's bit for bit."""
+    order, so the total is the reference's bit for bit.  ``site`` is
+    ``"localsearch"`` (the reference jitted, as the local search and
+    the portfolio's race legs run it) or ``"eager"`` (op by op, as the
+    portfolio's DPOP leg runs it): :func:`window_sum.gather_stages`."""
     d = graph.var_costs.shape[1]
     v = graph.var_costs.shape[0] - 1
-    beside_wide = any(b.var_ids.shape[1] >= 5
-                      and 2 <= b.var_ids.shape[0] <= 32
-                      for b in graph.buckets)
+    shapes = [(a, f) for f, a in (b.var_ids.shape for b in graph.buckets)]
     ops = [Gather(graph.var_costs, None, v, d,
-                  gather_stages("localsearch", 0, d, v,
-                                beside_wide=beside_wide))]
-    for b in graph.buckets:
-        f, arity = b.var_ids.shape
+                  gather_stages(site, 0, d, v, near=shapes))]
+    for k, b in enumerate(graph.buckets):
+        arity, f = shapes[k]
         ops.append(Gather(b.costs.reshape(f, -1), b.var_ids32, f, d,
-                          gather_stages("localsearch", arity, d, f)))
+                          gather_stages(site, arity, d, f,
+                                        near=shapes[:k] + shapes[k + 1:])))
     return window_total(ops, values)
 
 

@@ -412,15 +412,17 @@ def constraint_operands(graph: TorchFactorGraph,
                         site: str = "maxsum") -> List[Gather]:
     """Each bucket's cost gather for :func:`window_sum.window_total`, in
     bucket order, with the head of its sum at ``site``
-    (``window_sum.gather_stages``)."""
+    (``window_sum.gather_stages``, told what the other buckets are)."""
     d = graph.var_costs.shape[1]
-    widest = max((b.var_ids.shape[1] for b in graph.buckets
-                  if b.var_ids.shape[0] > 1), default=0)
+    shapes = [(a, f) for f, a in (b.var_ids.shape for b in graph.buckets)]
+    widest = max((a for a, f in shapes if f > 1), default=0)
     ops = []
-    for bucket in graph.buckets:
-        f, arity = bucket.var_ids.shape
+    for k, bucket in enumerate(graph.buckets):
+        arity, f = shapes[k]
+        head = gather_stages(site, arity, d, f, widest,
+                             near=shapes[:k] + shapes[k + 1:])
         ops.append(Gather(bucket.costs.reshape(f, -1), bucket.var_ids32, f,
-                          d, gather_stages(site, arity, d, f, widest)))
+                          d, head))
     return ops
 
 

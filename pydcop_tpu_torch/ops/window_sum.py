@@ -99,9 +99,9 @@ def _four_at_8(site: str, arity: int, d: int) -> bool:
 
 def _localsearch_unit_domain(arity: int, n: int) -> Stages:
     """``assignment_cost``'s head at D = 1, arity >= 2, 16 <= n <= 32:
-    the vector loop leaves at least one value to the scalar loop.  At
-    arity >= 6 and n = 23 the form follows the variable count too
-    (lanes of 4 at 40 variables, of 8 at 12-33: ROADMAP Queue C)."""
+    the vector loop leaves at least one value to the scalar loop (at
+    arity >= 6 and 20-23 values, lanes of 8 at every variable count
+    probed, 12-80)."""
     if n == 16:
         return _L4x8
     if n == 24:
@@ -111,36 +111,71 @@ def _localsearch_unit_domain(arity: int, n: int) -> Stages:
     if n < 20:
         return _L8x16
     if arity >= 6:
-        return _L4x16 if n == 23 else _L8x16
+        return _L8x16
     return _L4x16 if n == 20 else _L4x16_2x20
 
 
+def _near_arities(site: str, near) -> int:
+    """The arities, added up, of the buckets in ``near`` summed directly
+    (2-32 factors), not counting 8-ary ones at ``"maxsum"``."""
+    return sum(a for a, m in near if 2 <= m <= WINDOW
+               and not (site == "maxsum" and a == 8))
+
+
+def _near_any(near, arities, most: int) -> bool:
+    """Whether ``near`` holds a bucket of one of ``arities`` with 2 to
+    ``most`` factors."""
+    return any(a in arities and 2 <= m <= most for a, m in near)
+
+
 def gather_stages(site: str, arity: int, d: int, n: int,
-                  widest: int = 2, beside_wide: bool = False) -> Stages:
+                  widest: int = 2, near: Sequence[Tuple[int, int]] = ()
+                  ) -> Stages:
     """The head of the reference's sum of ``n`` gathered costs at
     ``site``, for a bucket of ``arity`` (0: the variable costs) with
     domain size ``d`` in a graph whose widest bucket has arity
-    ``widest``.  Sites: ``"localsearch"`` (``assignment_cost``'s
-    per-position gathers), ``"maxsum"`` (``assignment_constraint_cost``'s
-    flat-index gather and the trace's variable-side gather, the graph a
-    jit argument) and ``"probe"`` (the same sums jitted with the graph
-    closed over as constants, as the engine probe does).  At
-    ``"localsearch"`` the variable costs' sum (arity 0) goes in lanes
-    from fewer values when ``beside_wide``: the graph holds a bucket of
-    arity >= 5 and 2-32 factors.  Above 32 values the window chain
-    decides and the head is unused.  Probed at arity 0-8, D in 1..8
-    (tables up to 2**16 entries a factor), n in 1..33, one bucket beside
-    the variable costs (jax 0.9.0, XLA:CPU, optimised HLO and IR and the
-    sums' bits).
-    Open (ROADMAP Queue C): at ``"probe"`` the graph's var_ids are
-    constants and LLVM's choice for a bucket beside another one can
-    follow their values (the same shapes give several forms)."""
-    if n > WINDOW or n < 2:
+    ``widest`` and whose other buckets have the (arity, factors) of
+    ``near`` (for the variable costs: every bucket).  Sites:
+    ``"localsearch"`` (``assignment_cost``'s per-position gathers),
+    ``"maxsum"`` (``assignment_constraint_cost``'s flat-index gather and
+    the trace's variable-side gather, the graph a jit argument),
+    ``"probe"`` (the same sums jitted with the graph closed over as
+    constants, as the engine probe does) and ``"eager"`` (each sum its
+    own program over the gathered values, as when the reference's
+    ``assignment_cost`` runs outside a jit: no vectorised head, left to
+    right).
+
+    The buckets summed directly (2-32 factors) in the same loop fusion
+    change three forms:
+
+    - a sum of the variable costs (arity 0, ``"localsearch"``) or of a
+      unary bucket (arity 1, ``"localsearch"`` and ``"maxsum"``) goes in
+      lanes from 22 values at D = 2 and 20 at D >= 3 (25 and 22 alone)
+      when their arities add up to 5 or more (at ``"maxsum"`` not
+      counting 8-ary ones);
+    - at ``"maxsum"``, beside a bucket of arity 3, 4, 6 or 7, a 5-ary
+      bucket of 20-23 factors goes in lanes of 4 then 2, not 8, and one
+      of 32 in lanes of 8, not 16;
+    - at ``"maxsum"`` with D = 1, beside a binary bucket of 2-20
+      factors or one of arity 4-7 and 2-8 factors, a ternary bucket of 8
+      factors goes in lanes.
+
+    Above 32 values the window chain decides and the head is unused.
+    Probed at arity 0-8, D in 1..8 (tables up to 2**16 entries a
+    factor), n in 1..33, one bucket beside the variable costs and one or
+    two beside another (jax 0.9.0, XLA:CPU, optimised HLO and IR and the
+    sums' bits).  Open (ROADMAP Queue C): at ``"probe"`` the graph's
+    var_ids are constants and LLVM's choice for a bucket beside another
+    one can follow their values; buckets of 8 factors beside others at
+    ``"localsearch"`` (D >= 2) and at ``"maxsum"`` with neighbours of
+    more factors follow no rule found."""
+    if n > WINDOW or n < 2 or site == "eager":
         return ()
     if arity <= 1:
         if d < 2 or n <= 8:
             return ()
-        if site == "localsearch" and arity == 0 and beside_wide:
+        if ((site == "localsearch" or (site == "maxsum" and arity == 1))
+                and _near_arities(site, near) >= 5):
             first = 22 if d == 2 else 20
         else:
             first = 25 if d == 2 else 22
@@ -152,6 +187,10 @@ def gather_stages(site: str, arity: int, d: int, n: int,
     if n < 8:
         return _L2x4 if n == 4 and _two_at_4(site, arity, d) else ()
     if n == 8:
+        if (site == "maxsum" and arity == 3 and d == 1
+                and (_near_any(near, (2,), 20)
+                     or _near_any(near, (4, 5, 6, 7), 8))):
+            return _L4x8
         return _L4x8 if _four_at_8(site, arity, d) else ()
     if n < 16:
         return ()
@@ -172,6 +211,9 @@ def gather_stages(site: str, arity: int, d: int, n: int,
     if n < 20:
         return _L8x16
     if n < 24:
+        if site == "maxsum" and arity == 5 and _near_any(
+                near, (3, 4, 6, 7), WINDOW):
+            return _L4x16_2x20
         if site == "probe" and arity <= 6:
             return _L8x16_2x20
         if site == "localsearch" and arity >= 7:
@@ -180,7 +222,9 @@ def gather_stages(site: str, arity: int, d: int, n: int,
     if n < 32:
         return _L8x24
     if ((site == "probe" and arity <= 6 and d >= 2)
-            or (site == "localsearch" and arity >= 7)):
+            or (site == "localsearch" and arity >= 7)
+            or (site == "maxsum" and arity == 5
+                and _near_any(near, (3, 4, 6, 7), WINDOW))):
         return _L8x32
     return _L16x32
 
@@ -196,11 +240,18 @@ def residual_lanes(shape) -> int:
     vectorises each row over the arity axis when it is 2, 4 or 8 and
     2 <= D <= 8 in the windows of the first level (F > 32), and in a
     direct sum (F <= 32) at arity 4 for D <= 9 and at arity 8 for
-    D <= 16 (optimised IR and bits of the jitted reference, jax 0.9.0);
-    else the row is left to right (or in :func:`residual_rows`).  Open
-    (ROADMAP Queue C): arity 16 with D >= 2 follows neither form."""
+    D <= 16; at arity 16 in 8 lanes (slots k and k + 8 in lane k) for
+    D <= 6 windowed and D <= 18 direct, in 4 lanes for D = 7-8 windowed
+    (optimised IR and bits of the jitted reference, jax 0.9.0); else
+    the row is left to right (or in :func:`residual_rows`)."""
     f, arity, d = shape
-    if arity not in _LANES_MAX_D or d < 2:
+    if d < 2:
+        return 1
+    if arity == 16:
+        if f > WINDOW:
+            return 8 if d <= 6 else 4 if d <= 8 else 1
+        return 8 if d <= 18 else 1
+    if arity not in _LANES_MAX_D:
         return 1
     windowed, direct = _LANES_MAX_D[arity]
     return arity if d <= (windowed if f > WINDOW else direct) else 1
@@ -315,9 +366,10 @@ def _fold(sums):
 def _level_sum(boxes: torch.Tensor, lanes: int,
                rows: Rows = NO_ROWS) -> torch.Tensor:
     """[M] sums of the [M, w0, w1, w2] window boxes in row-major order
-    from +0.0.  With ``lanes > 1`` (= w1) each row of a box is summed in
-    ``lanes`` lanes, one an axis-1 slot (lane 0 from the running sum,
-    the others from -0.0, each over axis 2 in order), folded by halves
+    from +0.0.  With ``lanes > 1`` (dividing w1) each row of a box is
+    summed in ``lanes`` lanes, axis-1 slot j into lane j % lanes (lane 0
+    from the running sum, the others from -0.0; each slot's values over
+    axis 2 in order, the slots of a lane in order), folded by halves
     into the running sum.  With ``rows = (k, e)``, k > 1, the box's rows
     [0, e) go first in k lanes (row r into lane r % k, its values in
     order; lane 0 from +0.0, the others from -0.0), folded by halves."""
@@ -340,22 +392,23 @@ def _level_sum(boxes: torch.Tensor, lanes: int,
                     acc = ftz(acc + boxes[:, i0, i1, i2])
             continue
         sums = [acc] + [torch.full_like(acc, -0.0)] * (lanes - 1)
-        for k in range(lanes):
+        for i1 in range(w1):
             for i2 in range(w2):
-                sums[k] = ftz(sums[k] + boxes[:, i0, k, i2])
+                sums[i1 % lanes] = ftz(sums[i1 % lanes]
+                                       + boxes[:, i0, i1, i2])
         acc = _fold(sums)
     return acc
 
 
 def _check_form(levels, lanes: int, rows: Rows):
     """Refuse row forms the first level's boxes cannot take: ``lanes``
-    must be axis 1's length, ``rows`` fit the box's rows."""
+    must divide axis 1's length, ``rows`` fit the box's rows."""
     if not levels:
         return
     window = levels[0][2]
-    if lanes > 1 and window[1] != lanes:
-        raise ValueError(f"lanes={lanes} needs axis 1 of that length, "
-                         f"got a box of {window}")
+    if lanes > 1 and window[1] % lanes:
+        raise ValueError(f"lanes={lanes} must divide axis 1, got a box "
+                         f"of {window}")
     if rows[0] > 1 and rows[1] > window[0]:
         raise ValueError(f"rows={rows} needs {rows[1]} rows, got a box "
                          f"of {window}")

@@ -152,7 +152,8 @@ RESIDUALS = [(17, 2, 3), (100, 2, 3), (14_999, 2, 3), (1_500_000, 2, 3),
              (17, 4, 3), (20, 4, 9), (17, 8, 12), (100, 8, 3), (4, 1, 3),
              (8, 12, 1), (23, 1, 2), (30, 1, 5), (64, 1, 3), (1_024, 1, 8),
              (63, 2, 1), (95, 1, 7), (100, 1, 3), (70, 3, 5), (10, 2, 128),
-             (300, 2, 128), (5, 40, 50), (40, 16, 2), (33, 1, 1)]
+             (300, 2, 128), (5, 40, 50), (40, 16, 2), (33, 1, 1),
+             (17, 16, 8), (40, 16, 7)]
 
 
 @pytest.mark.gpu

@@ -7,12 +7,16 @@ delegating algorithms, the fused per-edge update, the observability
 modules, the local-search slice: its algorithms, ops, the threefry
 kernel's wrapper and the copied computation graphs, and the exact
 slice: DPOP's ops, engine and algorithm, SyncBB, NCBB, the pseudo-tree
-and ordered graph, and the window sum's wrapper), then
+and ordered graph, and the window sum's wrapper, and the portfolio and
+dynamic slice: the autotuner, the dynamic engine, the scenario model and
+the YAML writers), then
 ``sys.modules`` must hold no ``jax*``
 module and no ``pydcop_tpu``/``pydcop_tpu.*`` module.  The sources of
 the package, of chip_smoke.py, chip_compare.py,
 chip_var_update_compare.py and of the card-only test files of the local
-search and of the exact slice are also scanned for such imports.
+search, the exact slice and the dynamic slice are also scanned for such
+imports (the scan reads the imports inside functions too, such as the
+portfolio racer's).
 """
 
 import ast
@@ -97,6 +101,10 @@ REQUIRED = [
     "pydcop_tpu_torch.computations_graph.ordered_graph",
     "pydcop_tpu_torch.utils.graphs",
     "pydcop_tpu_torch.infrastructure.computations",
+    "pydcop_tpu_torch.engine.autotune",
+    "pydcop_tpu_torch.engine.dynamic",
+    "pydcop_tpu_torch.dcop.scenario",
+    "pydcop_tpu_torch.dcop.yamldcop",
 ]
 
 
@@ -128,7 +136,8 @@ SOURCES = sorted(
     + [REPO / "chip_smoke.py", REPO / "chip_compare.py",
        REPO / "chip_var_update_compare.py",
        REPO / "tests" / "test_torch_gpu_localsearch.py",
-       REPO / "tests" / "test_torch_gpu_dpop.py"]
+       REPO / "tests" / "test_torch_gpu_dpop.py",
+       REPO / "tests" / "test_torch_gpu_dynamic.py"]
 )
 
 

@@ -141,13 +141,18 @@ def test_pruned_solve_of_a_large_domain_problem(params):
 
 def test_auto_replays_a_stored_decision(tmp_path, monkeypatch):
     """Both packages read the file named by PYDCOP_AGG_AUTOTUNE_CACHE;
-    with the same stored decision both solve with it."""
-    from pydcop_tpu_torch.engine.autotune import dcop_shape_key
+    with the same stored decision both solve with it (the port replays
+    only entries that carry its writer's mark)."""
+    from pydcop_tpu_torch.engine.autotune import (
+        WRITER,
+        WRITER_KEY,
+        dcop_shape_key,
+    )
 
     jax_dcop, torch_dcop = load_both("loft_scene.yml")
     path = tmp_path / "agg.json"
     path.write_text(json.dumps({dcop_shape_key(torch_dcop, "cpu"): {
-        "aggregation": "sorted"}}))
+        "aggregation": "sorted", WRITER_KEY: WRITER}}))
     monkeypatch.setenv("PYDCOP_AGG_AUTOTUNE_CACHE", str(path))
     out = _assert_same_result(jax_dcop, torch_dcop, 100,
                               aggregation="auto")

@@ -10,7 +10,7 @@ probe's site, the unary sum of 22 values, and the residual.
   search's site and the cost trace's: lanes of 4, then 2 (the local
   search's was taken left to right at D = 3); and at the local search's
   site beside a bucket of arity >= 5 and 2-32 factors, from 20 values
-  (``gather_stages(..., beside_wide=True)``).
+  (``gather_stages(..., near=...)``).
 - The residual ``jnp.sum(jnp.abs(b - a))`` over [F, arity, D] messages
   at arity 5-7 and 9-12, and at D = 1 and D > 8: rows in lanes over the
   arity axis (``residual_lanes``), and, where an inner axis is 1, the
@@ -139,6 +139,7 @@ def test_unary_sum_beside_a_small_wide_bucket(arity, f, d):
     for n_vars in (20, 22, 24):
         first = 22 if d == 2 else 20
         assert (gather_stages("localsearch", 0, d, n_vars,
-                              beside_wide=True) != ()) == (n_vars >= first)
+                              near=((arity, f),)) != ()) == (
+                                  n_vars >= first)
         assert_site("localsearch", skeleton(n_vars, [(arity, f)], d,
                                             seed=n_vars + f), range(2))

@@ -124,11 +124,9 @@ COUNTS = [4, 8, 16, 21, 23, 24, 32]
 
 
 def counts(site, arity, d):
-    """COUNTS, but 23 at the local search's site with D = 1 and arity
-    >= 6: that form follows the graph beyond its shape (ROADMAP Queue C
-    item 1, open)."""
-    if site == "localsearch" and d == 1 and arity >= 6:
-        return [n for n in COUNTS if n != 23]
+    """COUNTS at every site and shape class (23 at the local search's
+    site with D = 1 and arity >= 6 too, since the rule for it was
+    found)."""
     return COUNTS
 _SKELETONS = {}
 
