@@ -60,7 +60,18 @@ equal to the same leg on the CPU, the replay of the stored decision
 without a race, the domino chain resolved to DPOP at cost 1.0) and
 ``dynamic`` (``replay_scenario`` on the flagship: the card equal to the
 CPU after every run, every message tensor; the patched graph equal to
-its placement; a card checkpoint restored and run on the CPU).
+its placement; a card checkpoint restored and run on the CPU).  The
+batch and lane slice adds ``lane_kernel_check`` (the lane entry of
+``binary_factor_update.cu`` and ``lane_sum.cu`` bit for bit against
+their plain versions, timed beside their bounds and ``index_add_``),
+``lane_layout`` (``api.solve(flagship, layout lane)``: card = CPU =
+second card run over 200 cycles, the cost trace, the 1M-variable scale
+arrays card = CPU, ms a cycle lane against edge), ``batch_stacked``
+(``solve_maxsum_batch`` over 64 instances of 10,000 variables as one
+disjoint union: each member equal to its solo card solve, the stack
+card = CPU, ``launch_stacked`` under the sync-debug check) and
+``batch_envelope_lane`` (24 structures envelope-padded and lane-packed,
+each member equal to its solo solve and to the CPU).
 Each phase prints one JSON line (with ``t_s``, the seconds since the
 start); any failure raises and the
 script exits non-zero without the final line.  On success the last
@@ -90,8 +101,9 @@ FLAGSHIP_VARS = 10_000
 N_COLORS = 3
 SCALE_VARS = 1_000_000
 # The scale leg's cycles (30 until the portfolio and dynamic phases were
-# added: cut to make room for them; its CPU run is 1.6 s a cycle).
-SCALE_CYCLES = 15
+# added, 15 until the batch and lane slice's: cut to make room for them;
+# its CPU run is 1.6 s a cycle).
+SCALE_CYCLES = 10
 FIXED_CYCLES = 200
 # binary_factor_update shapes (F, D): one factor, blocks short of and
 # past the kernel's 128-factor block, every templated D (1..8), two
@@ -1952,7 +1964,7 @@ LS_CYCLES = 130
 # a second card solve repeats the first case of each algorithm only.
 LS_TIMED_CYCLES = 50
 LS_PROFILE_CYCLES = 10
-LS_SCALE_CYCLES = 30
+LS_SCALE_CYCLES = 20       # 30 until the batch and lane slice
 LS_SCALE_COMPARE = 5
 # (label, algorithm, params, problem) of the flagship solves; the first
 # is the slice's main path (api.solve(dcop, "dsa"), the default variant
@@ -2813,8 +2825,8 @@ WINDOW_GRAPHS = [("mixed_arity", 300, 3, (40, 500, 60, 20, 9)),
                  ("heads", 60, 2, (23, 20, 24, 32, 16, 8)),
                  ("scale_mixed", 100_000, 4, (5_000, 150_000, 30_000))]
 # Warm DPOP solves timed an instance (5 until the portfolio and dynamic
-# phases were added).
-DPOP_WARM_REPS = 3
+# phases were added, 3 until the batch and lane slice's).
+DPOP_WARM_REPS = 2
 # benchmarks/bench_dpop.py's trees (n, D), seed 0 — BASELINE.md config
 # #3 — and bench.py build_dpop_exact_dcop's (n, D, seed).
 DPOP_TREES = [(3_000, 3), (10_000, 8)]
@@ -3457,8 +3469,10 @@ def phase_dpop_cli(ctx):
 
 # The portfolio and dynamic slice.
 DYN_SLACK = 0.02
-DYN_CYCLES = 200
-DYN_EVENT_CYCLES = 100
+# 200 and 100 until the batch and lane slice's phases were added (cut
+# to make room for them; the CPU replay is most of the phase).
+DYN_CYCLES = 120
+DYN_EVENT_CYCLES = 60
 DYN_MARGIN = 0.1
 DYN_AFTER_RESTORE = 50
 DOMINO_VARS = 140
@@ -3819,6 +3833,480 @@ def phase_dynamic(ctx, card="cuda"):
                 restored_on_cpu=dict(cycles=r_cpu.cycles,
                                      assignment_equal=True),
                 seconds=time.perf_counter() - t_phase)
+
+
+# The batch and lane slice.
+LANE_CHECK_D = [1, 2, 3, 4, 5, 6, 7, 8, 9, 33]
+LANE_CHECK_F = [1, 257, 1_000, 15_001]
+LANE_SCALE_COMPARE = 5       # card = CPU cycles at scale, lane layout
+LANE_TRACE_CYCLES = 30
+BATCH_MEMBERS = 64           # stacked instances of build_dcop_small
+BATCH_VARS = 10_000
+BATCH_CPU_CYCLES = 20        # the stack's card = CPU comparison
+MIXED_STRUCTS = 24           # build_dcop_mixed structures
+MIXED_CYCLES = 60
+
+
+def build_dcop_small(objects, relations, dcop_mod, n_vars: int, seed: int):
+    """bench.py build_dcop_small: ring + chord 3-colouring with random
+    integer tables (the same topology per n_vars, tables per seed)."""
+    rng = np.random.default_rng(seed)
+    dom = objects.Domain("colors", "color", list(range(N_COLORS)))
+    dcop = dcop_mod.DCOP(f"serve_{n_vars}_{seed}", objective="min")
+    vs = [objects.Variable(f"v{i}", dom) for i in range(n_vars)]
+    for v in vs:
+        dcop.add_variable(v)
+    edges = [(i, (i + 1) % n_vars) for i in range(n_vars)]
+    edges += [(i, (i + n_vars // 2) % n_vars) for i in range(0, n_vars, 3)]
+    for k, (i, j) in enumerate(edges):
+        table = rng.integers(0, 10, size=(N_COLORS, N_COLORS))
+        dcop.add_constraint(relations.NAryMatrixRelation(
+            [vs[i], vs[j]], table.astype(float), f"c{k}"))
+    dcop.add_agents([objects.AgentDef("a0")])
+    return dcop
+
+
+def build_dcop_mixed(objects, relations, dcop_mod, struct_idx: int,
+                     seed: int):
+    """bench.py build_dcop_mixed: one of 24 structurally distinct small
+    colorings (ring of 14 + 3 * struct_idx, struct_idx % 4 chords)."""
+    rng = np.random.default_rng(seed)
+    n_vars = 14 + 3 * struct_idx
+    dom = objects.Domain("colors", "color", list(range(N_COLORS)))
+    dcop = dcop_mod.DCOP(f"mix{struct_idx}_{seed}", objective="min")
+    vs = [objects.Variable(f"v{i}", dom) for i in range(n_vars)]
+    for v in vs:
+        dcop.add_variable(v)
+    edges = [(i, (i + 1) % n_vars) for i in range(n_vars)]
+    edges += [(i, (i + n_vars // 2) % n_vars)
+              for i in range(struct_idx % 4)]
+    seen = set()
+    for k, (i, j) in enumerate(edges):
+        if i == j or (min(i, j), max(i, j)) in seen:
+            continue
+        seen.add((min(i, j), max(i, j)))
+        table = rng.integers(0, 10, size=(N_COLORS, N_COLORS))
+        dcop.add_constraint(relations.NAryMatrixRelation(
+            [vs[i], vs[j]], table.astype(float), f"c{k}"))
+    dcop.add_agents([objects.AgentDef("a0")])
+    return dcop
+
+
+def lane_bucket_inputs(torch, d: int, f: int, seed: int, unaligned: bool):
+    """Lane-major costs [D, D, F] and messages [D, 2, F] on the card,
+    over six decades with BIG on every 7th factor's last slot; with
+    ``unaligned`` each a view one float into a larger buffer."""
+    rng = np.random.default_rng(seed)
+    costs = (rng.normal(size=(d, d, f))
+             * 10.0 ** rng.integers(-3, 4, size=(d, d, f))).astype(
+                 np.float32)
+    msgs = (rng.normal(size=(d, 2, f))
+            * 10.0 ** rng.integers(-3, 4, size=(d, 2, f))).astype(
+                np.float32)
+    costs[d - 1, :, ::7] = BIG
+    msgs[d - 1, :, ::7] = BIG
+    out = [torch.tensor(costs, device="cuda"),
+           torch.tensor(msgs, device="cuda")]
+    return [unaligned_copy(torch, t) for t in out] if unaligned else out
+
+
+def lane_graph_of(ctx, compiled, device):
+    """The placed lane graph of a host CompiledFactorGraph."""
+    from pydcop_tpu_torch.device import to_lane_device_graph
+    from pydcop_tpu_torch.ops import maxsum_lane
+
+    return to_lane_device_graph(maxsum_lane.to_lane_graph(compiled), device)
+
+
+def lane_state_numpy(state):
+    return {f: tuple(t.cpu().numpy() for t in getattr(state, f))
+            for f in ("v2f", "f2v", "v2f_count", "f2v_count")} | {
+        "stable": bool(state.stable), "cycle": int(state.cycle)}
+
+
+def lane_run(lane_ops, graph, cycles: int):
+    state, values = lane_ops.run_maxsum(graph, cycles,
+                                        stop_on_convergence=False)
+    return lane_state_numpy(state), values.cpu().numpy()
+
+
+def ms_per_cycle(torch, run, cycles: int) -> float:
+    """Milliseconds a cycle of ``run(cycles)`` (a fixed-cycle run),
+    between CUDA events after a warm run."""
+    run(cycles)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run(cycles)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / cycles
+
+
+def phase_lane_kernel_check(ctx, flagship_lane, scale_lane):
+    """The lane entry of binary_factor_update.cu and lane_sum.cu against
+    their plain versions bit for bit (every D = 1..8, two generic D,
+    ragged F, views off a 16-byte boundary; the belief sum on the
+    flagship's and the scale's lane graphs and on graphs of one-edge
+    buckets), each timed at the flagship and scale shapes beside its
+    bound (lane_sum also beside zeros + index_add_)."""
+    torch = ctx["torch"]
+    from pydcop_tpu_torch.ops.binary_factor import (
+        binary_factor_update_lane,
+        binary_factor_update_lane_reference,
+    )
+    from pydcop_tpu_torch.ops.lane_sum import (
+        lane_order,
+        lane_sum,
+        lane_sum_reference,
+    )
+
+    err_a = 0.0
+    checked = 0
+    for d in LANE_CHECK_D:
+        for f in LANE_CHECK_F:
+            if d > 9 and f > 1_000:
+                continue
+            for unaligned in (False, True):
+                costs, msgs = lane_bucket_inputs(torch, d, f, d * 7 + f,
+                                                 unaligned)
+                out = binary_factor_update_lane(costs, msgs)
+                ref = binary_factor_update_lane_reference(costs.cpu(),
+                                                          msgs.cpu())
+                err_a = max(err_a, float((out.cpu() - ref).abs().max()))
+                if not torch.equal(out.cpu(), ref):
+                    fail(f"binary lane entry != plain at D={d} F={f} "
+                         f"unaligned={unaligned}")
+                checked += 1
+    timing = {"binary_factor_update: lane": {}, "lane_sum": {}}
+    for label, f in (("flagship", flagship_lane.buckets[0].costs.shape[-1]),
+                     ("scale", scale_lane.buckets[0].costs.shape[-1])):
+        costs, msgs = lane_bucket_inputs(torch, N_COLORS, f, 300, False)
+        reps = 200 if label == "flagship" else 50
+        k_ms = graph_ms(torch, lambda: binary_factor_update_lane(costs, msgs),
+                        reps)
+        p_ms = graph_ms(torch, lambda: binary_factor_update_lane_reference(
+            costs, msgs), reps)
+        bound_ms, bound_by = binary_bound(f, N_COLORS)
+        timing["binary_factor_update: lane"][label] = dict(
+            F=f, D=N_COLORS, ms=k_ms[2], plain_ms=p_ms[2],
+            ms_spread=[k_ms[0], k_ms[-1]], bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None)
+        del costs, msgs
+
+    # lane_sum: the flagship and scale lane graphs, and one-edge buckets.
+    rng = np.random.default_rng(5)
+    err_b = 0.0
+    sums_checked = {}
+    graphs = [("flagship", flagship_lane), ("scale", scale_lane)]
+    for layout in ONE_EDGE_LAYOUTS:
+        ids = [rng.integers(0, 301, size=(a, f)) for a, f in layout]
+        graphs.append((f"one_edge_{layout}", ids))
+    for label, graph in graphs:
+        if isinstance(graph, list):
+            ids = graph
+            d = 3
+            perm, offsets, starts = (torch.tensor(x, device="cuda")
+                                     for x in lane_order(ids, 301))
+            var_costs = torch.tensor(rng.normal(size=(d, 301)).astype(
+                np.float32), device="cuda")
+            shapes = [(d,) + x.shape for x in ids]
+        else:
+            perm, offsets, starts = (graph.agg_perm, graph.agg_offsets,
+                                     graph.agg_buckets)
+            var_costs = graph.var_costs
+            d = var_costs.shape[0]
+            shapes = [(d,) + tuple(b.var_ids.shape) for b in graph.buckets]
+        msgs = [torch.tensor((rng.normal(size=sh) * 10.0 ** rng.integers(
+            -3, 4, size=sh)).astype(np.float32), device="cuda")
+            for sh in shapes]
+        beliefs, sums = lane_sum(msgs, perm, offsets, starts, var_costs)
+        ref_b, ref_s = lane_sum_reference(
+            [m.cpu() for m in msgs], perm.cpu(), offsets.cpu(),
+            starts.cpu(), var_costs.cpu())
+        err_b = max(err_b, float((beliefs.cpu() - ref_b).abs().max()),
+                    float((sums.cpu() - ref_s).abs().max()))
+        if not (torch.equal(beliefs.cpu(), ref_b)
+                and torch.equal(sums.cpu(), ref_s)):
+            fail(f"lane_sum kernel != plain on {label}")
+        sums_checked[label] = dict(E=int(perm.shape[0]),
+                                   V1=int(var_costs.shape[1]), D=d,
+                                   buckets=len(shapes))
+        if label in ("flagship", "scale"):
+            seg = torch.cat([b.var_ids.reshape(-1) for b in graph.buckets])
+            reps = 200 if label == "flagship" else 50
+
+            def kernel():
+                return lane_sum(msgs, perm, offsets, starts, var_costs)
+
+            def library():
+                flat = torch.cat([m.reshape(d, -1) for m in msgs], dim=1)
+                out = torch.zeros_like(var_costs)
+                out.index_add_(1, seg, flat)
+                return var_costs + out
+
+            def plain():
+                return lane_sum_reference(msgs, perm, offsets, starts,
+                                          var_costs)
+
+            k_ms, l_ms = (graph_ms(torch, fn, reps)
+                          for fn in (kernel, library))
+            p_ms = eager_ms(torch, plain, 2)
+            # The same bytes and adds as the edge layout's belief sum.
+            bound_ms, bound_by = segment_bound(int(perm.shape[0]),
+                                               int(var_costs.shape[1]), d)
+            timing["lane_sum"][label] = dict(
+                E=int(perm.shape[0]), V1=int(var_costs.shape[1]), D=d,
+                ms=k_ms[2], plain_ms=p_ms[2], library_ms=l_ms[2],
+                ms_spread=[k_ms[0], k_ms[-1]],
+                library_ms_spread=[l_ms[0], l_ms[-1]],
+                bound_ms=bound_ms, bound_by=bound_by)
+        del msgs, beliefs, sums
+    return dict(binary_lane_cases=checked, lane_sum_graphs=sums_checked,
+                tolerance="exact (torch.equal)",
+                max_abs_err={"binary_factor_update: lane": err_a,
+                             "lane_sum": err_b},
+                timing=timing)
+
+
+def phase_lane_layout(ctx, engine, scale_host, scale_lane, scale_edge):
+    """MaxSum with layout="lane": api.solve on the flagship (launch
+    counts zeroed just before), the card = CPU = second card run over
+    200 fixed cycles (every message), the cost trace card = CPU, the
+    1M-variable scale arrays card = CPU over 5 cycles, and ms a cycle
+    lane against edge at both sizes in this call."""
+    torch, api, _build = ctx["torch"], ctx["api"], ctx["_build"]
+    from pydcop_tpu_torch.ops import maxsum_lane as lane_ops
+    from pydcop_tpu_torch.ops.binary_factor import LANE
+    from pydcop_tpu_torch.ops.lane_sum import KERNEL as LANE_SUM
+
+    dcop = ctx["dcop"]
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    res = api.solve(dcop, "maxsum", max_cycles=FIXED_CYCLES,
+                    algo_params={"layout": "lane"})
+    launches = dict(_build.launch_counts)
+    want = {LANE: res["cycles"], LANE_SUM: res["cycles"] + 1}
+    if launches != want:
+        fail(f"lane solve launched {launches}, expected {want}")
+    if not np.isfinite(res["cost"]):
+        fail(f"lane solve: non-finite cost {res['cost']}")
+    cpu_engine = ctx["build_engine"](dcop, dict(ctx["params"],
+                                                layout="lane"),
+                                     device="cpu")
+    card = [lane_run(lane_ops, engine.graph, FIXED_CYCLES)
+            for _ in range(2)]
+    t0 = time.perf_counter()
+    cpu = lane_run(lane_ops, cpu_engine.graph, FIXED_CYCLES)
+    cpu_s = time.perf_counter() - t0
+    for name, other in (("second card run", card[1]), ("CPU run", cpu)):
+        diff = run_differences(card[0], other)
+        if diff:
+            fail(f"lane flagship: card run != {name} in {diff}")
+    del card, cpu
+    edge_flagship = ctx["engine"].graph
+    flagship_ms = {
+        "lane": ms_per_cycle(torch, lambda n: lane_ops.run_maxsum(
+            engine.graph, n, stop_on_convergence=False), 50),
+        "edge": ms_per_cycle(torch, lambda n: ctx["ops"].run_maxsum(
+            edge_flagship, n, stop_on_convergence=False), 50)}
+    tr_card = engine.run_trace(LANE_TRACE_CYCLES)
+    tr_cpu = cpu_engine.run_trace(LANE_TRACE_CYCLES)
+    if not np.array_equal(
+            np.asarray(tr_card.metrics["cost_trace"], np.float64),
+            np.asarray(tr_cpu.metrics["cost_trace"], np.float64)):
+        fail("lane run_trace: card costs != CPU costs")
+
+    # Scale: bench.py bench_scale's arrays in the lane layout.
+    scale_cpu = lane_graph_of(ctx, scale_host, "cpu")
+    first = lane_run(lane_ops, scale_lane, LANE_SCALE_COMPARE)
+    t0 = time.perf_counter()
+    on_cpu = lane_run(lane_ops, scale_cpu, LANE_SCALE_COMPARE)
+    scale_cpu_s = time.perf_counter() - t0
+    diff = run_differences(first, on_cpu)
+    if diff:
+        fail(f"lane scale: card != CPU after {LANE_SCALE_COMPARE} cycles "
+             f"in {diff}")
+    del scale_cpu, on_cpu, first
+    scale_ms = {
+        "lane": ms_per_cycle(torch, lambda n: lane_ops.run_maxsum(
+            scale_lane, n, stop_on_convergence=False), SCALE_CYCLES),
+        "edge": ms_per_cycle(torch, lambda n: ctx["ops"].run_maxsum(
+            scale_edge, n, stop_on_convergence=False), SCALE_CYCLES)}
+
+    def lane_scale_run(n):
+        lane_ops.run_maxsum(scale_lane, n, stop_on_convergence=False)
+        torch.cuda.synchronize()
+
+    return dict(
+        solve=dict(status=res["status"], cycles=res["cycles"],
+                   cost=res["cost"], time_s=res["time"]),
+        launches=launches,
+        flagship_bit_equal=["card run 1", "card run 2", "CPU run"],
+        flagship_cycles=FIXED_CYCLES, flagship_cpu_s=cpu_s,
+        trace_card_equal_cpu_cycles=LANE_TRACE_CYCLES,
+        scale_bit_equal_cycles=LANE_SCALE_COMPARE, scale_cpu_s=scale_cpu_s,
+        ms_per_cycle={"flagship": flagship_ms, "scale": scale_ms},
+        scale_lane_profile=profile_cycles(torch, lane_scale_run, 5))
+
+
+def phase_batch_stacked(ctx):
+    """solve_maxsum_batch over 64 instances of build_dcop_small(10_000,
+    seed), seeds 0..63, 200 cycles, as ONE disjoint union: each member
+    equal to its solo card solve (values, cycles, converged), the
+    stack's messages equal to the CPU stack's after 20 cycles,
+    binary_factor_update launched once a cycle for the whole stack, the
+    stack timed against the 64 solo solves, and launch_stacked /
+    collect_stacked under the sync-debug check equal to run_stacked."""
+    torch, _build = ctx["torch"], ctx["_build"]
+    from pydcop_tpu_torch.device import to_device_graph
+    from pydcop_tpu_torch.engine import batch
+    from pydcop_tpu_torch.engine.compile import compile_dcop
+
+    t0 = time.perf_counter()
+    dcops = [build_dcop_small(ctx["objects"], ctx["relations"],
+                              ctx["dcop_mod"], BATCH_VARS, seed)
+             for seed in range(BATCH_MEMBERS)]
+    build_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    t0 = time.perf_counter()
+    results = batch.solve_maxsum_batch(dcops, max_cycles=FIXED_CYCLES)
+    solve_s = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    want = {"binary_factor_update": FIXED_CYCLES,
+            "segment_sum": FIXED_CYCLES + 1,
+            "var_update": 2 * FIXED_CYCLES}
+    if launches != want:
+        fail(f"stacked solve launched {launches}, expected {want}")
+    metrics = results[0]["batch"]
+    t0 = time.perf_counter()
+    compiled = [compile_dcop(d, noise_level=0.01) for d in dcops]
+    graphs = [g for g, _ in compiled]
+    compile_s = time.perf_counter() - t0
+    values, cycles, run = batch.run_stacked(graphs, max_cycles=FIXED_CYCLES)
+    for i, r in enumerate(results):
+        if r["cycles"] != FIXED_CYCLES or int(cycles[i]) != FIXED_CYCLES:
+            fail(f"stacked member {i}: {r['cycles']} cycles")
+    t0 = time.perf_counter()
+    for i, g in enumerate(graphs):
+        sv, sc, sres = batch.run_stacked([g], max_cycles=FIXED_CYCLES)
+        if (not np.array_equal(sv[0], values[i]) or int(sc[0]) != cycles[i]
+                or sres.metrics["converged_lanes"][0]
+                != run.metrics["converged_lanes"][i]):
+            fail(f"stacked member {i} != its solo card solve")
+        if (results[i]["assignment"]
+                != compiled[i][1].assignment_from_indices(values[i])):
+            fail(f"stacked member {i}: solve_maxsum_batch's assignment "
+                 f"!= run_stacked's values")
+    # The 64 solos above (wall clock: each call places its graph and
+    # ends synchronised, the comparisons are host reads of a few KB)
+    # against the stack's warm call.
+    solos_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    batch.run_stacked(graphs, max_cycles=FIXED_CYCLES)
+    stack_ms = (time.perf_counter() - t0) * 1e3
+    # Card = CPU on the whole stack's messages after 20 cycles.
+    fold = batch.stacked_fold(graphs[0])
+    union = batch.stack_union(graphs)
+    runs = []
+    for device in ("cuda", "cpu"):
+        placed = to_device_graph(union, device, fold=fold)
+        t0 = time.perf_counter()
+        runs.append(final_run(ctx["ops"], ctx["state_to_numpy"], placed,
+                              BATCH_CPU_CYCLES))
+        del placed
+    stack_cpu_s = time.perf_counter() - t0
+    diff = run_differences(*runs)
+    if diff:
+        fail(f"stacked union: card != CPU after {BATCH_CPU_CYCLES} cycles "
+             f"in {diff}")
+    del runs, union
+    # launch / collect: nothing in between synchronises the host.
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        pending = batch.launch_stacked(graphs, max_cycles=FIXED_CYCLES)
+        launch_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if pending is None:
+        fail("launch_stacked of a warm stack returned None (cold)")
+    lv, lc, lres = batch.collect_stacked(pending)
+    if not (np.array_equal(lv, values) and np.array_equal(lc, cycles)
+            and lres.metrics["converged_lanes"]
+            == run.metrics["converged_lanes"]):
+        fail("launch_stacked/collect_stacked != run_stacked")
+    n_factors = int(graphs[0].buckets[0].var_ids.shape[0]) * BATCH_MEMBERS
+    return dict(
+        members=BATCH_MEMBERS, n_vars=BATCH_VARS * BATCH_MEMBERS,
+        n_binary_factors=n_factors, cycles=FIXED_CYCLES,
+        launches=launches, build_dcops_s=build_s, compile_s=compile_s,
+        solve_maxsum_batch_s=solve_s,
+        converged_lanes=sum(run.metrics["converged_lanes"]),
+        metrics_keys=sorted(metrics),
+        members_equal_solo_card=BATCH_MEMBERS,
+        stack_card_equal_cpu_cycles=BATCH_CPU_CYCLES,
+        stack_cpu_s=stack_cpu_s,
+        stack_ms=stack_ms, solos_ms=solos_ms,
+        launch_host_s=launch_s, pipelined=lres.metrics.get("pipelined"),
+        run_time_s=run.metrics["run_time_s"],
+        pack_host_s=run.metrics["pack_host_s"])
+
+
+def phase_batch_envelope_lane(ctx):
+    """run_stacked(envelope=...) and run_lane_packed over the 24
+    structures of build_dcop_mixed, 60 cycles: each member equal to its
+    solo card solve and to the CPU, with converged_lanes and
+    envelope_waste."""
+    torch, _build = ctx["torch"], ctx["_build"]
+    from pydcop_tpu_torch.engine import batch
+    from pydcop_tpu_torch.engine.compile import compile_dcop
+    from pydcop_tpu_torch.serving import binning
+
+    graphs = [compile_dcop(build_dcop_mixed(
+        ctx["objects"], ctx["relations"], ctx["dcop_mod"], s, 100 + s),
+        noise_level=0.01)[0] for s in range(MIXED_STRUCTS)]
+    envs = [binning.envelope_key(g) for g in graphs]
+    env = binning.Envelope(
+        max(e.v_env for e in envs), max(e.d_env for e in envs),
+        tuple((a, max(dict(e.rows)[a] for e in envs))
+              for a in sorted(dict(envs[0].rows))))
+    out = {}
+    for label, fn, kw in (
+            ("envelope", batch.run_stacked, {"envelope": env}),
+            ("lane", batch.run_lane_packed,
+             {"ladder": binning.UNION_LADDER})):
+        torch.cuda.synchronize()
+        _build.launch_counts.clear()
+        values, cycles, res = fn(graphs, max_cycles=MIXED_CYCLES, **kw)
+        launches = dict(_build.launch_counts)
+        cpu_values, cpu_cycles, cpu_res = fn(graphs, max_cycles=MIXED_CYCLES,
+                                             device="cpu", **kw)
+        for i, g in enumerate(graphs):
+            solo = batch.run_stacked([g], max_cycles=MIXED_CYCLES)
+            got = np.asarray(values[i])[:g.n_vars]
+            if not (np.array_equal(got, solo[0][0][:g.n_vars])
+                    and np.array_equal(got, np.asarray(
+                        cpu_values[i])[:g.n_vars])):
+                fail(f"{label} member {i} != its solo card solve / CPU")
+            if (res.metrics["converged_lanes"][i]
+                    != solo[2].metrics["converged_lanes"][0]):
+                fail(f"{label} member {i}: converged flag != solo")
+        if (res.metrics["converged_lanes"]
+                != cpu_res.metrics["converged_lanes"]
+                or not np.array_equal(cycles, cpu_cycles)):
+            fail(f"{label}: card flags/cycles != CPU")
+        out[label] = dict(
+            launches=launches,
+            converged_lanes=res.metrics["converged_lanes"],
+            envelope_waste=res.metrics["envelope_waste"],
+            run_time_s=res.metrics["run_time_s"],
+            cells_total=res.metrics["cells_total"])
+    return dict(structures=MIXED_STRUCTS, cycles=MIXED_CYCLES,
+                members_equal_solo_and_cpu=MIXED_STRUCTS, **out)
 
 
 def main() -> int:
@@ -4237,6 +4725,7 @@ def main() -> int:
     # and DSA / MGM at scale.
     ctx["ls_flagship_graph"] = engine.graph
     ls_tf, ls_pos, ls_launches = run_localsearch_phases(ctx, graph)
+    ctx["scale_edge"] = scale_graph
     del graph, scale_graph
 
     # 6c. The exact slice's kernel: the whole-graph totals in XLA's
@@ -4295,6 +4784,39 @@ def main() -> int:
                  "portfolio_replay": portfolio["replay"]["launches"],
                  "portfolio_domino": portfolio["domino"]["launches"],
                  "dynamic": dyn["launches"]}
+
+    # 13. The batch and lane slice: the lane entries against their plain
+    # versions, the lane layout's solve, the stacked solve of 64
+    # instances as one union, and envelope / lane packing of 24
+    # structures; each path with the launch counts set to 0 just before
+    # it and read just after.
+    from pydcop_tpu_torch.engine.compile import (
+        CompiledFactorGraph,
+        FactorBucket,
+    )
+
+    lane_engine = build_engine(dcop, dict(params, layout="lane"))
+    var_costs, var_valid, buckets = scale_arrays(SCALE_VARS)
+    scale_host = CompiledFactorGraph(var_costs, var_valid, tuple(
+        FactorBucket(c, ids) for c, ids in buckets))
+    del var_costs, var_valid, buckets
+    scale_lane = lane_graph_of(ctx, scale_host, "cuda")
+    lane_check = phase_lane_kernel_check(ctx, lane_engine.graph, scale_lane)
+    timing.update(lane_check.pop("timing"))
+    max_err.update(lane_check["max_abs_err"])
+    emit("lane_kernel_check", **lane_check)
+    lane = phase_lane_layout(ctx, lane_engine, scale_host, scale_lane,
+                             ctx.pop("scale_edge"))
+    emit("lane_layout", **lane)
+    del lane_engine, scale_host, scale_lane
+    stacked = phase_batch_stacked(ctx)
+    emit("batch_stacked", **stacked)
+    packed = phase_batch_envelope_lane(ctx)
+    emit("batch_envelope_lane", **packed)
+    new_paths.update({"lane_layout": lane["launches"],
+                      "batch_stacked": stacked["launches"],
+                      "batch_envelope": packed["envelope"]["launches"],
+                      "batch_lane": packed["lane"]["launches"]})
 
     # 7. Fixture parity: the verify oracle.
     fixture = os.path.join(HERE, "tests", "instances", "coloring_12_3.yml")
@@ -4407,7 +4929,28 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "torch_ops_ms", "launches_per_call")}} if wsum.get(
                 "scale_gather") else {}})
+    from pydcop_tpu_torch.ops.binary_factor import LANE
+    from pydcop_tpu_torch.ops.lane_sum import KERNEL as LANE_SUM
+
+    for name, counter, source, replaces in (
+            ("binary_factor_update: lane", LANE,
+             "pydcop_tpu_torch/csrc/binary_factor_update.cu",
+             "pydcop_tpu/ops/pallas_maxsum.py:54"),
+            ("lane_sum", LANE_SUM, "pydcop_tpu_torch/csrc/lane_sum.cu",
+             "pydcop_tpu/ops/maxsum_lane.py:318")):
+        flag = timing[name]["flagship"]
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": lane["launches"][counter],
+            "max_abs_err": max_err[name], "ms": flag["ms"],
+            "plain_ms": flag["plain_ms"], "bound_ms": flag["bound_ms"],
+            "bound_by": flag["bound_by"], "library_ms": flag["library_ms"],
+            "shapes": {label: {k: row[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                for label, row in timing[name].items()
+                if label != "flagship"}})
     counter_of = {
+        "binary_factor_update: lane": LANE, "lane_sum": LANE_SUM,
         "binary_factor_update": "binary_factor_update",
         "segment_sum": "segment_sum", "var_update": "var_update",
         "segment_sum: positional_table": seg_mod.POSITIONAL_TABLE,

@@ -3,11 +3,12 @@
 Port of the device path of ``pydcop_tpu/algorithms/maxsum.py``.  The
 parameters are declared exactly as the reference declares them, so a
 parameter set valid there is valid here; the ones whose machinery is
-not ported yet (the lane layout, multi-device runs and partitioned
-shards) raise ``NotImplementedError`` instead of being silently
-ignored.  ``aggregation="auto"`` measures the strategies on the
-compiled graph (``engine/autotune.py``) or replays a stored decision
-before compiling.  ``decimation`` / ``decimation_margin`` run the
+not ported yet (multi-device runs and partitioned shards) raise
+``NotImplementedError`` instead of being silently ignored.
+``layout="lane"`` runs the lane-major ops (``ops/maxsum_lane.py``).
+``aggregation="auto"`` measures the strategies on the compiled graph
+(``engine/autotune.py``) or replays a stored decision before
+compiling.  ``decimation`` / ``decimation_margin`` run the
 segmented solve (``MaxSumEngine.run_checkpointed``) with a
 ``DecimationPlan``.
 """
@@ -107,6 +108,10 @@ def build_engine(dcop: DCOP, params: dict, mesh=None,
     the winner's arrays.  Either way the engine's results report the
     decision in their metrics."""
     if shards is not None and shards > 1:
+        if params.get("layout", "edge") == "lane":
+            raise ValueError(
+                "layout='lane' is single-device; the partitioned "
+                "engine uses the edge layout")
         raise NotImplementedError(
             "partitioned sharding (shards=) is not ported yet")
     pad_to = 1
@@ -122,6 +127,11 @@ def build_engine(dcop: DCOP, params: dict, mesh=None,
     elif auto:
         agg_info = {"aggregation": "scatter",
                     "aggregation_source": "mesh"}
+    if auto and agg_info is None and params.get("layout", "edge") == "lane":
+        # The lane layout carries its own scatter aggregation; nothing
+        # to tune.
+        agg_info = {"aggregation": "scatter",
+                    "aggregation_source": "lane"}
     if auto and agg_info is None:
         aggregation, agg_info = _replay_auto_choice(dcop, device)
     graph, meta = compile_dcop(

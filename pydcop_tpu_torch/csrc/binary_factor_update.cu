@@ -22,7 +22,9 @@
 // it, hiding a diverged message from the NaN guards).
 //
 // Layout: the JAX layout, contiguous costs [F,D,D] and v2f [F,2,D]
-// float32 in, f2v [F,2,D] float32 out (allocated by the wrapper).
+// float32 in, f2v [F,2,D] float32 out (allocated by the wrapper).  A
+// second entry, binary_factor_update_lane_launch (below), reads the
+// lane layout, factors on the minor axis.
 //
 // Bound: memory.  Per factor the kernel must read 4*(D*D + 2D) bytes and
 // write 4*2D bytes: 84 B at D=3, i.e. ~1.26 MB for the 15k-factor
@@ -265,6 +267,104 @@ void launch_d(const float* costs, const float* v2f, float* out,
       costs, v2f, out, n_factors);
 }
 
+// ---------------------------------------------------------------------
+// The lane-major entry (ops/maxsum_lane.py: the Pallas kernel's own
+// block layout, factors on the minor axis): costs [D, D, F] and v2f
+// [D, 2, F] float32 in, f2v [D, 2, F] out, with the edge entry's
+// arithmetic in its order:
+//
+//   t[i,j,f]   = (costs[i,j,f] + v2f[i,0,f]) + v2f[j,1,f]
+//   out[i,0,f] = min_j t[i,j,f] - v2f[i,0,f]     (j = 0, 1, ... in order)
+//   out[j,1,f] = min_i t[i,j,f] - v2f[j,1,f]     (i = 0, 1, ... in order)
+//
+// Every element of a factor lies F floats from the next, so consecutive
+// threads of a warp, one factor each, read and write consecutive floats:
+// each load and store is coalesced as it stands, with no staging, any
+// F (a ragged last warp just masks) and any 4-byte alignment of the
+// views.  D = 1..8: one thread per factor, D a template parameter, the
+// messages and running minima in registers.  D > 8: one thread per
+// output element (p, i, f), f fastest, looping over the runtime D.
+//
+// Bound: memory, as the edge entry: per factor 4*(D*D + 2D) bytes read
+// and 4*2D written.
+
+template <int D>
+__global__ void __launch_bounds__(256)
+    binary_factor_update_lane_kernel(const float* __restrict__ costs,
+                                     const float* __restrict__ v2f,
+                                     float* __restrict__ out, int n_factors) {
+  const int f = blockIdx.x * blockDim.x + threadIdx.x;
+  if (f >= n_factors) return;
+  const int64_t F = n_factors;
+  float m0[D], m1[D], row[D], col[D];
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    m0[i] = __ldg(v2f + (2 * i) * F + f);
+    m1[i] = __ldg(v2f + (2 * i + 1) * F + f);
+  }
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      const float c = __ldg(costs + (i * D + j) * F + f);
+      const float v = fadd_ftz(fadd_ftz(c, m0[i]), m1[j]);
+      row[i] = j == 0 ? v : min_keep_nan(row[i], v);
+      col[j] = i == 0 ? v : min_keep_nan(col[j], v);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    out[(2 * i) * F + f] = fsub_ftz(row[i], m0[i]);
+    out[(2 * i + 1) * F + f] = fsub_ftz(col[i], m1[i]);
+  }
+}
+
+// Any D: thread t is output element (i, p, f) of [D, 2, F], f fastest.
+__global__ void binary_factor_update_lane_generic(
+    const float* __restrict__ costs, const float* __restrict__ v2f,
+    float* __restrict__ out, int n_factors, int d) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x
+                    + threadIdx.x;
+  const int64_t F = n_factors;
+  if (t >= 2 * d * F) return;
+  const int64_t f = t % F;
+  const int ip = static_cast<int>(t / F);
+  const int i = ip >> 1;
+  const int p = ip & 1;
+  float acc = 0.0f, own;
+  if (p == 0) {
+    // To scope position 0: reduce row i over j.
+    own = __ldg(v2f + (2 * i) * F + f);
+    for (int j = 0; j < d; ++j) {
+      const float v = fadd_ftz(
+          fadd_ftz(__ldg(costs + (static_cast<int64_t>(i) * d + j) * F + f),
+                   own),
+          __ldg(v2f + (2 * j + 1) * F + f));
+      acc = j == 0 ? v : min_keep_nan(acc, v);
+    }
+  } else {
+    // To scope position 1: reduce column i over the rows.
+    own = __ldg(v2f + (2 * i + 1) * F + f);
+    for (int r = 0; r < d; ++r) {
+      const float v = fadd_ftz(
+          fadd_ftz(__ldg(costs + (static_cast<int64_t>(r) * d + i) * F + f),
+                   __ldg(v2f + (2 * r) * F + f)),
+          own);
+      acc = r == 0 ? v : min_keep_nan(acc, v);
+    }
+  }
+  out[t] = fsub_ftz(acc, own);
+}
+
+template <int D>
+void launch_lane_d(const float* costs, const float* v2f, float* out,
+                   int n_factors, cudaStream_t stream) {
+  const int threads = 256;
+  binary_factor_update_lane_kernel<D>
+      <<<(n_factors + threads - 1) / threads, threads, 0, stream>>>(
+          costs, v2f, out, n_factors);
+}
+
 }  // namespace
 
 extern "C" int binary_factor_update_launch(const float* costs,
@@ -287,6 +387,32 @@ extern "C" int binary_factor_update_launch(const float* costs,
       binary_factor_update_generic<<<(n_out + threads - 1) / threads,
                                      threads, 0, stream>>>(
           costs, v2f, out, n_out, d);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int binary_factor_update_lane_launch(const float* costs,
+                                                const float* v2f,
+                                                float* out, int n_factors,
+                                                int d,
+                                                cudaStream_t stream) {
+  if (n_factors == 0 || d == 0) return 0;
+  switch (d) {
+    case 1: launch_lane_d<1>(costs, v2f, out, n_factors, stream); break;
+    case 2: launch_lane_d<2>(costs, v2f, out, n_factors, stream); break;
+    case 3: launch_lane_d<3>(costs, v2f, out, n_factors, stream); break;
+    case 4: launch_lane_d<4>(costs, v2f, out, n_factors, stream); break;
+    case 5: launch_lane_d<5>(costs, v2f, out, n_factors, stream); break;
+    case 6: launch_lane_d<6>(costs, v2f, out, n_factors, stream); break;
+    case 7: launch_lane_d<7>(costs, v2f, out, n_factors, stream); break;
+    case 8: launch_lane_d<8>(costs, v2f, out, n_factors, stream); break;
+    default: {
+      const int64_t n_out = static_cast<int64_t>(n_factors) * 2 * d;
+      const int threads = 256;
+      binary_factor_update_lane_generic<<<
+          static_cast<unsigned>((n_out + threads - 1) / threads), threads,
+          0, stream>>>(costs, v2f, out, n_factors, d);
     }
   }
   return static_cast<int>(cudaGetLastError());

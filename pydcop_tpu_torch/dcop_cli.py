@@ -28,7 +28,10 @@ not.
 ``python -m pydcop_tpu_torch trace summary|query|merge|diff`` and
 ``python -m pydcop_tpu_torch profile report [--url URL] [--trace FILE]
 [--metrics FILE]`` read trace and metrics files of either package
-(``commands/trace.py``, ``commands/profile.py``).
+(``commands/trace.py``, ``commands/profile.py``).  ``python -m
+pydcop_tpu_torch batch [--simulate] FILE.yaml`` runs the sweep a batch
+file defines, one ``python -m pydcop_tpu_torch`` process a job
+(``commands/batch.py``).
 
 The metrics files are the reference's CSV (``commands/metrics_io.py``):
 with ``--collect_on cycle_change``, ``--run_metrics`` gets one row per
@@ -147,11 +150,13 @@ def make_parser() -> argparse.ArgumentParser:
                        help="serve live telemetry over HTTP while the "
                             "solve runs (/metrics, /healthz, /events, "
                             "/profile; 0 = OS-assigned port)")
+    from pydcop_tpu_torch.commands import batch as batch_cmd
     from pydcop_tpu_torch.commands import profile as profile_cmd
     from pydcop_tpu_torch.commands import trace as trace_cmd
 
     trace_cmd.set_parser(sub)
     profile_cmd.set_parser(sub)
+    batch_cmd.set_parser(sub)
     return parser
 
 

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from pydcop_tpu_torch.engine.compile import CompiledFactorGraph
+from pydcop_tpu_torch.ops.lane_sum import lane_order
 from pydcop_tpu_torch.ops.segment_sum import (
     aggregation_plan,
     positional_fold,
@@ -204,7 +205,25 @@ def edge_valid_bits(var_valid: np.ndarray,
     return rows[np.asarray(var_ids)]
 
 
-def _placer(dev: torch.device):
+_NUMPY_TYPES = {torch.float32: np.float32, torch.int64: np.int64,
+                torch.int32: np.int32, torch.bool: np.bool_,
+                torch.uint8: np.uint8}
+
+
+def _placer(dev: torch.device, non_blocking: bool = False):
+    """``put(array, dtype)``: a copy of a host array on ``dev``.  With
+    ``non_blocking`` on a card, the copy goes through pinned host
+    memory, queued on the current stream without waiting for it (so a
+    launch that places its graph never synchronises the host)."""
+    if non_blocking and dev.type == "cuda":
+        def put(arr, dtype):
+            host = np.ascontiguousarray(
+                np.asarray(arr).astype(_NUMPY_TYPES[dtype], copy=False))
+            return torch.from_numpy(host).pin_memory().to(
+                dev, non_blocking=True)
+
+        return put
+
     def put(arr, dtype):
         # A copy: the caller's arrays may be read-only or strided.
         return torch.tensor(np.asarray(arr), dtype=dtype, device=dev)
@@ -212,19 +231,32 @@ def _placer(dev: torch.device):
     return put
 
 
-def _scope_fields(graph: CompiledFactorGraph, strategy: str, put):
+def _scope_fields(graph: CompiledFactorGraph, strategy: str, put,
+                  fold=None):
     """The placed fields that follow the buckets' ``var_ids``: the
     belief sum's CSR (``agg_*`` but ``agg_ell``) and the positional
-    order (``pos_*``)."""
+    order (``pos_*``).  ``fold``, when given, is the scatter's bucket
+    ``(order, sep)`` to use instead of the one read off this graph's
+    sizes (a stacked union's, read off one member's), and the graph
+    gets no positional order."""
     n_rows = graph.var_costs.shape[0]
     order = tuple(range(len(graph.buckets)))
     sep = 0
-    if strategy == "scatter":
+    if fold is not None:
+        order, sep = fold
+    elif strategy == "scatter":
         order, sep = positional_fold(
             [b.var_ids.size for b in graph.buckets], n_rows)
     perm, offsets, starts = aggregation_arrays(
         [graph.buckets[b].var_ids for b in order], n_rows)
     tiles = aggregation_plan(offsets, graph.var_costs.shape[1])
+    if fold is not None:
+        return dict(
+            agg_perm=put(perm, torch.int32),
+            agg_offsets=put(offsets, torch.int32),
+            agg_buckets=put(starts, torch.int32),
+            agg_tiles=put(tiles, torch.int32),
+            agg_order=order, agg_sep=sep)
     pos = positional_arrays([b.var_ids for b in graph.buckets], n_rows)
     return dict(
         agg_perm=put(perm, torch.int32),
@@ -244,10 +276,13 @@ def _scope_fields(graph: CompiledFactorGraph, strategy: str, put):
 
 
 def to_device_graph(graph: CompiledFactorGraph,
-                    device: DeviceLike = "cuda") -> TorchFactorGraph:
+                    device: DeviceLike = "cuda", fold=None,
+                    non_blocking: bool = False) -> TorchFactorGraph:
     """Move a host-compiled graph onto ``device`` (resolved by the
-    device rule), with its aggregation strategy and arrays."""
-    put = _placer(resolve_device(device))
+    device rule), with its aggregation strategy and arrays.  ``fold``
+    and ``non_blocking`` as in :func:`_scope_fields` and
+    :func:`_placer`."""
+    put = _placer(resolve_device(device), non_blocking)
     strategy = aggregation_strategy(graph)
 
     def bucket(b):
@@ -264,7 +299,7 @@ def to_device_graph(graph: CompiledFactorGraph,
         agg_strategy=strategy,
         agg_ell=(None if graph.agg_ell is None
                  else put(graph.agg_ell, torch.int32)),
-        **_scope_fields(graph, strategy, put),
+        **_scope_fields(graph, strategy, put, fold),
     )
 
 
@@ -321,3 +356,63 @@ def replace_scope(placed: TorchFactorGraph,
     put = _placer(placed.var_costs.device)
     return placed._replace(
         **_scope_fields(graph, placed.agg_strategy, put))
+
+
+# --------------------------------------------------------------------- #
+# The lane layout (``ops/maxsum_lane.py``): factors on the minor axis.
+
+
+class TorchLaneBucket(NamedTuple):
+    """One lane-major bucket on the device: ``costs`` [D]*arity + [F]
+    float32, ``var_ids`` [arity, F] int64 and ``var_ids32`` the same
+    values as int32."""
+
+    costs: torch.Tensor
+    var_ids: torch.Tensor
+    var_ids32: torch.Tensor
+
+
+class TorchLaneGraph(NamedTuple):
+    """``ops.maxsum_lane.LaneGraph`` with every array a tensor on one
+    device, and the order the belief sum reads
+    (``ops/lane_sum.py::lane_order``): ``agg_perm`` [E] the edges —
+    position-major, bucket after bucket — sorted by variable,
+    ``agg_offsets`` [V+2] each variable's first slot of it, and
+    ``agg_buckets`` [n_buckets + 1] each bucket's first edge, then E."""
+
+    var_costs: torch.Tensor   # [Dmax, V+1] float32
+    var_valid: torch.Tensor   # [Dmax, V+1] bool
+    buckets: Tuple[TorchLaneBucket, ...]
+    agg_perm: torch.Tensor     # [E] int32
+    agg_offsets: torch.Tensor  # [V+2] int32
+    agg_buckets: torch.Tensor  # [n_buckets + 1] int32
+
+    @property
+    def n_vars(self) -> int:
+        return self.var_costs.shape[1] - 1
+
+    @property
+    def dmax(self) -> int:
+        return self.var_costs.shape[0]
+
+
+def to_lane_device_graph(lane, device: DeviceLike = "cuda",
+                         non_blocking: bool = False) -> TorchLaneGraph:
+    """Place a host ``LaneGraph`` (``ops.maxsum_lane.to_lane_graph``) on
+    ``device`` (resolved by the device rule), with the belief sum's
+    order arrays; ``non_blocking`` as in :func:`_placer`."""
+    put = _placer(resolve_device(device), non_blocking)
+    ids = [np.asarray(b.var_ids) for b in lane.buckets]
+    perm, offsets, starts = lane_order(ids, np.asarray(lane.var_costs)
+                                       .shape[1])
+    return TorchLaneGraph(
+        var_costs=put(lane.var_costs, torch.float32),
+        var_valid=put(lane.var_valid, torch.bool),
+        buckets=tuple(
+            TorchLaneBucket(put(b.costs, torch.float32),
+                            put(v, torch.int64), put(v, torch.int32))
+            for b, v in zip(lane.buckets, ids)),
+        agg_perm=put(perm, torch.int32),
+        agg_offsets=put(offsets, torch.int32),
+        agg_buckets=put(starts, torch.int32),
+    )

@@ -1,8 +1,8 @@
 """Autotuners: ``aggregation='auto'`` picks the belief aggregation and
 ``algo='auto'`` the algorithm, each by measurement.
 
-Port of ``pydcop_tpu/engine/autotune.py`` up to its pack fitting.  The
-aggregation autotuner: time
+Port of ``pydcop_tpu/engine/autotune.py``.  The aggregation
+autotuner: time
 one ``aggregate_beliefs`` pass of each strategy on the actual compiled
 graph (same bucket shapes and edge distribution, random messages), on
 the device the solve runs on, and choose the fastest of
@@ -35,13 +35,16 @@ never a decision the JAX package measured.  The default file is
 ``PYDCOP_AGG_AUTOTUNE_CACHE`` names another.  A file that cannot be
 written is logged and skipped.
 
-Not ported here: the pack fitting (it comes with batched solving).
+The pack fitting (:func:`record_pack_sample`,
+:func:`fitted_pack_constants`) keeps the envelope planner's cost-model
+constants, fitted online from measured dispatches, in the same file.
 """
 
 import json
 import logging
 import os
 import tempfile
+import threading
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -655,3 +658,153 @@ def autotune_portfolio(graph: CompiledFactorGraph, *,
             "backend": dev.type,
         }})
     return result
+
+
+# --------------------------------------------------------------------
+# Self-tuning pack-planner constants (the reference's pack fitting).
+#
+# The envelope pack-vs-solo decision (serving/binning.pack_decision)
+# prices dispatches with an affine model ``overhead + cycles *
+# (per_cycle + cells * per_cell)``.  Every completed dispatch is a
+# measured sample of that model (its execute wall, its padded cell
+# total, its cycle budget), so the constants are re-fitted online per
+# backend: an exponentially-weighted least-squares regression of
+# ms-per-cycle on cells (intercept -> us_per_cycle, slope ->
+# ns_per_cell_cycle) plus an EW mean of the per-dispatch host overhead.
+# Persisted in the same JSON as the other decisions (key
+# ``packfit-v1|<backend>``), marked with WRITER like every entry this
+# module stores; the port reads back only entries it wrote.  Cold start
+# (< _PACKFIT_MIN_SAMPLES samples, or a degenerate fit) falls back to
+# the compiled-in defaults.  ``PYDCOP_PACK_FIT=0`` disables both
+# recording and use.
+
+PACKFIT_PREFIX = f"packfit-v{_CACHE_VERSION}|"
+_PACKFIT_DECAY = 0.98
+_PACKFIT_MIN_SAMPLES = 8
+_PACKFIT_PERSIST_EVERY = 16
+_packfit_lock = threading.Lock()
+# backend -> EW sufficient statistics {w, wx, wy, wxx, wxy, wo, n}
+_packfit_state: Dict[str, Dict[str, float]] = {}
+_packfit_dirty: Dict[str, int] = {}
+
+
+def pack_fit_enabled() -> bool:
+    """``PYDCOP_PACK_FIT=0`` freezes the pack planner on the
+    compiled-in default constants."""
+    return os.environ.get("PYDCOP_PACK_FIT", "1") != "0"
+
+
+def _packfit_key(backend: str) -> str:
+    return PACKFIT_PREFIX + str(backend)
+
+
+def _packfit_load(backend: str,
+                  cache_file: Optional[str] = None) -> Dict[str, float]:
+    """Seed the in-memory EW state from the persisted JSON once per
+    backend per process (under ``_packfit_lock``), from an entry this
+    module wrote only."""
+    state = _packfit_state.get(backend)
+    if state is not None:
+        return state
+    persisted = _cached_entry(_load_cache(cache_file or cache_path()),
+                              _packfit_key(backend))
+    state = {"w": 0.0, "wx": 0.0, "wy": 0.0, "wxx": 0.0,
+             "wxy": 0.0, "wo": 0.0, "n": 0.0}
+    if persisted is not None:
+        stats = persisted.get("stats")
+        if isinstance(stats, dict):
+            for k in state:
+                v = stats.get(k)
+                if isinstance(v, (int, float)) and np.isfinite(v):
+                    state[k] = float(v)
+    _packfit_state[backend] = state
+    return state
+
+
+def record_pack_sample(backend: str, cells: int, cycles: int,
+                       execute_s: float, overhead_s: float = 0.0,
+                       cache_file: Optional[str] = None) -> None:
+    """Feed one measured dispatch into the per-backend fit.
+
+    ``execute_s`` is the dispatch's device execute wall (a warm
+    dispatch's ``run_time_s``), ``cells`` the PADDED cell total the
+    device ran (``metrics['cells_total']``), ``overhead_s`` the host's
+    per-dispatch fixed cost.  Cold dispatches must not be fed.
+    Persists every ``_PACKFIT_PERSIST_EVERY`` samples (atomic
+    merge-write; a failure keeps the fit in memory only)."""
+    if not pack_fit_enabled():
+        return
+    if cells <= 0 or cycles <= 0 or execute_s <= 0:
+        return
+    x = float(cells)
+    y = execute_s * 1e3 / float(cycles)  # ms per cycle
+    with _packfit_lock:
+        state = _packfit_load(backend, cache_file)
+        d = _PACKFIT_DECAY
+        for k in ("w", "wx", "wy", "wxx", "wxy", "wo"):
+            state[k] *= d
+        state["w"] += 1.0
+        state["wx"] += x
+        state["wy"] += y
+        state["wxx"] += x * x
+        state["wxy"] += x * y
+        state["wo"] += max(overhead_s, 0.0) * 1e3
+        state["n"] += 1.0
+        _packfit_dirty[backend] = _packfit_dirty.get(backend, 0) + 1
+        if _packfit_dirty[backend] >= _PACKFIT_PERSIST_EVERY:
+            _packfit_dirty[backend] = 0
+            fitted = _packfit_fit(state)
+            _store_cache(cache_file or cache_path(), {
+                _packfit_key(backend): {
+                    "stats": dict(state),
+                    "fitted": fitted,
+                    "backend": backend,
+                }})
+
+
+def _packfit_fit(state: Dict[str, float]) -> Optional[Dict[str, float]]:
+    """Solve the EW least squares for the model constants; None when
+    under-sampled or degenerate (the caller falls back to defaults)."""
+    if state["n"] < _PACKFIT_MIN_SAMPLES or state["w"] <= 0:
+        return None
+    w, wx, wy, wxx, wxy = (state["w"], state["wx"], state["wy"],
+                           state["wxx"], state["wxy"])
+    denom = w * wxx - wx * wx
+    if denom <= 1e-12:
+        return None
+    slope = (w * wxy - wx * wy) / denom        # ms/cycle per cell
+    intercept = (wy - slope * wx) / w          # ms/cycle at 0 cells
+    if not (np.isfinite(slope) and np.isfinite(intercept)):
+        return None
+    if slope <= 0 or intercept < 0:
+        # The sampled range cannot identify the model (e.g. one shape
+        # dominating traffic): an unidentified fit must not steer.
+        return None
+    return {
+        "us_per_cycle": round(intercept * 1e3, 6),
+        "ns_per_cell_cycle": round(slope * 1e6, 6),
+        "overhead_ms": round(state["wo"] / w, 6),
+        "n": int(state["n"]),
+    }
+
+
+def fitted_pack_constants(backend: str,
+                          cache_file: Optional[str] = None
+                          ) -> Optional[Dict[str, float]]:
+    """The current fitted constants for ``backend`` (``us_per_cycle``,
+    ``ns_per_cell_cycle``, ``overhead_ms``, ``n``: what
+    ``serving.binning.pack_decision`` consumes), or None while
+    cold/degenerate/disabled."""
+    if not pack_fit_enabled():
+        return None
+    with _packfit_lock:
+        state = _packfit_load(backend, cache_file)
+        return _packfit_fit(state)
+
+
+def _packfit_reset() -> None:
+    """Test hook: drop the in-memory EW state (the JSON is untouched;
+    point ``cache_file`` at a temp path to isolate persistence)."""
+    with _packfit_lock:
+        _packfit_state.clear()
+        _packfit_dirty.clear()

@@ -8,7 +8,8 @@ compute on the same graph from the same messages.  The local-search
 states (DSA, MGM, MGM2, DBA, GDBA, MixedDSA) carry their values (and
 DBA's weights and counters, GDBA's modifiers) as tensors and their key
 on the host; DBA's cycle is a tensor on the device (its stop is decided
-there), the others' a host int.  They import nothing of the JAX
+there), the others' a host int.  The lane layout's graph and state
+(``ops/maxsum_lane.py``) have their own pair.  They import nothing of the JAX
 package.
 """
 
@@ -20,8 +21,10 @@ import torch
 from pydcop_tpu_torch.device import (
     DeviceLike,
     TorchFactorGraph,
+    TorchLaneGraph,
     resolve_device,
     to_device_graph,
+    to_lane_device_graph,
 )
 from pydcop_tpu_torch.engine.compile import (
     CompiledFactorGraph,
@@ -32,6 +35,7 @@ from pydcop_tpu_torch.ops.dba import DbaState
 from pydcop_tpu_torch.ops.dsa import DsaState
 from pydcop_tpu_torch.ops.gdba import GdbaState
 from pydcop_tpu_torch.ops.maxsum import MaxSumState
+from pydcop_tpu_torch.ops.maxsum_lane import LaneBucket, LaneGraph, LaneState
 from pydcop_tpu_torch.ops.mgm import MgmState
 from pydcop_tpu_torch.ops.mgm2 import Mgm2State
 from pydcop_tpu_torch.ops.mixeddsa import MixedDsaState
@@ -86,9 +90,32 @@ def state_from_numpy(v2f: Sequence, f2v: Sequence, v2f_count: Sequence,
     )
 
 
-def state_to_numpy(state: MaxSumState) -> Dict[str, object]:
-    """The reverse of :func:`state_from_numpy`: a dict with the same
-    keyword names, each field as numpy (tuples of arrays per bucket)."""
+def lane_graph_from_numpy(var_costs, var_valid,
+                          buckets: Iterable[Tuple[np.ndarray, np.ndarray]],
+                          device: DeviceLike = "cuda") -> TorchLaneGraph:
+    """The placed lane graph of lane-major arrays (the reference's
+    ``LaneGraph`` as numpy): ``var_costs``/``var_valid`` [D, V+1] and
+    ``(costs [D]*a + [F], var_ids [a, F])`` per bucket."""
+    return to_lane_device_graph(LaneGraph(
+        np.asarray(var_costs), np.asarray(var_valid),
+        tuple(LaneBucket(np.asarray(c), np.asarray(ids))
+              for c, ids in buckets)), device)
+
+
+def lane_state_from_numpy(v2f: Sequence, f2v: Sequence, v2f_count: Sequence,
+                          f2v_count: Sequence, stable, cycle,
+                          device: DeviceLike = "cuda") -> LaneState:
+    """The port's ``LaneState`` from per-bucket numpy arrays ([D, a, F]
+    float32 messages, [a, F] int8 counts, scalar ``stable`` and
+    ``cycle``)."""
+    return LaneState(*state_from_numpy(v2f, f2v, v2f_count, f2v_count,
+                                       stable, cycle, device))
+
+
+def state_to_numpy(state) -> Dict[str, object]:
+    """The reverse of :func:`state_from_numpy` (and of
+    :func:`lane_state_from_numpy`): a dict with the same keyword names,
+    each field as numpy (tuples of arrays per bucket)."""
     def get(tensors):
         return tuple(t.detach().cpu().numpy() for t in tensors)
 

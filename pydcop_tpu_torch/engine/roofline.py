@@ -162,7 +162,20 @@ def roofline_report(graph, cycles_per_s: float, platform: str,
     working set below half the L2 gets ``l2_resident: True`` and no
     ``hbm_util``.  ``hbm_util_exceeds_peak`` flags a rate that, with
     the modelled traffic, would exceed the HBM peak: the rate is then
-    wrong (an unsynchronised clock), not the card fast."""
+    wrong (an unsynchronised clock), not the card fast.  A lane-major
+    graph (host ``LaneGraph`` or placed ``TorchLaneGraph``) raises
+    ``TypeError``: the counters unpack edge-major shapes."""
+    from pydcop_tpu_torch.device import TorchLaneGraph
+    from pydcop_tpu_torch.ops.maxsum_lane import LaneGraph
+
+    if isinstance(graph, (LaneGraph, TorchLaneGraph)):
+        # The counters below unpack edge-major shapes positionally; a
+        # lane-major graph has every axis transposed and would count
+        # garbage silently.
+        raise TypeError(
+            "roofline_report requires the edge-major "
+            "CompiledFactorGraph; convert before accounting "
+            "(ops/maxsum_lane.LaneGraph shapes are transposed)")
     flops = maxsum_superstep_flops(graph)
     bytes_moved = maxsum_superstep_bytes(graph)
     ws = working_set_bytes(graph)

@@ -31,7 +31,11 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from pydcop_tpu_torch.device import DeviceLike, to_device_graph
+from pydcop_tpu_torch.device import (
+    DeviceLike,
+    to_device_graph,
+    to_lane_device_graph,
+)
 from pydcop_tpu_torch.engine.compile import (
     BIG,
     CompiledFactorGraph,
@@ -42,6 +46,7 @@ from pydcop_tpu_torch.observability.profiler import key_str, profiler
 from pydcop_tpu_torch.observability.trace import tracer
 from pydcop_tpu_torch.ops import _build
 from pydcop_tpu_torch.ops import maxsum as maxsum_ops
+from pydcop_tpu_torch.ops import maxsum_lane as lane_ops
 from pydcop_tpu_torch.utils.tree import tree_leaves
 
 
@@ -314,10 +319,13 @@ class MaxSumEngine:
     is applied at compile time, and so is the aggregation strategy (the
     graph's ``agg_*`` arrays).  ``prune`` turns on branch-and-bound
     pruning of the binary factor updates (same values, less work once
-    the messages concentrate).  ``device`` defaults to ``"cuda"`` and
-    raises when no card is present (pass ``"cpu"`` to run there).
-    Sharding (``mesh``/``n_devices``) and ``layout="lane"`` are not
-    ported yet and raise.  ``extra_metrics`` (e.g. the aggregation
+    the messages concentrate).  ``layout="lane"`` runs the lane-major
+    ops (``ops/maxsum_lane.py``: factors on the minor axis, its own
+    scatter aggregation, one device); it refuses pruning, a sorted or
+    ell graph, several devices and decimation, as the reference does.
+    ``device`` defaults to ``"cuda"`` and raises when no card is present
+    (pass ``"cpu"`` to run there).  Sharding (``mesh``/``n_devices``)
+    is not ported yet and raises.  ``extra_metrics`` (e.g. the aggregation
     autotuner's decision) is merged into every result's metrics.
     Every run reads ``damping`` from the engine when it starts a
     segment, so a recovery damping bump takes effect at the next
@@ -332,14 +340,31 @@ class MaxSumEngine:
         if layout not in ("edge", "lane"):
             raise ValueError(
                 f"layout must be 'edge' or 'lane', got {layout!r}")
+        if prune and layout == "lane":
+            raise ValueError(
+                "prune=True gathers rows of the edge-major cost "
+                "hypercubes; run with layout='edge'")
         if layout == "lane":
-            raise NotImplementedError(
-                "layout='lane' is not ported yet; use layout='edge'")
+            if (mesh is not None and getattr(mesh, "size", 1) > 1) or (
+                    n_devices is not None and n_devices > 1):
+                raise ValueError(
+                    "layout='lane' is single-device; use the default "
+                    "edge layout for mesh runs")
+            if graph.agg_perm is not None or graph.agg_ell is not None:
+                raise ValueError(
+                    "layout='lane' uses its own scatter aggregation; "
+                    "compile with aggregation='scatter'")
         if mesh is not None or (n_devices is not None and n_devices > 1):
             raise NotImplementedError(
                 "multi-device runs (mesh/n_devices) are not ported yet")
         self.meta = meta
-        self.graph = to_device_graph(graph, device)
+        self.layout = layout
+        if layout == "lane":
+            self.graph = to_lane_device_graph(lane_ops.to_lane_graph(graph),
+                                              device)
+        else:
+            self.graph = to_device_graph(graph, device)
+        self._ops = lane_ops if layout == "lane" else maxsum_ops
         self.device = self.graph.var_costs.device
         self.damping = damping
         self.damp_vars = damping_nodes in ("vars", "both")
@@ -350,14 +375,20 @@ class MaxSumEngine:
         # Keys already called once: the next call of a key is warm.
         self._warm: set = set()
 
-    def init_state(self) -> maxsum_ops.MaxSumState:
-        """Fresh solver state on this engine's device."""
-        return maxsum_ops.init_state(self.graph)
+    def init_state(self):
+        """Fresh solver state on this engine's device (the layout's)."""
+        return self._ops.init_state(self.graph)
 
-    def _kwargs(self) -> Dict[str, Any]:
-        return dict(damping=self.damping, damp_vars=self.damp_vars,
-                    damp_factors=self.damp_factors,
-                    stability=self.stability, prune=self.prune)
+    def _kwargs(self, stats: Optional[Dict[str, int]] = None
+                ) -> Dict[str, Any]:
+        """The ops' solver keywords; ``stats`` (the edge layout's
+        pruning counters) rides along on the edge layout only."""
+        kw = dict(damping=self.damping, damp_vars=self.damp_vars,
+                  damp_factors=self.damp_factors,
+                  stability=self.stability, prune=self.prune)
+        if self._ops is maxsum_ops:
+            kw["stats"] = stats
+        return kw
 
     def _call(self, key, fn, cycles: int):
         """``timed_engine_call`` of ``fn()`` under ``key``: (out,
@@ -405,10 +436,10 @@ class MaxSumEngine:
         stats: Dict[str, int] = {}
         (state, values), run_s, compile_s = self._timed(
             (max_cycles, stop_on_convergence),
-            lambda: maxsum_ops.run_maxsum(
+            lambda: self._ops.run_maxsum(
                 self.graph, max_cycles,
-                stop_on_convergence=stop_on_convergence, stats=stats,
-                **self._kwargs()), max_cycles)
+                stop_on_convergence=stop_on_convergence,
+                **self._kwargs(stats)), max_cycles)
         values = values.cpu().numpy()
         cycle, stable = int(state.cycle), bool(state.stable)
         n_msgs = sum(
@@ -441,10 +472,10 @@ class MaxSumEngine:
         stats: Dict[str, int] = {}
         (state, values, costs), run_s, compile_s = self._timed(
             ("trace", max_cycles, stop_on_convergence),
-            lambda: maxsum_ops.run_maxsum_trace(
+            lambda: self._ops.run_maxsum_trace(
                 self.graph, max_cycles, var_base_costs=base,
-                stop_on_convergence=stop_on_convergence, stats=stats,
-                **self._kwargs()), max_cycles)
+                stop_on_convergence=stop_on_convergence,
+                **self._kwargs(stats)), max_cycles)
         values = values.cpu().numpy()
         sign = 1.0 if self.meta.mode == "min" else -1.0
         return DeviceRunResult(
@@ -470,7 +501,7 @@ class MaxSumEngine:
         for leaf in tree_leaves(state):
             if leaf.dtype.is_floating_point:
                 finite = finite & torch.all(torch.isfinite(leaf))
-        cost = (maxsum_ops.assignment_constraint_cost(graph, values)
+        cost = (self._ops.assignment_constraint_cost(graph, values)
                 if with_cost else
                 torch.zeros((), dtype=graph.var_costs.dtype,
                             device=self.device))
@@ -534,6 +565,11 @@ class MaxSumEngine:
             CheckpointManager,
         )
 
+        if decimation is not None and self._ops is not maxsum_ops:
+            raise ValueError(
+                "decimation clamps the edge-major var_costs table; "
+                "run the unsharded edge-layout engine (no shards=, "
+                "layout='edge')")
         if manager is None and checkpoint_dir is not None:
             manager = CheckpointManager(
                 checkpoint_dir, every=segment_cycles or 100
@@ -586,14 +622,13 @@ class MaxSumEngine:
             """One segment through :meth:`_call` (its span, counters and
             profile); returns ((state, values), compile_s, run_s)."""
             seg_stats: Dict[str, int] = {}
-            kw = self._kwargs()
+            kw = self._kwargs(seg_stats)
 
             def call():
                 seg_stats.clear()
-                return maxsum_ops.run_maxsum_from(
+                return self._ops.run_maxsum_from(
                     graph, state, extra,
-                    stop_on_convergence=stop_on_convergence,
-                    stats=seg_stats, **kw)
+                    stop_on_convergence=stop_on_convergence, **kw)
 
             key = self._segment_key(extra, stop_on_convergence)
             if tracer.active:
@@ -726,6 +761,10 @@ class MaxSumEngine:
         one), until every variable is fixed or ``max_cycles`` cycles
         are spent.  ``run_checkpointed(decimation=...)`` is the
         segmented form the solve uses."""
+        if self.layout != "edge":
+            raise ValueError(
+                "decimation clamps rows of the edge-major var_costs "
+                "table; run with layout='edge'")
         n_vars = len(self.meta.var_names)
         dmax = self.graph.var_costs.shape[1]
         var_costs = _host(self.graph.var_costs).copy()

@@ -131,3 +131,68 @@ def timed_engine_call(warm: set, key, fn: Callable, device: torch.device,
         warm.add(key)
         return out, elapsed, elapsed
     return out, 0.0, elapsed
+
+
+# One side stream per card for launched dispatches (launch_engine_call).
+_LAUNCH_STREAMS: dict = {}
+
+
+class Launched:
+    """A dispatch queued by :func:`launch_engine_call`: its outputs'
+    host copies (pinned memory, filled by the card) and the event
+    recorded after them (None on the CPU, where the call ran
+    synchronously)."""
+
+    def __init__(self, host, event, keep):
+        self.host = host
+        self.event = event
+        # Device tensors the queued work reads or writes: held until
+        # the event has passed.
+        self.keep = keep
+
+
+def launch_engine_call(warm: set, key, fn: Callable, device: torch.device
+                       ) -> Launched:
+    """Queue a WARM engine call without waiting for it (the port of the
+    reference's ``launch_jit_call``).  ``fn()`` runs on a side stream
+    of the card and returns a tuple of device tensors; each is copied
+    into pinned host memory on that stream and an event is recorded
+    after the copies.  Nothing here synchronises the host, provided
+    ``fn`` reads nothing back.  :func:`finish_engine_call` waits on the
+    event.  A cold key raises: a cold call builds kernels, which the
+    synchronous :func:`timed_engine_call` accounts."""
+    if key not in warm:
+        raise RuntimeError(
+            f"launch_engine_call on cold key {key!r}: cold dispatches "
+            "must go through timed_engine_call")
+    if device.type != "cuda":
+        return Launched(tuple(fn()), None, None)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    stream = _LAUNCH_STREAMS.get(index)
+    if stream is None:
+        stream = _LAUNCH_STREAMS[index] = torch.cuda.Stream(index)
+    with torch.cuda.device(index), torch.cuda.stream(stream):
+        out = fn()
+        host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                     for t in out)
+        for h, t in zip(host, out):
+            h.copy_(t, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(stream)
+    return Launched(host, event, out)
+
+
+def finish_engine_call(key, launched: Launched, t_launch: float
+                       ) -> Tuple[Any, float]:
+    """Wait for a :func:`launch_engine_call` dispatch and account it as
+    a warm call (the port of ``finish_jit_call``).  Returns (the host
+    tensors, seconds from ``t_launch`` to completion)."""
+    if launched.event is not None:
+        launched.event.synchronize()
+    elapsed = time.perf_counter() - t_launch
+    launched.keep = None
+    if metrics_registry.active:
+        _account_jit_call(str(key), False, elapsed)
+    efficiency_tracker.record_jit(str(key), False, elapsed)
+    return launched.host, elapsed

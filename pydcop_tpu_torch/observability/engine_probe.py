@@ -134,11 +134,15 @@ class EngineProbe:
         t0 = time.perf_counter()
         msgs = getattr(state, "f2v", None)
         scalars = []
-        try:
-            scalars.append(self._cost(values).to(torch.float32))
-        except Exception:
-            logger.exception("Chunk cost evaluation failed")
+        if getattr(self.engine, "layout", "edge") != "edge":
+            # The reference's probe prices edge-layout chunks only.
             scalars.append(None)
+        else:
+            try:
+                scalars.append(self._cost(values).to(torch.float32))
+            except Exception:
+                logger.exception("Chunk cost evaluation failed")
+                scalars.append(None)
         have_prev = msgs is not None and self._prev_msgs is not None
         if have_prev:
             scalars.extend(self._convergence(

@@ -237,9 +237,12 @@ def assignment_cost(graph: TorchFactorGraph,
                   gather_stages(site, 0, d, v, near=shapes))]
     for k, b in enumerate(graph.buckets):
         arity, f = shapes[k]
+        # The variable costs' sum (arity 0) is one of the bucket's
+        # neighbours in the reference's fusion.
         ops.append(Gather(b.costs.reshape(f, -1), b.var_ids32, f, d,
                           gather_stages(site, arity, d, f,
-                                        near=shapes[:k] + shapes[k + 1:])))
+                                        near=[(0, v)] + shapes[:k]
+                                        + shapes[k + 1:])))
     return window_total(ops, values)
 
 

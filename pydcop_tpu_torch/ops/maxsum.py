@@ -103,8 +103,10 @@ def init_state(graph: TorchFactorGraph) -> MaxSumState:
         f2v=zeros(),
         v2f_count=counts(),
         f2v_count=counts(),
-        stable=torch.tensor(False, device=dev),
-        cycle=torch.tensor(0, dtype=torch.int32, device=dev),
+        # Made on the device (no host copy, so no host sync: a
+        # launch that builds its state queues it with the rest).
+        stable=torch.zeros((), dtype=torch.bool, device=dev),
+        cycle=torch.zeros((), dtype=torch.int32, device=dev),
     )
 
 

@@ -115,6 +115,32 @@ def _localsearch_unit_domain(arity: int, n: int) -> Stages:
     return _L4x16 if n == 20 else _L4x16_2x20
 
 
+# The neighbours' arities (_eight_beside) that put a bucket of 8
+# factors in lanes at the local search's site, by (arity, D >= 3).
+_EIGHT_NEAR_LOCALSEARCH = {(3, True): 3, (4, False): 2, (5, False): 1}
+
+
+def _eight_beside(site: str, arity: int, d: int, near) -> bool:
+    """Whether the direct sums beside a bucket of 8 factors put its sum
+    in lanes, where alone it is left to right: LLVM's SLP vectoriser
+    takes the 8 gathered values as one vector when the same straight
+    block holds enough other direct sums.  Counted as
+    :func:`_near_arities`, plus 1 at the local search's site for its
+    variable costs when they are a direct sum (2-32 values; ``near``
+    holds them as arity 0): at ``"maxsum"`` with D = 1 a ternary
+    bucket needs 2, at ``"localsearch"`` a ternary one 3 (D >= 3), a
+    4-ary one 2 and a 5-ary one 1 (D = 2)."""
+    if site == "maxsum":
+        return arity == 3 and d == 1 and _near_arities(site, near) >= 2
+    if site != "localsearch" or d < 2:
+        return False
+    need = _EIGHT_NEAR_LOCALSEARCH.get((arity, d >= 3))
+    if need is None:
+        return False
+    variables = any(a == 0 and 2 <= m <= WINDOW for a, m in near)
+    return _near_arities(site, near) + variables >= need
+
+
 def _near_arities(site: str, near) -> int:
     """The arities, added up, of the buckets in ``near`` summed directly
     (2-32 factors), not counting 8-ary ones at ``"maxsum"``."""
@@ -126,6 +152,40 @@ def _near_any(near, arities, most: int) -> bool:
     """Whether ``near`` holds a bucket of one of ``arities`` with 2 to
     ``most`` factors."""
     return any(a in arities and 2 <= m <= most for a, m in near)
+
+
+# The lane layout's gathers at D = 1: the count from which LLVM
+# vectorises a bucket's direct sum, by arity (none at arity 2; 16 from
+# arity 7).
+_LANE_UNIT_DOMAIN_FIRST = {1: 20, 2: WINDOW + 1, 3: 28, 4: 23, 5: 20, 6: 18}
+
+
+def _lane_stages(arity: int, d: int, n: int, trace: bool) -> Stages:
+    """The head of the lane layout's sum of ``n`` gathered costs
+    (``maxsum_lane.assignment_constraint_cost``: ``take_along_axis`` of
+    the ``[D^a, F]`` table, the graph a jit argument), 16 <= n <= 32:
+    lanes of 8 from 16 values (18 for a binary bucket), of 4 then 2
+    from 20, of 8 from 24; at D = 1 only from the count of
+    ``_LANE_UNIT_DOMAIN_FIRST``, the second stage ending at 22 from 22
+    values at arity >= 4.  Inside the traced run (``trace``) a unary
+    bucket differs: never in lanes at D = 1, from 19 values at D = 2,
+    and in lanes of 8 then 2 at 20-23 values for D >= 3."""
+    if trace and arity == 1:
+        if d < 2 or (d == 2 and n < 19):
+            return ()
+        if d >= 3 and 20 <= n < 24:
+            return _L8x16_2x20
+    if d < 2 and n < _LANE_UNIT_DOMAIN_FIRST.get(arity, 16):
+        return ()
+    if d >= 2 and arity == 2 and n < 18:
+        return ()
+    if n < 20:
+        return _L8x16
+    if n < 24:
+        if d < 2 and arity >= 4 and n >= 22:
+            return ((4, 16), (2, 22))
+        return _L4x16_2x20
+    return _L8x24 if n < 32 else _L8x32
 
 
 def gather_stages(site: str, arity: int, d: int, n: int,
@@ -140,13 +200,18 @@ def gather_stages(site: str, arity: int, d: int, n: int,
     ``"maxsum"`` (``assignment_constraint_cost``'s flat-index gather and
     the trace's variable-side gather, the graph a jit argument),
     ``"probe"`` (the same sums jitted with the graph closed over as
-    constants, as the engine probe does) and ``"eager"`` (each sum its
+    constants, as the engine probe does), ``"lane"`` (the lane layout's
+    ``assignment_constraint_cost`` and variable-cost gather, the graph
+    a jit argument: :func:`_lane_stages`, where no neighbouring bucket
+    was seen to change a form), ``"lane_trace"`` (the same inside the
+    lane layout's traced run) and ``"eager"`` (each sum its
     own program over the gathered values, as when the reference's
     ``assignment_cost`` runs outside a jit: no vectorised head, left to
     right).
 
     The buckets summed directly (2-32 factors) in the same loop fusion
-    change three forms:
+    change three forms (at the local search's site ``near`` also holds
+    the variable costs, as ``(0, V)``):
 
     - a sum of the variable costs (arity 0, ``"localsearch"``) or of a
       unary bucket (arity 1, ``"localsearch"`` and ``"maxsum"``) goes in
@@ -156,9 +221,12 @@ def gather_stages(site: str, arity: int, d: int, n: int,
     - at ``"maxsum"``, beside a bucket of arity 3, 4, 6 or 7, a 5-ary
       bucket of 20-23 factors goes in lanes of 4 then 2, not 8, and one
       of 32 in lanes of 8, not 16;
-    - at ``"maxsum"`` with D = 1, beside a binary bucket of 2-20
-      factors or one of arity 4-7 and 2-8 factors, a ternary bucket of 8
-      factors goes in lanes.
+    - a bucket of 8 factors goes in lanes when the other direct sums
+      are enough (:func:`_eight_beside`: at ``"maxsum"`` with D = 1 a
+      ternary bucket beside arities adding up to 2; at
+      ``"localsearch"``, counting its variable costs as 1 while V <= 32,
+      a ternary bucket at 3 with D >= 3, a 4-ary one at 2 and a 5-ary
+      one at 1 with D = 2).
 
     Above 32 values the window chain decides and the head is unused.
     Probed at arity 0-8, D in 1..8 (tables up to 2**16 entries a
@@ -166,17 +234,20 @@ def gather_stages(site: str, arity: int, d: int, n: int,
     two beside another (jax 0.9.0, XLA:CPU, optimised HLO and IR and the
     sums' bits).  Open (ROADMAP Queue C): at ``"probe"`` the graph's
     var_ids are constants and LLVM's choice for a bucket beside another
-    one can follow their values; buckets of 8 factors beside others at
-    ``"localsearch"`` (D >= 2) and at ``"maxsum"`` with neighbours of
-    more factors follow no rule found."""
+    one can follow their values."""
     if n > WINDOW or n < 2 or site == "eager":
         return ()
+    if site in ("lane", "lane_trace") and arity >= 1:
+        return (_lane_stages(arity, d, n, site == "lane_trace")
+                if n >= 16 else ())
     if arity <= 1:
         if d < 2 or n <= 8:
             return ()
         if ((site == "localsearch" or (site == "maxsum" and arity == 1))
                 and _near_arities(site, near) >= 5):
             first = 22 if d == 2 else 20
+        elif site in ("lane", "lane_trace"):
+            first = 28 if d == 2 else 22
         else:
             first = 25 if d == 2 else 22
         if n < first:
@@ -187,11 +258,10 @@ def gather_stages(site: str, arity: int, d: int, n: int,
     if n < 8:
         return _L2x4 if n == 4 and _two_at_4(site, arity, d) else ()
     if n == 8:
-        if (site == "maxsum" and arity == 3 and d == 1
-                and (_near_any(near, (2,), 20)
-                     or _near_any(near, (4, 5, 6, 7), 8))):
+        if _four_at_8(site, arity, d) or _eight_beside(site, arity, d,
+                                                       near):
             return _L4x8
-        return _L4x8 if _four_at_8(site, arity, d) else ()
+        return ()
     if n < 16:
         return ()
     if arity <= 4 and d >= 2:

@@ -9,12 +9,14 @@ kernel's wrapper and the copied computation graphs, and the exact
 slice: DPOP's ops, engine and algorithm, SyncBB, NCBB, the pseudo-tree
 and ordered graph, and the window sum's wrapper, and the portfolio and
 dynamic slice: the autotuner, the dynamic engine, the scenario model and
-the YAML writers), then
+the YAML writers, and the batch and lane slice: the binning copy, the
+lane ops and belief sum, the batched engine and the batch command), then
 ``sys.modules`` must hold no ``jax*``
 module and no ``pydcop_tpu``/``pydcop_tpu.*`` module.  The sources of
 the package, of chip_smoke.py, chip_compare.py,
 chip_var_update_compare.py and of the card-only test files of the local
-search, the exact slice and the dynamic slice are also scanned for such
+search, the exact slice, the dynamic slice and the batch slice are also
+scanned for such
 imports (the scan reads the imports inside functions too, such as the
 portfolio racer's).
 """
@@ -105,6 +107,11 @@ REQUIRED = [
     "pydcop_tpu_torch.engine.dynamic",
     "pydcop_tpu_torch.dcop.scenario",
     "pydcop_tpu_torch.dcop.yamldcop",
+    "pydcop_tpu_torch.serving.binning",
+    "pydcop_tpu_torch.ops.maxsum_lane",
+    "pydcop_tpu_torch.ops.lane_sum",
+    "pydcop_tpu_torch.engine.batch",
+    "pydcop_tpu_torch.commands.batch",
 ]
 
 
@@ -137,7 +144,8 @@ SOURCES = sorted(
        REPO / "chip_var_update_compare.py",
        REPO / "tests" / "test_torch_gpu_localsearch.py",
        REPO / "tests" / "test_torch_gpu_dpop.py",
-       REPO / "tests" / "test_torch_gpu_dynamic.py"]
+       REPO / "tests" / "test_torch_gpu_dynamic.py",
+       REPO / "tests" / "test_torch_gpu_batch.py"]
 )
 
 

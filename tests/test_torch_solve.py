@@ -5,7 +5,8 @@ the default options and with pruning, the sorted and ell aggregations
 and ``aggregation="auto"`` (measured, and replayed from a stored
 decision); the CLI in a subprocess, its per-cycle metrics CSV holding
 the JAX engine's cost trace; and the device rule (no silent CPU
-fallback).  The options the port does not run yet still raise.
+fallback).  The options the port does not run yet still raise (the
+lane layout runs: ``tests/test_torch_maxsum_lane.py``).
 """
 
 import csv
@@ -106,7 +107,6 @@ def test_default_device_is_cuda_and_never_falls_back():
 
 
 @pytest.mark.parametrize("params,kw", [
-    ({"layout": "lane"}, {}),
     ({}, {"n_devices": 2}),
     ({}, {"shards": 2}),
 ])

@@ -104,16 +104,10 @@ LOGGED = [
     # 26/2: ref 0xc9538e52 port 0xc9538e53 (the variable costs in lanes:
     # the buckets' arities add up to 5)
     ("localsearch", 20, 4, [(2, 16), (3, 24)], 26),
-    # 29/2: ref 0x49c12fcf port 0x49c12fce
-    pytest.param(
-        "localsearch", 12, 4, [(2, 23), (3, 8)], 29,
-        marks=open_case(
-            "the ternary bucket of 8 factors goes in lanes beside the "
-            "binary one (lanes of 4 or 8 give the reference's bits on "
-            "every draw); across neighbours and variable counts that "
-            "form follows no rule found.  Draws 0, 4, 10: ref 0x400655f2 "
-            "port 0x400655f0, ref 0x4240a2a0 port 0x4240a2b0, ref "
-            "0x4346ffa4 port 0x4346ffa5")),
+    # 29/2: ref 0x49c12fcf port 0x49c12fce (the ternary bucket of 8
+    # factors in lanes: beside the binary one and the variable costs,
+    # window_sum._eight_beside)
+    ("localsearch", 12, 4, [(2, 23), (3, 8)], 29),
     # 56/1: ref 0xc4331b2b port 0xc4331b2d (the unary bucket in lanes:
     # beside a 6-ary one)
     ("localsearch", 40, 2, [(1, 23), (6, 24)], 56),

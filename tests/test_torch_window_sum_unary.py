@@ -37,17 +37,10 @@ def unary_cases():
     for site in ("localsearch", "maxsum"):
         for d in (2, 3):
             for near in UNARY_NEAR:
-                if site == "localsearch" and d == 3 and (3, 8) in near:
-                    # The unary rule holds here; the ternary bucket of 8
-                    # factors beside it does not (its open form, as in
-                    # tests/test_torch_window_sum_context.py's case 29).
-                    yield pytest.param(near, d, site, marks=pytest.mark.xfail(
-                        strict=True, reason=(
-                            "the ternary bucket of 8 factors at the local "
-                            "search's site with D = 3 goes in lanes beside "
-                            "these buckets: no rule found (ROADMAP Queue C)")))
-                else:
-                    yield near, d, site
+                # Beside [(2, 16), (3, 8)] at the local search's site
+                # with D = 3 the ternary bucket of 8 factors goes in
+                # lanes too (window_sum._eight_beside).
+                yield near, d, site
 
 
 @pytest.mark.parametrize("near,d,site", unary_cases())
