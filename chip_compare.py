@@ -2,7 +2,7 @@
 """Time the card's belief aggregation and whole MaxSum runs of this
 checkout beside another checkout's, on the same inputs, in turns.
 
-    python3 chip_compare.py OTHER_CHECKOUT [--rounds 2]
+    python3 chip_compare.py OTHER_CHECKOUT [--rounds 2] [--legs all|lane]
 
 Builds chip_smoke.py's aggregation graphs from their seeds (the 1M-
 variable scale graph, the scale-free graph of the same size, a hub of
@@ -33,8 +33,17 @@ and checkout and the card's name and power limit.  A window-sum leg:
 ``window_tree_sum`` over 1.5M values beside ``torch.sum``, and the traced
 flagship MaxSum cycle (the cost of each cycle's assignment with the
 variable costs) against the untraced one, in ms/cycle and CUDA kernels a
-cycle, with the cost's own kernels a call.  It needs one CUDA card and exits 1
-without one; it imports nothing of JAX and nothing of the JAX package.
+cycle, with the cost's own kernels a call.  The lane leg (``--legs lane``
+runs it alone; ``all``, the default, runs every leg but it) builds the
+flagship and the 1M-variable scale arrays in the lane layout
+(``device.to_lane_device_graph``) with random f2v messages [D, a, F]
+from a seed, checks ``maxsum_lane.aggregate_beliefs`` (the entry both
+sides share for the lane belief sum) on the card against the CPU bit
+for bit, times it as above, and times whole fixed-cycle lane and edge
+runs at both sizes (wall ms per cycle, best of three, and kernels per
+cycle as above).  Each worker first builds its checkout's kernels, one
+nvcc per source, together.  It needs one CUDA card and exits 1 without
+one; it imports nothing of JAX and nothing of the JAX package.
 """
 
 import argparse
@@ -103,14 +112,21 @@ def graph_ms(torch, fn, reps: int) -> float:
     return sorted(times)[2]
 
 
-def worker(root: str):
-    """Check and time every leg of the checkout at ``root``."""
+def worker(root: str, legs: str):
+    """Check and time the legs (``all`` or ``lane``) of the checkout at
+    ``root``."""
     sys.path.insert(0, root)
     import torch
 
     from pydcop_tpu_torch.engine.convert import graph_from_numpy
+    from pydcop_tpu_torch.ops import _build
     from pydcop_tpu_torch.ops import maxsum as ops
 
+    _build.build(_build.kernel_names())
+    if legs == "lane":
+        print(json.dumps(lane_timings(torch, ops, graph_from_numpy)),
+              flush=True)
+        return
     data = np.load(INPUTS)
     out = {}
     for label in SHAPES:
@@ -207,6 +223,79 @@ def window_timings(torch, ops, graph_from_numpy):
     out["flagship_cost_kernels_per_call"] = kernels_per_cycle(
         torch, lambda n: [cost(values) for _ in range(n)], 20)
     out["flagship_cost_ms"] = graph_ms(torch, lambda: cost(values), 200)
+    return out
+
+
+def lane_timings(torch, ops, graph_from_numpy):
+    """The lane leg: ``maxsum_lane.aggregate_beliefs`` checked (card =
+    CPU) and timed, and whole lane and edge runs, at the flagship and
+    scale shapes (chip_smoke.py's arrays, built by this checkout)."""
+    import time
+
+    sys.path.insert(0, HERE)
+    import chip_smoke
+
+    from pydcop_tpu_torch.dcop import dcop as dcop_mod
+    from pydcop_tpu_torch.dcop import objects, relations
+    from pydcop_tpu_torch.device import to_lane_device_graph
+    from pydcop_tpu_torch.engine.compile import (
+        CompiledFactorGraph,
+        FactorBucket,
+        compile_dcop,
+    )
+    from pydcop_tpu_torch.ops import maxsum_lane as lane_ops
+
+    flagship, _ = compile_dcop(chip_smoke.build_flagship(
+        objects, relations, dcop_mod, chip_smoke.FLAGSHIP_VARS),
+        noise_level=0.01)
+    var_costs, var_valid, buckets = chip_smoke.scale_arrays(
+        chip_smoke.SCALE_VARS)
+    scale = CompiledFactorGraph(var_costs, var_valid, tuple(
+        FactorBucket(c, ids) for c, ids in buckets))
+    out = {}
+    for label, host, cycles, prof_cycles in (("flagship", flagship, 200, 20),
+                                             ("scale", scale, 30, 5)):
+        lane = {dev: to_lane_device_graph(lane_ops.to_lane_graph(host), dev)
+                for dev in ("cuda", "cpu")}
+        d = host.var_costs.shape[1]
+        rng = np.random.default_rng(400)
+        f2v = []
+        for b in lane["cpu"].buckets:
+            shape = (d,) + tuple(b.var_ids.shape)
+            f2v.append((rng.normal(size=shape) * 10.0 ** rng.integers(
+                -3, 4, size=shape)).astype(np.float32))
+        card = tuple(torch.tensor(m, device="cuda") for m in f2v)
+        got = lane_ops.aggregate_beliefs(lane["cuda"], card)
+        want = lane_ops.aggregate_beliefs(
+            lane["cpu"], tuple(torch.tensor(m) for m in f2v))
+        if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+            raise SystemExit(f"lane aggregate_beliefs: card != CPU on "
+                             f"{label}")
+        reps = 50 if label == "scale" else 200
+        out[f"lane_sum_{label}"] = graph_ms(
+            torch, lambda: lane_ops.aggregate_beliefs(lane["cuda"], card),
+            reps)
+        del got, want, card
+        edge = graph_from_numpy(host.var_costs, host.var_valid,
+                                [(b.costs, b.var_ids) for b in host.buckets],
+                                "cuda")
+        for layout, mod, graph in (("lane", lane_ops, lane["cuda"]),
+                                   ("edge", ops, edge)):
+            def run(n, mod=mod, graph=graph):
+                mod.run_maxsum(graph, n, stop_on_convergence=False)
+                torch.cuda.synchronize()
+
+            run(cycles)                                   # warm
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                run(cycles)
+                times.append(time.perf_counter() - t0)
+            out[f"{label}_{layout}_run_ms_per_cycle"] = (
+                min(times) / cycles * 1e3)
+            out[f"{label}_{layout}_kernels_per_cycle"] = kernels_per_cycle(
+                torch, run, prof_cycles)
+        del lane, edge
     return out
 
 
@@ -344,10 +433,11 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("other", nargs="?")
     parser.add_argument("--rounds", type=int, default=2)
+    parser.add_argument("--legs", choices=("all", "lane"), default="all")
     parser.add_argument("--worker", metavar="ROOT")
     opts = parser.parse_args()
     if opts.worker:
-        worker(opts.worker)
+        worker(opts.worker, opts.legs)
         return 0
     import torch
 
@@ -355,7 +445,8 @@ def main() -> int:
         print("chip_compare: needs a CUDA card and OTHER_CHECKOUT",
               file=sys.stderr)
         return 1
-    make_inputs()
+    if opts.legs == "all":
+        make_inputs()
     roots = {"this": HERE, "other": os.path.abspath(opts.other)}
     order = []
     for r in range(opts.rounds):
@@ -364,8 +455,8 @@ def main() -> int:
     for name in order:
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--worker",
-             roots[name]], cwd=roots[name], capture_output=True, text=True,
-            timeout=600)
+             roots[name], "--legs", opts.legs], cwd=roots[name],
+            capture_output=True, text=True, timeout=600)
         if proc.returncode != 0:
             print(proc.stdout, proc.stderr, file=sys.stderr)
             return 1

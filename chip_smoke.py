@@ -67,11 +67,19 @@ their plain versions, timed beside their bounds and ``index_add_``),
 ``lane_layout`` (``api.solve(flagship, layout lane)``: card = CPU =
 second card run over 200 cycles, the cost trace, the 1M-variable scale
 arrays card = CPU, ms a cycle lane against edge), ``batch_stacked``
-(``solve_maxsum_batch`` over 64 instances of 10,000 variables as one
+(``solve_maxsum_batch`` over 32 instances of 10,000 variables as one
 disjoint union: each member equal to its solo card solve, the stack
 card = CPU, ``launch_stacked`` under the sync-debug check) and
 ``batch_envelope_lane`` (24 structures envelope-padded and lane-packed,
-each member equal to its solo solve and to the CPU).
+each member equal to its solo solve and to the CPU).  The lane kernels
+slice extends ``lane_kernel_check`` (the redesigned ``lane_sum.cu``, its
+from-costs mode and both entries of ``lane_var_update.cu`` bit for bit
+against their plain versions at D = 1..8, 11 and 33, timed beside their
+bounds) and ``lane_layout`` (the new launch counts, kernels a cycle and
+device time from the profiler, lane against edge in the same call; the
+profiles are taken in a fresh process, ``python3 chip_smoke.py
+--lane-profiles``, which this phase starts, each held to the launch
+counters of its run).
 Each phase prints one JSON line (with ``t_s``, the seconds since the
 start); any failure raises and the
 script exits non-zero without the final line.  On success the last
@@ -211,13 +219,22 @@ def eager_ms(torch, fn, calls: int):
     return sorted(cuda_ms(torch, fn, calls, warmup=1) for _ in range(5))
 
 
-def profile_cycles(torch, run, cycles: int):
+def profile_cycles(torch, run, cycles: int, counts=None):
     """torch.profiler over ``run(cycles)`` (a fixed-cycle run that ends
     synchronised): device busy time per cycle, the device's busy share
-    of the wall time, and the kernels that take the most device time."""
+    of the wall time, and the kernels that take the most device time.
+    With ``counts`` (``_build.launch_counts``), the counts are set to 0
+    after the warm run and the profiled run's are returned too, beside
+    the launches the profile saw of the port's own kernels (the CUDA
+    rows of kernels declared in an anonymous namespace, ``void
+    (anonymous namespace)::name<...>(...)``; torch's kernels are
+    ``at::native`` ones, whose template arguments may name anonymous
+    namespaces)."""
     from torch.profiler import ProfilerActivity, profile
 
     run(cycles)   # warm
+    if counts is not None:
+        counts.clear()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -235,7 +252,12 @@ def profile_cycles(torch, run, cycles: int):
               if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     busy_s = sum(dev_us(e) for e in events) / 1e6
     top = sorted(events, key=dev_us, reverse=True)[:14]
-    return {
+    extra = {} if counts is None else {
+        "launches": dict(counts),
+        "own_kernel_launches": sum(
+            e.count for e in events
+            if e.key.startswith("void (anonymous namespace)::"))}
+    return extra | {
         "cycles": cycles,
         "wall_ms_per_cycle": wall / cycles * 1e3,
         "device_ms_per_cycle": (busy_s / cycles * 1e3 if events
@@ -1964,7 +1986,8 @@ LS_CYCLES = 130
 # a second card solve repeats the first case of each algorithm only.
 LS_TIMED_CYCLES = 50
 LS_PROFILE_CYCLES = 10
-LS_SCALE_CYCLES = 20       # 30 until the batch and lane slice
+# 30 until the batch and lane slice, 20 until the lane kernels slice.
+LS_SCALE_CYCLES = 10
 LS_SCALE_COMPARE = 5
 # (label, algorithm, params, problem) of the flagship solves; the first
 # is the slice's main path (api.solve(dcop, "dsa"), the default variant
@@ -2825,8 +2848,9 @@ WINDOW_GRAPHS = [("mixed_arity", 300, 3, (40, 500, 60, 20, 9)),
                  ("heads", 60, 2, (23, 20, 24, 32, 16, 8)),
                  ("scale_mixed", 100_000, 4, (5_000, 150_000, 30_000))]
 # Warm DPOP solves timed an instance (5 until the portfolio and dynamic
-# phases were added, 3 until the batch and lane slice's).
-DPOP_WARM_REPS = 2
+# phases were added, 3 until the batch and lane slice's, 2 until the
+# lane kernels slice's).
+DPOP_WARM_REPS = 1
 # benchmarks/bench_dpop.py's trees (n, D), seed 0 — BASELINE.md config
 # #3 — and bench.py build_dpop_exact_dcop's (n, D, seed).
 DPOP_TREES = [(3_000, 3), (10_000, 8)]
@@ -3469,10 +3493,11 @@ def phase_dpop_cli(ctx):
 
 # The portfolio and dynamic slice.
 DYN_SLACK = 0.02
-# 200 and 100 until the batch and lane slice's phases were added (cut
-# to make room for them; the CPU replay is most of the phase).
-DYN_CYCLES = 120
-DYN_EVENT_CYCLES = 60
+# 200 and 100 until the batch and lane slice's phases were added, 120
+# and 60 until the lane kernels slice (cut to keep the script's time;
+# the CPU replay is most of the phase).
+DYN_CYCLES = 80
+DYN_EVENT_CYCLES = 40
 DYN_MARGIN = 0.1
 DYN_AFTER_RESTORE = 50
 DOMINO_VARS = 140
@@ -3838,9 +3863,14 @@ def phase_dynamic(ctx, card="cuda"):
 # The batch and lane slice.
 LANE_CHECK_D = [1, 2, 3, 4, 5, 6, 7, 8, 9, 33]
 LANE_CHECK_F = [1, 257, 1_000, 15_001]
+# Domains of the lane_sum and lane_var_update checks.
+LANE_SUM_D = [1, 2, 3, 4, 5, 6, 7, 8, 11, 33]
 LANE_SCALE_COMPARE = 5       # card = CPU cycles at scale, lane layout
 LANE_TRACE_CYCLES = 30
-BATCH_MEMBERS = 64           # stacked instances of build_dcop_small
+# Stacked instances of build_dcop_small (64 until the lane kernels
+# slice: cut to keep the script's time; the 64 compiles and solo solves
+# were most of the phase).
+BATCH_MEMBERS = 32
 BATCH_VARS = 10_000
 BATCH_CPU_CYCLES = 20        # the stack's card = CPU comparison
 MIXED_STRUCTS = 24           # build_dcop_mixed structures
@@ -3945,21 +3975,30 @@ def ms_per_cycle(torch, run, cycles: int) -> float:
 
 
 def phase_lane_kernel_check(ctx, flagship_lane, scale_lane):
-    """The lane entry of binary_factor_update.cu and lane_sum.cu against
-    their plain versions bit for bit (every D = 1..8, two generic D,
-    ragged F, views off a 16-byte boundary; the belief sum on the
-    flagship's and the scale's lane graphs and on graphs of one-edge
-    buckets), each timed at the flagship and scale shapes beside its
-    bound (lane_sum also beside zeros + index_add_)."""
+    """The lane entry of binary_factor_update.cu, lane_sum.cu and both
+    entries of lane_var_update.cu against their plain versions bit for
+    bit (the binary entry at every D = 1..8, two generic D, ragged F,
+    views off a 16-byte boundary; the belief sum, its from-costs mode
+    included, on the flagship's and the scale's lane graphs, on graphs
+    of one-edge buckets and at D = 1..8, 11 and 33 with a hub above
+    HEAVY_DEGREE, subnormal messages and unaligned views; the variable
+    side at the same D, damping 0, 0.5 and 0.7, cycle 0 and 3, a
+    subnormal state and unaligned views), each timed at the flagship and
+    scale shapes beside its bound (lane_sum also beside zeros +
+    index_add_)."""
     torch = ctx["torch"]
     from pydcop_tpu_torch.ops.binary_factor import (
         binary_factor_update_lane,
         binary_factor_update_lane_reference,
     )
     from pydcop_tpu_torch.ops.lane_sum import (
+        lane_beliefs,
+        lane_beliefs_reference,
+        heavy_variables,
         lane_order,
-        lane_sum,
         lane_sum_reference,
+        lane_sum_table,
+        padded_table,
     )
 
     err_a = 0.0
@@ -3979,7 +4018,8 @@ def phase_lane_kernel_check(ctx, flagship_lane, scale_lane):
                     fail(f"binary lane entry != plain at D={d} F={f} "
                          f"unaligned={unaligned}")
                 checked += 1
-    timing = {"binary_factor_update: lane": {}, "lane_sum": {}}
+    timing = {"binary_factor_update: lane": {}, "lane_sum": {},
+              "lane_var_update: v2f": {}, "lane_var_update: send": {}}
     for label, f in (("flagship", flagship_lane.buckets[0].costs.shape[-1]),
                      ("scale", scale_lane.buckets[0].costs.shape[-1])):
         costs, msgs = lane_bucket_inputs(torch, N_COLORS, f, 300, False)
@@ -3995,50 +4035,72 @@ def phase_lane_kernel_check(ctx, flagship_lane, scale_lane):
             bound_by=bound_by, library_ms=None)
         del costs, msgs
 
-    # lane_sum: the flagship and scale lane graphs, and one-edge buckets.
+    # lane_sum: the flagship and scale lane graphs, one-edge buckets and
+    # random graphs with a hub at every D of LANE_SUM_D.
     rng = np.random.default_rng(5)
     err_b = 0.0
     sums_checked = {}
-    graphs = [("flagship", flagship_lane), ("scale", scale_lane)]
+    graphs = [("flagship", flagship_lane, 3, False),
+              ("scale", scale_lane, 3, False)]
     for layout in ONE_EDGE_LAYOUTS:
         ids = [rng.integers(0, 301, size=(a, f)) for a, f in layout]
-        graphs.append((f"one_edge_{layout}", ids))
-    for label, graph in graphs:
+        graphs.append((f"one_edge_{layout}", ids, 3, False))
+    for d in LANE_SUM_D:
+        ids = [rng.integers(0, 301, size=(a, f))
+               for a, f in ((1, 3), (2, 900), (3, 40))]
+        ids[1][0, :450] = 7             # a hub: a warp of its own
+        for unaligned in (False, True):
+            graphs.append((f"hub_D{d}" + ("_unaligned" if unaligned else ""),
+                           ids, d, unaligned))
+    for label, graph, d, unaligned in graphs:
         if isinstance(graph, list):
             ids = graph
-            d = 3
+            host = lane_order(ids, 301)
             perm, offsets, starts = (torch.tensor(x, device="cuda")
-                                     for x in lane_order(ids, 301))
+                                     for x in host)
+            heavy = torch.tensor(heavy_variables(host[1]), device="cuda")
             var_costs = torch.tensor(rng.normal(size=(d, 301)).astype(
                 np.float32), device="cuda")
             shapes = [(d,) + x.shape for x in ids]
         else:
             perm, offsets, starts = (graph.agg_perm, graph.agg_offsets,
                                      graph.agg_buckets)
+            heavy = graph.agg_heavy
             var_costs = graph.var_costs
             d = var_costs.shape[0]
             shapes = [(d,) + tuple(b.var_ids.shape) for b in graph.buckets]
-        msgs = [torch.tensor((rng.normal(size=sh) * 10.0 ** rng.integers(
-            -3, 4, size=sh)).astype(np.float32), device="cuda")
-            for sh in shapes]
-        beliefs, sums = lane_sum(msgs, perm, offsets, starts, var_costs)
-        ref_b, ref_s = lane_sum_reference(
-            [m.cpu() for m in msgs], perm.cpu(), offsets.cpu(),
-            starts.cpu(), var_costs.cpu())
-        err_b = max(err_b, float((beliefs.cpu() - ref_b).abs().max()),
-                    float((sums.cpu() - ref_s).abs().max()))
-        if not (torch.equal(beliefs.cpu(), ref_b)
-                and torch.equal(sums.cpu(), ref_s)):
+        host_msgs = [(rng.normal(size=sh) * 10.0 ** rng.integers(
+            -3, 4, size=sh)).astype(np.float32) for sh in shapes]
+        if label.startswith("hub_D") and unaligned:
+            host_msgs = [tiny_messages(rng, sh, np.ones(sh, bool))
+                         for sh in shapes]
+        msgs = [torch.tensor(m, device="cuda") for m in host_msgs]
+        if unaligned:
+            msgs = [unaligned_copy(torch, m) for m in msgs]
+        args = (perm, offsets, starts, var_costs)
+        table = lane_sum_table(msgs, *args, heavy)
+        own = lane_beliefs(msgs, *args, heavy)
+        cpu_args = [m.cpu() for m in msgs] + [t.cpu() for t in args]
+        ref_b, ref_s = lane_sum_reference(cpu_args[:len(msgs)],
+                                          *cpu_args[len(msgs):])
+        ref_t = padded_table(ref_b, ref_s)
+        ref_o = lane_beliefs_reference(cpu_args[:len(msgs)],
+                                       *cpu_args[len(msgs):])
+        err_b = max(err_b, float((table.cpu() - ref_t).abs().max()),
+                    float((own.cpu() - ref_o).abs().max()))
+        if not (torch.equal(table.cpu(), ref_t)
+                and torch.equal(own.cpu(), ref_o)):
             fail(f"lane_sum kernel != plain on {label}")
         sums_checked[label] = dict(E=int(perm.shape[0]),
                                    V1=int(var_costs.shape[1]), D=d,
-                                   buckets=len(shapes))
+                                   buckets=len(shapes),
+                                   heavy=int(heavy.shape[0]))
         if label in ("flagship", "scale"):
             seg = torch.cat([b.var_ids.reshape(-1) for b in graph.buckets])
             reps = 200 if label == "flagship" else 50
 
             def kernel():
-                return lane_sum(msgs, perm, offsets, starts, var_costs)
+                return lane_sum_table(msgs, *args, heavy)
 
             def library():
                 flat = torch.cat([m.reshape(d, -1) for m in msgs], dim=1)
@@ -4047,8 +4109,7 @@ def phase_lane_kernel_check(ctx, flagship_lane, scale_lane):
                 return var_costs + out
 
             def plain():
-                return lane_sum_reference(msgs, perm, offsets, starts,
-                                          var_costs)
+                return lane_sum_reference(msgs, *args)
 
             k_ms, l_ms = (graph_ms(torch, fn, reps)
                           for fn in (kernel, library))
@@ -4062,12 +4123,187 @@ def phase_lane_kernel_check(ctx, flagship_lane, scale_lane):
                 ms_spread=[k_ms[0], k_ms[-1]],
                 library_ms_spread=[l_ms[0], l_ms[-1]],
                 bound_ms=bound_ms, bound_by=bound_by)
-        del msgs, beliefs, sums
+            timed_bucket = timing_var_entries(
+                ctx, graph, msgs, table, label, timing)
+            sums_checked[label]["var_entries_timed"] = timed_bucket
+        del msgs, table, own
+    var_cases, err_c = check_lane_var_entries(torch)
     return dict(binary_lane_cases=checked, lane_sum_graphs=sums_checked,
+                lane_var_cases=var_cases,
                 tolerance="exact (torch.equal)",
                 max_abs_err={"binary_factor_update: lane": err_a,
-                             "lane_sum": err_b},
+                             "lane_sum": err_b,
+                             "lane_var_update: v2f": err_c,
+                             "lane_var_update: send": err_c},
                 timing=timing)
+
+
+
+def lane_var_inputs(torch, graph, bucket, seed: int, unaligned: bool,
+                    tiny: bool):
+    """A bucket's f2v, prev [D, a, F] and counts [a, F] on the card, BIG
+    on invalid slots, half the edges' prev within 5e-4 of their f2v (so
+    the send entry's approx-match fires); ``tiny``: half the messages
+    subnormal-scale; ``unaligned``: views one float off."""
+    rng = np.random.default_rng(seed)
+    d = graph.var_costs.shape[0]
+    shape = (d,) + tuple(bucket.var_ids.shape)
+    valid = graph.var_valid[:, bucket.var_ids].cpu().numpy()
+    f2v = (rng.normal(size=shape) * 10.0 ** rng.integers(
+        -3, 4, size=shape)).astype(np.float32)
+    prev = (rng.normal(size=shape)).astype(np.float32)
+    close = rng.random(shape[1:]) < 0.5
+    prev = np.where(close[None], f2v * np.float32(1.0005), prev)
+    if tiny:
+        f2v = np.where(rng.random(shape) < 0.5,
+                       tiny_messages(rng, shape, valid), f2v)
+        prev = np.where(rng.random(shape) < 0.5,
+                        tiny_messages(rng, shape, valid), prev)
+    f2v = np.where(valid, f2v, BIG).astype(np.float32)
+    prev = np.where(valid, prev, BIG).astype(np.float32)
+    count = rng.integers(0, 6, size=shape[1:]).astype(np.int8)
+    out = [torch.tensor(x, device="cuda") for x in (f2v, prev, count)]
+    if unaligned:
+        out[:2] = [unaligned_copy(torch, t) for t in out[:2]]
+    return out
+
+
+def lane_var_calls(torch, graph, bucket, table, f2v, prev, count, cycle,
+                   damping):
+    """Both entries on the card and their plain versions on the CPU:
+    ((card v2f, card send), (plain v2f, plain send)), each (messages,
+    counts, stable)."""
+    from pydcop_tpu_torch.ops.lane_var_update import (
+        lane_send_update,
+        lane_send_update_reference,
+        lane_v2f_update,
+        lane_v2f_update_reference,
+    )
+
+    cyc = torch.tensor(cycle, dtype=torch.int32)
+    host = [t.cpu() for t in (table, f2v, prev, count, bucket.var_ids,
+                              graph.var_valid)]
+    out = []
+    for entries, dev in (((lane_v2f_update, lane_send_update), "cuda"),
+                         ((lane_v2f_update_reference,
+                           lane_send_update_reference), "cpu")):
+        t = (table, f2v, prev, count, bucket.var_ids, graph.var_valid) \
+            if dev == "cuda" else host
+        extra = dict(var_ids32=bucket.var_ids32,
+                     edge_valid=bucket.edge_valid) if dev == "cuda" else {}
+        res = []
+        for which, entry in zip(("v2f", "send"), entries):
+            stable = torch.tensor(cycle != 0, device=dev)
+            lead = t[:2] if which == "v2f" else t[1:2]
+            sent, cnt = entry(*lead, *t[2:], cyc.to(dev), stable,
+                              damping=damping, stability=0.1, **extra)
+            res.append((sent.cpu(), cnt.cpu(), bool(stable)))
+        out.append(res)
+    return out
+
+
+def check_lane_var_entries(torch):
+    """Both lane_var_update.cu entries against their plain versions at
+    every D of LANE_SUM_D on a lane graph of three buckets with padding
+    factors on the sentinel, damping 0 / 0.5 / 0.7, cycle 0 and 3, a
+    subnormal state, aligned and unaligned views."""
+    from pydcop_tpu_torch.device import to_lane_device_graph
+    from pydcop_tpu_torch.engine.compile import (
+        CompiledFactorGraph,
+        FactorBucket,
+    )
+    from pydcop_tpu_torch.ops import maxsum_lane
+    from pydcop_tpu_torch.ops.lane_sum import lane_sum_table
+
+    cases, err = 0, 0.0
+    for d in LANE_SUM_D:
+        rng = np.random.default_rng(d)
+        n_vars = 301
+        var_valid = rng.random((n_vars + 1, d)) < 0.8
+        var_valid[:, 0] = True
+        var_valid[-1] = False
+        buckets = []
+        for a, f in ((1, 5), (2, 700), (3, 33)):
+            ids = rng.integers(0, n_vars, size=(f, a)).astype(np.int32)
+            ids[-2:] = n_vars                 # padding on the sentinel
+            buckets.append(FactorBucket(
+                rng.normal(size=(f,) + (d,) * a).astype(np.float32), ids))
+        host = CompiledFactorGraph(
+            rng.normal(size=(n_vars + 1, d)).astype(np.float32), var_valid,
+            tuple(buckets))
+        graph = to_lane_device_graph(maxsum_lane.to_lane_graph(host), "cuda")
+        for i, bucket in enumerate(graph.buckets):
+            for damping in (0.0, 0.5, 0.7):
+                for cycle, tiny, unaligned in ((0, False, False),
+                                               (3, False, True),
+                                               (3, True, False)):
+                    seed = d * 1000 + i * 100 + int(damping * 10) + cycle
+                    f2v, prev, count = lane_var_inputs(
+                        torch, graph, bucket, seed, unaligned, tiny)
+                    msgs = [lane_var_inputs(torch, graph, b, seed + 7, False,
+                                            tiny)[0] for b in graph.buckets]
+                    table = lane_sum_table(
+                        msgs, graph.agg_perm, graph.agg_offsets,
+                        graph.agg_buckets, graph.var_costs, graph.agg_heavy)
+                    card, plain = lane_var_calls(
+                        torch, graph, bucket, table, f2v, prev, count,
+                        cycle, damping)
+                    for which, c, p in zip(("v2f", "send"), card, plain):
+                        err = max(err, float((c[0] - p[0]).abs().max()))
+                        if not (torch.equal(c[0], p[0])
+                                and torch.equal(c[1], p[1]) and c[2] == p[2]):
+                            fail(f"lane_var_update {which} != plain at D={d}"
+                                 f" bucket {i} damping={damping} "
+                                 f"cycle={cycle} tiny={tiny} "
+                                 f"unaligned={unaligned}")
+                    cases += 2
+    return cases, err
+
+
+def timing_var_entries(ctx, graph, msgs, table, label, timing):
+    """Both lane_var_update.cu entries on the first bucket of a lane
+    graph (the flagship's or the scale's), timed beside their plain
+    versions and bounds; they are also held to the plain versions
+    there.  Returns the bucket's (F, a)."""
+    torch = ctx["torch"]
+    from pydcop_tpu_torch.ops.lane_var_update import (
+        lane_send_update,
+        lane_send_update_reference,
+        lane_v2f_update,
+        lane_v2f_update_reference,
+    )
+
+    bucket = graph.buckets[0]
+    d = graph.var_costs.shape[0]
+    f2v, prev, count = lane_var_inputs(torch, graph, bucket, 41, False,
+                                       False)
+    card, plain = lane_var_calls(torch, graph, bucket, table, f2v, prev,
+                                 count, 3, 0.5)
+    for which, c, p in zip(("v2f", "send"), card, plain):
+        if not (torch.equal(c[0], p[0]) and torch.equal(c[1], p[1])
+                and c[2] == p[2]):
+            fail(f"lane_var_update {which} != plain on {label}")
+    cyc = torch.tensor(3, dtype=torch.int32, device="cuda")
+    stable = torch.ones((), dtype=torch.bool, device="cuda")
+    common = (prev, count, bucket.var_ids, graph.var_valid, cyc, stable)
+    extra = dict(var_ids32=bucket.var_ids32, edge_valid=bucket.edge_valid)
+    reps = 200 if label == "flagship" else 50
+    n_edges = int(bucket.var_ids.numel())
+    n_rows = int(graph.var_costs.shape[1])
+    for which, kernel, ref, lead in (
+            ("v2f", lane_v2f_update, lane_v2f_update_reference, (table, f2v)),
+            ("send", lane_send_update, lane_send_update_reference, (f2v,))):
+        k_ms = graph_ms(torch, lambda: kernel(
+            *lead, *common, damping=0.5, stability=0.1, **extra), reps)
+        p_ms = eager_ms(torch, lambda: ref(
+            *lead, *common, damping=0.5, stability=0.1), 3)
+        bound_ms, bound_by = var_update_bound(n_edges, n_rows, d,
+                                              which == "v2f")
+        timing[f"lane_var_update: {which}"][label] = dict(
+            E=n_edges, V1=n_rows, D=d, ms=k_ms[2], plain_ms=p_ms[2],
+            ms_spread=[k_ms[0], k_ms[-1]], bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None)
+    return list(bucket.var_ids.shape)
 
 
 def phase_lane_layout(ctx, engine, scale_host, scale_lane, scale_edge):
@@ -4080,6 +4316,7 @@ def phase_lane_layout(ctx, engine, scale_host, scale_lane, scale_edge):
     from pydcop_tpu_torch.ops import maxsum_lane as lane_ops
     from pydcop_tpu_torch.ops.binary_factor import LANE
     from pydcop_tpu_torch.ops.lane_sum import KERNEL as LANE_SUM
+    from pydcop_tpu_torch.ops.lane_var_update import SEND, V2F
 
     dcop = ctx["dcop"]
     torch.cuda.synchronize()
@@ -4087,7 +4324,12 @@ def phase_lane_layout(ctx, engine, scale_host, scale_lane, scale_edge):
     res = api.solve(dcop, "maxsum", max_cycles=FIXED_CYCLES,
                     algo_params={"layout": "lane"})
     launches = dict(_build.launch_counts)
-    want = {LANE: res["cycles"], LANE_SUM: res["cycles"] + 1}
+    n_buckets = len(engine.graph.buckets)
+    # Each cycle: the binary bucket's factor side, one belief table, and
+    # both variable-side entries for each bucket; then the final
+    # selection's beliefs (lane_sum from the costs).
+    want = {LANE: res["cycles"], LANE_SUM: res["cycles"] + 1,
+            V2F: n_buckets * res["cycles"], SEND: n_buckets * res["cycles"]}
     if launches != want:
         fail(f"lane solve launched {launches}, expected {want}")
     if not np.isfinite(res["cost"]):
@@ -4135,9 +4377,25 @@ def phase_lane_layout(ctx, engine, scale_host, scale_lane, scale_edge):
         "edge": ms_per_cycle(torch, lambda n: ctx["ops"].run_maxsum(
             scale_edge, n, stop_on_convergence=False), SCALE_CYCLES)}
 
-    def lane_scale_run(n):
-        lane_ops.run_maxsum(scale_lane, n, stop_on_convergence=False)
-        torch.cuda.synchronize()
+    # The profiles, in a fresh process: a profiler session late in this
+    # long one dropped device events.  The child checks each profile's
+    # hand-kernel launches against the launch counters.
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--lane-profiles"],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"lane profiles (exit {proc.returncode}): "
+             f"{proc.stderr[-2000:]}")
+    profiles = json.loads(proc.stdout.strip().splitlines()[-1])
+    lane_kpc = profiles["flagship_lane"]["device_kernels_per_cycle"]
+    scale_dev = profiles["scale_lane"]["device_ms_per_cycle"]
+    targets = {
+        "flagship_lane_kernels_per_cycle": [lane_kpc, "<= 10"],
+        "scale_lane_device_ms_per_cycle": [scale_dev, "<= 0.6"],
+        "scale_lane_over_edge_ms_per_cycle": [
+            scale_ms["lane"] / scale_ms["edge"], "<= 1.5"],
+        "flagship_lane_over_edge_ms_per_cycle": [
+            flagship_ms["lane"] / flagship_ms["edge"], None]}
 
     return dict(
         solve=dict(status=res["status"], cycles=res["cycles"],
@@ -4148,16 +4406,81 @@ def phase_lane_layout(ctx, engine, scale_host, scale_lane, scale_edge):
         trace_card_equal_cpu_cycles=LANE_TRACE_CYCLES,
         scale_bit_equal_cycles=LANE_SCALE_COMPARE, scale_cpu_s=scale_cpu_s,
         ms_per_cycle={"flagship": flagship_ms, "scale": scale_ms},
-        scale_lane_profile=profile_cycles(torch, lane_scale_run, 5))
+        profiles=profiles, targets=targets)
+
+
+# Device launches of one counted call, where a wrapper's call is more
+# than one launch: lane_sum's row stage and walk.
+DEVICE_LAUNCHES = {"lane_sum": 2}
+
+
+def lane_profiles() -> int:
+    """``--lane-profiles``: the lane_layout phase's profiles, run by it
+    in a fresh process (a profiler session late in the long one dropped
+    device events).  torch.profiler over 20 fixed cycles of the flagship
+    and 5 of the 1M-variable scale arrays, lane and edge layouts, each
+    profile's launches of the port's kernels held equal to the launch
+    counters of the same run (a profile that missed one fails).  Prints
+    the four profiles as one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    from pydcop_tpu_torch.algorithms import AlgorithmDef
+    from pydcop_tpu_torch.algorithms.maxsum import build_engine
+    from pydcop_tpu_torch.dcop import dcop as dcop_mod
+    from pydcop_tpu_torch.dcop import objects, relations
+    from pydcop_tpu_torch.engine.compile import (
+        CompiledFactorGraph,
+        FactorBucket,
+    )
+    from pydcop_tpu_torch.engine.convert import graph_from_numpy
+    from pydcop_tpu_torch.ops import _build
+    from pydcop_tpu_torch.ops import maxsum as ops
+    from pydcop_tpu_torch.ops import maxsum_lane as lane_ops
+
+    _build.build(_build.kernel_names())   # built by the parent already
+    dcop = build_flagship(objects, relations, dcop_mod, FLAGSHIP_VARS)
+    params = AlgorithmDef.build_with_default_param("maxsum").params
+    var_costs, var_valid, buckets = scale_arrays(SCALE_VARS)
+    scale_lane = lane_graph_of(None, CompiledFactorGraph(
+        var_costs, var_valid, tuple(FactorBucket(c, ids)
+                                    for c, ids in buckets)), "cuda")
+    graphs = {
+        "flagship_lane": (lane_ops, build_engine(
+            dcop, dict(params, layout="lane")).graph, 20),
+        "flagship_edge": (ops, build_engine(dcop, params).graph, 20),
+        "scale_lane": (lane_ops, scale_lane, 5),
+        "scale_edge": (ops, graph_from_numpy(
+            var_costs, var_valid, buckets, "cuda"), 5)}
+    del var_costs, var_valid, buckets
+    profiles = {}
+    for label, (mod, graph, cycles) in graphs.items():
+        def run(n, mod=mod, graph=graph):
+            mod.run_maxsum(graph, n, stop_on_convergence=False)
+            torch.cuda.synchronize()
+
+        prof = profile_cycles(torch, run, cycles, _build.launch_counts)
+        want = sum(n * DEVICE_LAUNCHES.get(k, 1)
+                   for k, n in prof["launches"].items())
+        if prof["own_kernel_launches"] != want:
+            fail(f"{label} profile saw {prof['own_kernel_launches']} "
+                 f"launches of the port's kernels, the counters "
+                 f"{prof['launches']} make {want}")
+        profiles[label] = prof
+    print(json.dumps(profiles), flush=True)
+    return 0
 
 
 def phase_batch_stacked(ctx):
-    """solve_maxsum_batch over 64 instances of build_dcop_small(10_000,
-    seed), seeds 0..63, 200 cycles, as ONE disjoint union: each member
-    equal to its solo card solve (values, cycles, converged), the
+    """solve_maxsum_batch over BATCH_MEMBERS instances of
+    build_dcop_small(10_000, seed), seeds from 0, 200 cycles, as ONE
+    disjoint union: each member equal to its solo card solve (values,
+    cycles, converged), the
     stack's messages equal to the CPU stack's after 20 cycles,
     binary_factor_update launched once a cycle for the whole stack, the
-    stack timed against the 64 solo solves, and launch_stacked /
+    stack timed against the solo solves, and launch_stacked /
     collect_stacked under the sync-debug check equal to run_stacked."""
     torch, _build = ctx["torch"], ctx["_build"]
     from pydcop_tpu_torch.device import to_device_graph
@@ -4200,7 +4523,7 @@ def phase_batch_stacked(ctx):
                 != compiled[i][1].assignment_from_indices(values[i])):
             fail(f"stacked member {i}: solve_maxsum_batch's assignment "
                  f"!= run_stacked's values")
-    # The 64 solos above (wall clock: each call places its graph and
+    # The solos above (wall clock: each call places its graph and
     # ends synchronised, the comparisons are host reads of a few KB)
     # against the stack's warm call.
     solos_ms = (time.perf_counter() - t0) * 1e3
@@ -4931,26 +5254,34 @@ def main() -> int:
                 "scale_gather") else {}})
     from pydcop_tpu_torch.ops.binary_factor import LANE
     from pydcop_tpu_torch.ops.lane_sum import KERNEL as LANE_SUM
+    from pydcop_tpu_torch.ops.lane_var_update import SEND, V2F
 
     for name, counter, source, replaces in (
             ("binary_factor_update: lane", LANE,
              "pydcop_tpu_torch/csrc/binary_factor_update.cu",
              "pydcop_tpu/ops/pallas_maxsum.py:54"),
             ("lane_sum", LANE_SUM, "pydcop_tpu_torch/csrc/lane_sum.cu",
-             "pydcop_tpu/ops/maxsum_lane.py:318")):
+             "pydcop_tpu/ops/maxsum_lane.py:318"),
+            ("lane_var_update: v2f", V2F,
+             "pydcop_tpu_torch/csrc/lane_var_update.cu",
+             "pydcop_tpu/ops/maxsum_lane.py:332"),
+            ("lane_var_update: send", SEND,
+             "pydcop_tpu_torch/csrc/lane_var_update.cu",
+             "pydcop_tpu/ops/maxsum_lane.py:286")):
         flag = timing[name]["flagship"]
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": lane["launches"][counter],
             "max_abs_err": max_err[name], "ms": flag["ms"],
             "plain_ms": flag["plain_ms"], "bound_ms": flag["bound_ms"],
             "bound_by": flag["bound_by"], "library_ms": flag["library_ms"],
-            "shapes": {label: {k: row[k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-                for label, row in timing[name].items()
-                if label != "flagship"}})
+            "shapes": {label: {k: row[k] for k in keys if k in row}
+                       for label, row in timing[name].items()
+                       if label != "flagship"}})
     counter_of = {
         "binary_factor_update: lane": LANE, "lane_sum": LANE_SUM,
+        "lane_var_update: v2f": V2F, "lane_var_update: send": SEND,
         "binary_factor_update": "binary_factor_update",
         "segment_sum": "segment_sum", "var_update": "var_update",
         "segment_sum: positional_table": seg_mod.POSITIONAL_TABLE,
@@ -4986,4 +5317,5 @@ def run() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(run())
+    sys.exit(lane_profiles() if sys.argv[1:] == ["--lane-profiles"]
+             else run())

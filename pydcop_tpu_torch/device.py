@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from pydcop_tpu_torch.engine.compile import CompiledFactorGraph
-from pydcop_tpu_torch.ops.lane_sum import lane_order
+from pydcop_tpu_torch.ops.lane_sum import heavy_variables, lane_order
 from pydcop_tpu_torch.ops.segment_sum import (
     aggregation_plan,
     positional_fold,
@@ -364,12 +364,16 @@ def replace_scope(placed: TorchFactorGraph,
 
 class TorchLaneBucket(NamedTuple):
     """One lane-major bucket on the device: ``costs`` [D]*arity + [F]
-    float32, ``var_ids`` [arity, F] int64 and ``var_ids32`` the same
-    values as int32."""
+    float32, ``var_ids`` [arity, F] int64, ``var_ids32`` the same
+    values as int32 and ``edge_valid`` [arity, F] uint8 each edge's
+    valid slots as bits (bit k of ``[p, f]`` is ``var_valid[k,
+    var_ids[p, f]]``; ``None`` above ``EDGE_VALID_MAX_D``): what
+    ``ops/lane_var_update.py``'s kernel reads."""
 
     costs: torch.Tensor
     var_ids: torch.Tensor
     var_ids32: torch.Tensor
+    edge_valid: Optional[torch.Tensor] = None
 
 
 class TorchLaneGraph(NamedTuple):
@@ -377,8 +381,11 @@ class TorchLaneGraph(NamedTuple):
     device, and the order the belief sum reads
     (``ops/lane_sum.py::lane_order``): ``agg_perm`` [E] the edges —
     position-major, bucket after bucket — sorted by variable,
-    ``agg_offsets`` [V+2] each variable's first slot of it, and
-    ``agg_buckets`` [n_buckets + 1] each bucket's first edge, then E."""
+    ``agg_offsets`` [V+2] each variable's first slot of it,
+    ``agg_buckets`` [n_buckets + 1] each bucket's first edge, then E;
+    and ``agg_heavy`` the variables of degree above
+    ``lane_sum.HEAVY_DEGREE`` (``ops/lane_sum.py::heavy_variables``),
+    which ``csrc/lane_sum.cu`` walks with a warp each."""
 
     var_costs: torch.Tensor   # [Dmax, V+1] float32
     var_valid: torch.Tensor   # [Dmax, V+1] bool
@@ -386,6 +393,7 @@ class TorchLaneGraph(NamedTuple):
     agg_perm: torch.Tensor     # [E] int32
     agg_offsets: torch.Tensor  # [V+2] int32
     agg_buckets: torch.Tensor  # [n_buckets + 1] int32
+    agg_heavy: Optional[torch.Tensor] = None  # [H] int32
 
     @property
     def n_vars(self) -> int:
@@ -405,14 +413,22 @@ def to_lane_device_graph(lane, device: DeviceLike = "cuda",
     ids = [np.asarray(b.var_ids) for b in lane.buckets]
     perm, offsets, starts = lane_order(ids, np.asarray(lane.var_costs)
                                        .shape[1])
+    valid_rows = np.asarray(lane.var_valid, bool).T
+
+    def bits(v):
+        b = edge_valid_bits(valid_rows, v)
+        return None if b is None else put(b, torch.uint8)
+
     return TorchLaneGraph(
         var_costs=put(lane.var_costs, torch.float32),
         var_valid=put(lane.var_valid, torch.bool),
         buckets=tuple(
             TorchLaneBucket(put(b.costs, torch.float32),
-                            put(v, torch.int64), put(v, torch.int32))
+                            put(v, torch.int64), put(v, torch.int32),
+                            bits(v))
             for b, v in zip(lane.buckets, ids)),
         agg_perm=put(perm, torch.int32),
         agg_offsets=put(offsets, torch.int32),
         agg_buckets=put(starts, torch.int32),
+        agg_heavy=put(heavy_variables(offsets), torch.int32),
     )

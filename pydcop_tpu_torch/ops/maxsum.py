@@ -61,6 +61,8 @@ from pydcop_tpu_torch.ops.var_update import (
 )
 from pydcop_tpu_torch.ops.window_sum import (
     Gather,
+    Plain,
+    folded_sum,
     gather_stages,
     window_total,
 )
@@ -429,10 +431,15 @@ def constraint_operands(graph: TorchFactorGraph,
 
 
 def variable_operand(var_base_costs: torch.Tensor,
-                     site: str = "maxsum") -> Gather:
+                     site: str = "maxsum", folded: bool = False):
     """The gather of ``var_base_costs[v, values[v]]`` ([V, D] costs) for
-    :func:`window_sum.window_total`."""
+    :func:`window_sum.window_total`.  ``folded``: the costs are a
+    constant of the reference's jitted run (the engine's cost trace),
+    so at D = 1, where every value is 0, XLA sums them while compiling
+    (``window_sum.folded_sum``, one value here)."""
     v, d = var_base_costs.shape
+    if folded and d == 1:
+        return Plain(folded_sum(var_base_costs))
     return Gather(var_base_costs.contiguous(), None, v, d,
                   gather_stages(site, 0, d, v))
 
@@ -579,7 +586,7 @@ def run_maxsum_trace(graph: TorchFactorGraph, max_cycles: int, *,
     Returns (final state, selected values [V], costs [max_cycles])."""
     ops = constraint_operands(graph)
     if var_base_costs is not None:
-        ops.append(variable_operand(var_base_costs))
+        ops.append(variable_operand(var_base_costs, folded=True))
 
     costs = torch.zeros((max_cycles,), dtype=graph.var_costs.dtype,
                         device=graph.var_costs.device)

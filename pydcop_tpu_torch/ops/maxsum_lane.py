@@ -19,12 +19,19 @@ zero, as XLA:CPU flushes the reference's (``ops/flush.py``):
   (``ops.binary_factor.binary_factor_update_lane``);
 - the belief sum: the reference's chained scatters are one running sum
   per variable over its edges in position-major order
-  (``ops/lane_sum.py``, ``csrc/lane_sum.cu`` on the card);
+  (``ops/lane_sum.py``, ``csrc/lane_sum.cu`` on the card), written as
+  one row table of beliefs and sums; the values selected after a run
+  and after each traced cycle come from the same walk started at
+  ``var_costs`` (where the reference keeps no sums, XLA scatters into
+  the costs);
 - variable->factor: belief minus own message, the mean over the valid
   slots summed over the domain axis left to right (in windows of 32
   above 32 slots, XLA's tree rewrite), then damping as
   ``ops.var_update.damp`` (XLA gives the reference's ``damping * o +
-  (1 - damping) * n`` the edge layout's forms);
+  (1 - damping) * n`` the edge layout's forms), the approx-match and
+  SAME_COUNT suppression: per bucket one launch of each entry of
+  ``csrc/lane_var_update.cu`` on the card (``ops/lane_var_update.py``,
+  the factor side's epilogue and the variable side);
 - the totals (the standalone constraint cost and the cost trace's)
   go through ``window_sum.window_total`` (one launch on the card) over
   an edge-major copy of each table and its ids, made once per call or
@@ -49,12 +56,22 @@ from pydcop_tpu_torch.engine.compile import (
     FactorBucket,
 )
 from pydcop_tpu_torch.ops.binary_factor import binary_factor_update_lane
-from pydcop_tpu_torch.ops.ell import WINDOW, window_sum
 from pydcop_tpu_torch.ops.flush import ftz
-from pydcop_tpu_torch.ops.lane_sum import lane_sum
-from pydcop_tpu_torch.ops.var_update import SAME_COUNT, damp
+from pydcop_tpu_torch.ops.lane_sum import (
+    lane_beliefs,
+    lane_sum_table,
+    padded_table,
+    table_halves,
+)
+from pydcop_tpu_torch.ops.lane_var_update import (
+    lane_send_update,
+    lane_v2f_update,
+    var_messages,
+)
 from pydcop_tpu_torch.ops.window_sum import (
     Gather,
+    Plain,
+    folded_sum,
     gather_stages,
     window_total,
 )
@@ -275,26 +292,6 @@ def init_state(graph: TorchLaneGraph) -> LaneState:
     )
 
 
-def _edge_match(new, old, stability, valid):
-    """Per-edge approx_match over the domain axis (axis 0 here), the
-    edge layout's algebra with every float op flushed.  Returns [a, F]."""
-    delta = torch.abs(ftz(new - old))
-    s = torch.abs(ftz(new + old))
-    ok = (2 * delta < ftz(stability * s)) | (delta == 0)
-    return torch.all(ok | ~valid, dim=0)
-
-
-def _send_or_suppress(cand, prev, count, stability, valid, first):
-    """SAME_COUNT send-suppression, lane-major (match flags [a, F])."""
-    match = _edge_match(cand, prev, stability, valid) & ~first
-    send = ~match | (count < SAME_COUNT)
-    sent = torch.where(send[None], cand, prev)
-    new_count = torch.where(
-        match, torch.clamp(count + 1, max=SAME_COUNT + 1),
-        torch.ones_like(count))
-    return sent, new_count, match
-
-
 def factor_to_var(graph: TorchLaneGraph, v2f: Msgs) -> Msgs:
     """All factor->variable messages: per bucket the min over the other
     leading domain axes of ``costs + sum_q bcast(m_q)``, minus the own
@@ -319,45 +316,49 @@ def factor_to_var(graph: TorchLaneGraph, v2f: Msgs) -> Msgs:
     return tuple(out)
 
 
+def aggregate_table(graph: TorchLaneGraph, f2v: Msgs) -> torch.Tensor:
+    """Each variable's incoming messages summed in the reference's
+    scatter order (``ops/lane_sum.py``), as one row table [V+1, 2P]
+    (row v: its beliefs, then its sums, each padded to
+    ``lane_sum.row_floats(D)``): one call of
+    ``csrc/lane_sum.cu`` on the card, the table the variable side's
+    kernel gathers one row an edge of."""
+    if not graph.buckets:
+        return padded_table(graph.var_costs,
+                            torch.zeros_like(graph.var_costs))
+    return lane_sum_table(f2v, graph.agg_perm, graph.agg_offsets,
+                          graph.agg_buckets, graph.var_costs,
+                          graph.agg_heavy)
+
+
 def aggregate_beliefs(graph: TorchLaneGraph, f2v: Msgs
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(beliefs, sums) [D, V+1]: each variable's incoming messages in
-    the reference's scatter order (``ops/lane_sum.py``), one launch of
-    ``csrc/lane_sum.cu`` on the card."""
+    """(beliefs, sums) [D, V+1]: the two halves of
+    :func:`aggregate_table`, as views of it."""
+    return table_halves(aggregate_table(graph, f2v),
+                        graph.var_costs.shape[0])
+
+
+def selection_beliefs(graph: TorchLaneGraph, f2v: Msgs) -> torch.Tensor:
+    """The beliefs [D, V+1] the reference selects values from after a
+    run and after each traced cycle, where it keeps no sums: XLA then
+    scatters the messages into ``var_costs`` directly, so each
+    variable's running sum starts from its costs
+    (``ops/lane_sum.py::lane_beliefs``, the same kernel)."""
     if not graph.buckets:
-        return graph.var_costs, torch.zeros_like(graph.var_costs)
-    return lane_sum(f2v, graph.agg_perm, graph.agg_offsets,
-                    graph.agg_buckets, graph.var_costs)
-
-
-def _sum_domain(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the leading domain axis, kept, in XLA's order: left to
-    right, in windows of 32 above 32 slots."""
-    d = x.shape[0]
-    if d > WINDOW:
-        return window_sum(x, 0)
-    acc = x[:1]
-    for k in range(1, d):
-        acc = ftz(acc + x[k:k + 1])
-    return acc
+        return graph.var_costs
+    return lane_beliefs(f2v, graph.agg_perm, graph.agg_offsets,
+                        graph.agg_buckets, graph.var_costs, graph.agg_heavy)
 
 
 def var_to_factor(graph: TorchLaneGraph, f2v: Msgs, beliefs: torch.Tensor,
                   sums: torch.Tensor) -> Msgs:
     """Belief minus own contribution, mean-normalized over the valid
-    domain slots (domain axis = axis 0), BIG on invalid slots."""
-    out = []
-    for bucket, msgs in zip(graph.buckets, f2v):
-        ids = bucket.var_ids
-        valid = graph.var_valid[:, ids]                 # [D, a, F]
-        raw = ftz(beliefs[:, ids] - msgs)
-        factor_sum = ftz(sums[:, ids] - msgs)
-        n_valid = torch.clamp(torch.sum(valid, dim=0, keepdim=True,
-                                        dtype=torch.int32), min=1)
-        avg = ftz(_sum_domain(torch.where(valid, factor_sum, 0.0))
-                  / n_valid)
-        out.append(torch.where(valid, ftz(raw - avg), float(BIG)))
-    return tuple(out)
+    domain slots (domain axis = axis 0), BIG on invalid slots: the plain
+    candidates of ``ops/lane_var_update.py``'s variable side."""
+    return tuple(var_messages(beliefs, sums, msgs, bucket.var_ids,
+                              graph.var_valid)
+                 for bucket, msgs in zip(graph.buckets, f2v))
 
 
 def select_values(graph: TorchLaneGraph,
@@ -368,49 +369,42 @@ def select_values(graph: TorchLaneGraph,
     return torch.argmin(masked[:, :-1], dim=0).to(torch.int32)
 
 
-def _damp(new: Msgs, old: Msgs, damping: float, first) -> Msgs:
-    return tuple(damp(n, o, damping, first) for n, o in zip(new, old))
-
-
 def superstep(state: LaneState, graph: TorchLaneGraph, *, damping: float,
               damp_vars: bool, damp_factors: bool,
               stability: float) -> LaneState:
     """One synchronous cycle: both sides fire from last cycle's mail,
     with damping, SAME_COUNT suppression and the ``stable`` flag
-    computed on the device."""
-    first = state.cycle == 0
-    valids = tuple(graph.var_valid[:, b.var_ids] for b in graph.buckets)
-
+    computed on the device.  Per bucket one launch of each
+    ``ops/lane_var_update.py`` entry (the factor side's epilogue, the
+    variable side) on the card, and one call of ``lane_sum`` for the
+    belief table; ``stable`` starts as ``cycle != 0`` and each entry
+    ANDs its buckets' all-match into it."""
     f2v_cand = factor_to_var(graph, state.v2f)
-    if damp_factors and damping > 0:
-        f2v_cand = _damp(f2v_cand, state.f2v, damping, first)
-
-    beliefs, sums = aggregate_beliefs(graph, state.f2v)
-    v2f_cand = var_to_factor(graph, state.f2v, beliefs, sums)
-    if damp_vars and damping > 0:
-        v2f_cand = _damp(v2f_cand, state.v2f, damping, first)
-
+    table = aggregate_table(graph, state.f2v)
+    stable = state.cycle != 0
+    f2v_damping = damping if damp_factors else 0.0
+    v2f_damping = damping if damp_vars else 0.0
     f2v_new, f2v_count, v2f_new, v2f_count = [], [], [], []
-    all_match = torch.ones((), dtype=torch.bool, device=first.device)
-    for i, valid in enumerate(valids):
-        live = torch.any(valid, dim=0)
-        sent, cnt, match = _send_or_suppress(
-            f2v_cand[i], state.f2v[i], state.f2v_count[i], stability,
-            valid, first)
+    for i, bucket in enumerate(graph.buckets):
+        sent, cnt = lane_send_update(
+            f2v_cand[i], state.f2v[i], state.f2v_count[i], bucket.var_ids,
+            graph.var_valid, state.cycle, stable, damping=f2v_damping,
+            stability=stability, var_ids32=bucket.var_ids32,
+            edge_valid=bucket.edge_valid)
         f2v_new.append(sent)
         f2v_count.append(cnt)
-        all_match = all_match & torch.all(match | ~live)
-        sent, cnt, match = _send_or_suppress(
-            v2f_cand[i], state.v2f[i], state.v2f_count[i], stability,
-            valid, first)
+        sent, cnt = lane_v2f_update(
+            table, state.f2v[i], state.v2f[i], state.v2f_count[i],
+            bucket.var_ids, graph.var_valid, state.cycle, stable,
+            damping=v2f_damping, stability=stability,
+            var_ids32=bucket.var_ids32, edge_valid=bucket.edge_valid)
         v2f_new.append(sent)
         v2f_count.append(cnt)
-        all_match = all_match & torch.all(match | ~live)
 
     return LaneState(
         v2f=tuple(v2f_new), f2v=tuple(f2v_new),
         v2f_count=tuple(v2f_count), f2v_count=tuple(f2v_count),
-        stable=all_match & ~first, cycle=state.cycle + 1,
+        stable=stable, cycle=state.cycle + 1,
     )
 
 
@@ -432,10 +426,15 @@ def constraint_operands(graph: TorchLaneGraph, site: str = "lane"):
     return ops
 
 
-def variable_operand(var_base_costs: torch.Tensor, site: str = "lane"):
+def variable_operand(var_base_costs: torch.Tensor, site: str = "lane",
+                     folded: bool = False):
     """The gather of ``var_base_costs[v, values[v]]`` ([V, D], the
-    reference's edge-major convention) for ``window_total``."""
+    reference's edge-major convention) for ``window_total``;
+    ``folded`` as in ``ops.maxsum.variable_operand`` (at D = 1 the
+    traced run's sum is XLA's compile-time one)."""
     v, d = var_base_costs.shape
+    if folded and d == 1:
+        return Plain(folded_sum(var_base_costs))
     return Gather(var_base_costs.contiguous(), None, v, d,
                   gather_stages(site, 0, d, v))
 
@@ -494,8 +493,7 @@ def run_maxsum_from(graph: TorchLaneGraph, state: LaneState,
     for state in _cycles(graph, state, extra_cycles, stop_on_convergence,
                          kw):
         pass
-    beliefs, _ = aggregate_beliefs(graph, state.f2v)
-    return state, select_values(graph, beliefs)
+    return state, select_values(graph, selection_beliefs(graph, state.f2v))
 
 
 def run_maxsum_trace(graph: TorchLaneGraph, max_cycles: int, *,
@@ -512,7 +510,8 @@ def run_maxsum_trace(graph: TorchLaneGraph, max_cycles: int, *,
     _reject_prune(prune)
     ops = constraint_operands(graph, "lane_trace")
     if var_base_costs is not None:
-        ops.append(variable_operand(var_base_costs, "lane_trace"))
+        ops.append(variable_operand(var_base_costs, "lane_trace",
+                                    folded=True))
     kw = dict(damping=damping, damp_vars=damp_vars,
               damp_factors=damp_factors, stability=stability)
     costs = torch.zeros((max_cycles,), dtype=graph.var_costs.dtype,
@@ -522,10 +521,9 @@ def run_maxsum_trace(graph: TorchLaneGraph, max_cycles: int, *,
     n = 0
     for state in _cycles(graph, state, max_cycles, stop_on_convergence,
                          kw):
-        beliefs, _ = aggregate_beliefs(graph, state.f2v)
-        last = window_total(ops, select_values(graph, beliefs),
-                            out=costs[n])
+        values = select_values(graph, selection_beliefs(graph, state.f2v))
+        last = window_total(ops, values, out=costs[n])
         n += 1
     costs[n:] = last
-    beliefs, _ = aggregate_beliefs(graph, state.f2v)
-    return state, select_values(graph, beliefs), costs
+    return (state, select_values(graph, selection_beliefs(graph, state.f2v)),
+            costs)

@@ -167,12 +167,14 @@ def _lane_stages(arity: int, d: int, n: int, trace: bool) -> Stages:
     lanes of 8 from 16 values (18 for a binary bucket), of 4 then 2
     from 20, of 8 from 24; at D = 1 only from the count of
     ``_LANE_UNIT_DOMAIN_FIRST``, the second stage ending at 22 from 22
-    values at arity >= 4.  Inside the traced run (``trace``) a unary
-    bucket differs: never in lanes at D = 1, from 19 values at D = 2,
-    and in lanes of 8 then 2 at 20-23 values for D >= 3."""
+    values at arity >= 4.  Inside the traced run (``trace``) every
+    bucket at D = 1 is left to right (every selected value is 0, so the
+    gathers read contiguous rows: the probes' object code shows a
+    scalar ``vaddss`` chain), and a unary bucket differs: from 19 values
+    at D = 2, and in lanes of 8 then 2 at 20-23 values for D >= 3."""
+    if trace and (d < 2 or (arity == 1 and d == 2 and n < 19)):
+        return ()
     if trace and arity == 1:
-        if d < 2 or (d == 2 and n < 19):
-            return ()
         if d >= 3 and 20 <= n < 24:
             return _L8x16_2x20
     if d < 2 and n < _LANE_UNIT_DOMAIN_FIRST.get(arity, 16):
@@ -507,6 +509,43 @@ def window_tree_sum_plain(x: torch.Tensor, head: Stages = (),
         x = _level_sum(boxes, lanes if first else 1,
                        rows if first else NO_ROWS).view(out)
     return _head_sum(x.reshape(-1), () if levels else head)
+
+
+def folded_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of float32 values that XLA computes while compiling: a
+    ``jnp.sum`` whose operand is a constant of the jitted program (the
+    cost trace's variable-side sum at D = 1, where every value is 0 and
+    the engine closes the costs over).  The tree-reduction rewrite runs
+    once before the constant folder evaluates the sum on the host: above
+    32 values, the first level of :func:`_levels` (windows of 32, each
+    left to right in float32 from +0.0), then one reduce of what is left,
+    which the folder sums left to right in float64 from 0.0 and rounds
+    once to float32 (read off the optimised HLO after each pass and the
+    bits of the jitted reference, jax 0.9.0, 1 to 40,000 values).
+    Returns a [1] float32 tensor on ``x``'s device: a one-value operand
+    of :func:`window_total` (a copy, no add)."""
+    x = x.reshape(-1).to(torch.float32)
+    levels, _ = _levels(x.shape)
+    if levels:
+        shape, front, _window, out = levels[0]
+        n, f, m = shape[2], front[2], out[2]
+        boxes = F.pad(x, [f, m * WINDOW - n - f]).view(m, WINDOW)
+        x = torch.zeros((m,), dtype=torch.float32, device=x.device)
+        for k in range(WINDOW):
+            x = x + boxes[:, k]
+    if not x.numel():
+        return torch.zeros((1,), dtype=torch.float32, device=x.device)
+    return _sum64(x[:, None])
+
+
+def _sum64(rows: torch.Tensor) -> torch.Tensor:
+    """Each column of ``rows`` summed down its rows left to right in
+    float64 from 0.0, rounded once to float32."""
+    acc = torch.zeros(rows.shape[1:], dtype=torch.float64,
+                      device=rows.device)
+    for r in rows:
+        acc = acc + r.to(torch.float64)
+    return acc.to(torch.float32)
 
 
 class Gather(NamedTuple):

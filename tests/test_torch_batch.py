@@ -57,6 +57,16 @@ def _one_torch_thread():
     torch.set_num_threads(before)
 
 
+@pytest.fixture(autouse=True)
+def _cold_dispatch_caches():
+    """Every test starts with both packages' dispatch caches empty, so
+    ``cold_start`` compares like with like: another file run earlier in
+    the same worker process (the reference's envelope battery) can have
+    warmed the reference's cache for the same program key."""
+    JB._warm.clear()
+    TB._warm.clear()
+
+
 MAX_CYCLES = 40
 J = (JDCOP, JAgentDef, JDomain, JVariable, JRel, jconstraint)
 T = (TDCOP, TAgentDef, TDomain, TVariable, TRel, tconstraint)

@@ -110,6 +110,7 @@ REQUIRED = [
     "pydcop_tpu_torch.serving.binning",
     "pydcop_tpu_torch.ops.maxsum_lane",
     "pydcop_tpu_torch.ops.lane_sum",
+    "pydcop_tpu_torch.ops.lane_var_update",
     "pydcop_tpu_torch.engine.batch",
     "pydcop_tpu_torch.commands.batch",
 ]

@@ -591,12 +591,11 @@ def test_binary_lane_entry_equals_the_edge_entry(d, f):
     bits_equal(edge.permute(2, 1, 0).contiguous().numpy(), lane)
 
 
-@pytest.mark.xfail(strict=True, reason=(
-    "one-value domains (D = 1) in the lane layout's traced run with "
-    "variable base costs: the variable-side sum of V >= 9 values takes no "
-    "form window_sum reads (no head of lanes matches over a dozen draws; "
-    "ROADMAP Queue C)"))
 def test_unit_domain_trace_with_base_costs_is_open():
+    """One-value domains (D = 1) in the lane layout's traced run with
+    variable base costs: every value is 0 and the engine closes the
+    costs over, so XLA sums them while compiling
+    (``window_sum.folded_sum``)."""
     lane = drawn_lane(32, [(1, 2)], 1, 2, decades=6)
     base = costs(np.random.default_rng(2), (32, 1), 6)
     _, _, rc = jax.jit(lambda x: JL.run_maxsum_trace(
