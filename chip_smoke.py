@@ -79,7 +79,17 @@ bounds) and ``lane_layout`` (the new launch counts, kernels a cycle and
 device time from the profiler, lane against edge in the same call; the
 profiles are taken in a fresh process, ``python3 chip_smoke.py
 --lane-profiles``, which this phase starts, each held to the launch
-counters of its run).
+counters of its run).  The serving slice adds ``serve``:
+``api.serve(port=0, device="cuda")`` with its HTTP front end, driven
+through five legs — 16 instances of 10,000 variables as one flush (the
+warm flush pipelined and held to one stacked dispatch's launches),
+bench.py's zipf mixed stream from 8 clients with lane-packed and
+envelope-padded bursts, a session of 16 PATCHed event batches read over
+SSE, journal recovery after a stop without drain, and a dpop request —
+every answer equal to its solo card solve (the mixed stream's to the
+CPU's too, the session to a CPU session's), the pipelined, envelope and
+lane dispatch counts and the kernels' launches non-zero, and
+problems/s, p50/p99 and seconds on lines of their own.
 Each phase prints one JSON line (with ``t_s``, the seconds since the
 start); any failure raises and the
 script exits non-zero without the final line.  On success the last
@@ -4632,6 +4642,490 @@ def phase_batch_envelope_lane(ctx):
                 members_equal_solo_and_cpu=MIXED_STRUCTS, **out)
 
 
+
+# The serving slice: api.serve on the card.
+SERVE_BIN_VARS = 10_000       # the batch phase's width
+SERVE_BIN_MEMBERS = 16
+SERVE_BIN_CYCLES = 200
+SERVE_MIXED_CYCLES = 60       # bench.py's mixed serving leg
+SERVE_MIXED_REQUESTS = 64
+SERVE_MIXED_CLIENTS = 8
+SERVE_MIXED_ZIPF_A = 1.05
+SERVE_MIXED_WINDOW_S = 0.5
+SERVE_SESSION_VARS = 48       # bench.py's session leg
+SERVE_SESSION_EVENTS = 16
+SERVE_SESSION_CYCLES = 50
+SERVE_RECOVER_REQUESTS = 24
+
+
+def serve_http(url: str, method: str = "GET", body=None,
+               timeout: float = 600.0):
+    """``(status, JSON body)`` of one request to the serve front end."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(
+        url, data=data, method=method,
+        headers={"Content-Type": "application/json"} if data else {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as err:
+        return err.code, json.loads(err.read())
+
+
+def run_clients(work, n_threads: int, timeout: float = 900.0):
+    """Run ``work(k)`` for k in range(n_threads) on that many threads;
+    every thread is joined, and the first error raised."""
+    import threading
+
+    errors = []
+
+    def one(k):
+        try:
+            work(k)
+        except BaseException as exc:   # re-raised on the caller
+            errors.append(exc)
+
+    threads = [threading.Thread(target=one, args=(k,), daemon=True)
+               for k in range(n_threads)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout)
+    if any(th.is_alive() for th in threads):
+        fail("serve: a client thread did not finish")
+    if errors:
+        raise errors[0]
+
+
+def _served_equal(label, got, want):
+    if got is None or got.get("status") != "FINISHED":
+        fail(f"serve {label}: not finished: {got}")
+    if got["assignment"] != want["assignment"] or got["cost"] != \
+            want["cost"]:
+        fail(f"serve {label}: cost {got['cost']} != solo "
+             f"{want['cost']} (or the assignment differs)")
+
+
+def _percentile(values, q):
+    return float(np.percentile(np.asarray(values, dtype=float), q))
+
+
+def _mean_ledger(results):
+    """Each time-ledger component (seconds) averaged over served
+    results: where a request's wall went (submit, queue, plan, prep,
+    compile, execute, decode)."""
+    keys = sorted({k for r in results for k in r["ledger"]})
+    return {k: float(np.mean([r["ledger"].get(k, 0.0) for r in results]))
+            for k in keys}
+
+
+def phase_serve(ctx):
+    """The serving plane on the card, through ``api.serve(port=0,
+    device="cuda")`` and its HTTP front end, in five legs:
+
+    1. the flagship bin: 16 instances of build_dcop_small(10,000) at
+       200 cycles as one flush of 16 (submitted in-process from 16
+       threads: a 10,000-variable problem's yaml takes tens of seconds
+       to parse), twice — the second flush warm, pipelined, and held to
+       exactly one stacked dispatch's launches;
+    2. bench.py's mixed stream over HTTP: 64 requests drawn zipf(1.05)
+       over the 24 build_dcop_mixed structures from 8 client threads at
+       60 cycles, then a burst of 12 structures (lane-packed, twice:
+       the second warm and pipelined) and one of pruned structures of
+       one envelope (envelope-padded, synchronous);
+    3. one session (build_dcop_small(48, 0)) with 16 PATCHed
+       change_factor batches, read over SSE, closed by DELETE;
+    4. journal recovery: 24 requests accepted, the first flush's
+       device call held, the service stopped without draining, a
+       recover=True service finishing every one;
+    5. one dpop request.
+
+    Every served answer equals the card's solo api.solve of the same
+    instance; leg 2's also the CPU's; the session equals the same
+    session on a CPU service.  The launch counts are set to 0 at the
+    start and read after leg 4 (the solo solves come after).
+    ``ctx["serve_device"]`` (default ``"cuda"``) lets a development run
+    drive the phase on the CPU at reduced sizes."""
+    import shutil
+    import tempfile
+    import threading
+
+    torch, _build = ctx["torch"], ctx["_build"]
+    objects, relations, dcop_mod = (ctx["objects"], ctx["relations"],
+                                    ctx["dcop_mod"])
+    from pydcop_tpu_torch import api
+    from pydcop_tpu_torch.dcop.yamldcop import dcop_yaml
+    from pydcop_tpu_torch.engine.compile import compile_dcop
+    from pydcop_tpu_torch.serving import binning
+    from pydcop_tpu_torch.serving.service import SolveService
+
+    dev = ctx.get("serve_device", "cuda")
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    t_phase = time.perf_counter()
+    legs_s = {}
+    stats = {}
+    sync()
+    _build.launch_counts.clear()
+    try:
+        # Leg 1: the flagship bin.
+        t_leg = time.perf_counter()
+        bin_dcops = [build_dcop_small(objects, relations, dcop_mod,
+                                      SERVE_BIN_VARS, seed)
+                     for seed in range(SERVE_BIN_MEMBERS)]
+        bin_params = {"max_cycles": SERVE_BIN_CYCLES}
+        handle = api.serve(port=0, device=dev, batch_window_s=120.0,
+                           max_batch=SERVE_BIN_MEMBERS)
+        bin_rounds, bin_walls = [], []
+        try:
+            if handle.service.device.type != dev:
+                fail(f"api.serve ran on {handle.service.device}")
+            for rnd in range(2):
+                results = [None] * SERVE_BIN_MEMBERS
+                if rnd == 1:
+                    sync()
+                    before = dict(_build.launch_counts)
+
+                def submit(k):
+                    rid = handle.service.submit(bin_dcops[k],
+                                                params=bin_params)
+                    results[k] = handle.service.result(rid, wait=600)
+
+                t0 = time.perf_counter()
+                run_clients(submit, SERVE_BIN_MEMBERS)
+                bin_walls.append(time.perf_counter() - t0)
+                bin_rounds.append(results)
+            grew = {k: _build.launch_counts[k] - before.get(k, 0)
+                    for k in _build.launch_counts
+                    if _build.launch_counts[k] != before.get(k, 0)}
+            want = {"binary_factor_update": SERVE_BIN_CYCLES,
+                    "segment_sum": SERVE_BIN_CYCLES + 1,
+                    "var_update": 2 * SERVE_BIN_CYCLES}
+            if grew != want and dev == "cuda":
+                fail(f"serve leg 1: the warm flush launched {grew}, "
+                     f"expected one stacked dispatch's {want}")
+            for res in bin_rounds[1]:
+                if (res["batch"]["n_real"] != SERVE_BIN_MEMBERS
+                        or res["batch"]["cold_start"]):
+                    fail(f"serve leg 1: warm flush record {res['batch']}")
+            stats["bin"] = handle.service.stats()
+        finally:
+            handle.stop(drain=False)
+        legs_s["bin"] = time.perf_counter() - t_leg
+
+        # Legs 2, 3 and 5 on one journaled service.
+        t_leg = time.perf_counter()
+        mixed = {}
+
+        def mixed_dcop(s, seed):
+            key = (s, seed)
+            if key not in mixed:
+                mixed[key] = build_dcop_mixed(objects, relations,
+                                              dcop_mod, s, seed)
+            return mixed[key]
+
+        rng = np.random.default_rng(965)
+        ranks = np.arange(1, MIXED_STRUCTS + 1, dtype=float)
+        probs = ranks ** -SERVE_MIXED_ZIPF_A
+        probs /= probs.sum()
+        draws = [(int(s), int(rng.integers(4))) for s in rng.choice(
+            MIXED_STRUCTS, size=SERVE_MIXED_REQUESTS, p=probs)]
+        bodies = [dcop_yaml(mixed_dcop(s, seed)) for s, seed in draws]
+        mixed_params = {"max_cycles": SERVE_MIXED_CYCLES}
+        handle = api.serve(port=0, device=dev,
+                           journal_dir=os.path.join(tmp, "journal"),
+                           batch_window_s=SERVE_MIXED_WINDOW_S,
+                           max_batch=16, envelope_overhead_ms=1e6)
+        served = {}          # (structure, seed, prune) -> result
+        latencies = []
+        try:
+            url = handle.url
+
+            def client(k):
+                for i in range(k, SERVE_MIXED_REQUESTS,
+                               SERVE_MIXED_CLIENTS):
+                    t0 = time.perf_counter()
+                    code, body = serve_http(url + "/solve", "POST", {
+                        "dcop": bodies[i], "params": mixed_params,
+                        "wait": True, "timeout": 600})
+                    latencies.append(time.perf_counter() - t0)
+                    if code != 200:
+                        fail(f"serve leg 2: POST /solve {code}: {body}")
+                    served[draws[i] + (0,)] = body
+
+            t0 = time.perf_counter()
+            run_clients(client, SERVE_MIXED_CLIENTS)
+            stream_s = time.perf_counter() - t0
+            # A lane burst (twice: the second on warm shapes) and a
+            # pruned envelope burst, each submitted in one go so it
+            # lands in one flush.
+            burst = [(s, 7) for s in range(0, MIXED_STRUCTS, 2)]
+            for _ in range(2):
+                ids = [(key, handle.service.submit(
+                    mixed_dcop(*key), params=mixed_params))
+                    for key in burst]
+                for key, rid in ids:
+                    served[key + (0,)] = handle.service.result(
+                        rid, wait=600)
+            envs = {}
+            for s in range(MIXED_STRUCTS):
+                g, _ = compile_dcop(mixed_dcop(s, 9), noise_level=0.01)
+                envs.setdefault(binning.envelope_key(g), []).append(s)
+            group = max(envs.values(), key=len)
+            if len(group) < 2:
+                fail("serve leg 2: no two mixed structures share an "
+                     "envelope")
+            pruned = dict(mixed_params, prune=1)
+            ids = [((s, 9), handle.service.submit(mixed_dcop(s, 9),
+                                                  params=pruned))
+                   for s in group]
+            for key, rid in ids:
+                served[key + (1,)] = handle.service.result(rid, wait=600)
+            legs_s["mixed"] = time.perf_counter() - t_leg
+
+            # Leg 3: one session over HTTP, read over SSE.
+            t_leg = time.perf_counter()
+            session_dcop = build_dcop_small(objects, relations, dcop_mod,
+                                            SERVE_SESSION_VARS, 0)
+            names = sorted(session_dcop.constraints)
+            srng = np.random.default_rng(1306)
+            batches = []
+            for _ in range(SERVE_SESSION_EVENTS):
+                name = names[int(srng.integers(len(names)))]
+                table = srng.integers(0, 10, size=(N_COLORS, N_COLORS))
+                batches.append([{"type": "change_factor", "name": name,
+                                 "table": table.astype(float).tolist()}])
+            session_params = {"max_cycles": SERVE_SESSION_CYCLES,
+                              "segment_cycles": SERVE_SESSION_CYCLES,
+                              "noise": 0.0}
+            code, opened = serve_http(url + "/session", "POST", {
+                "dcop": dcop_yaml(session_dcop),
+                "params": session_params})
+            if code != 201:
+                fail(f"serve leg 3: POST /session {code}: {opened}")
+            sid = opened["session_id"]
+            sse, first, ended = [], threading.Event(), threading.Event()
+
+            def read_sse():
+                import urllib.request
+
+                try:
+                    with urllib.request.urlopen(
+                            url + f"/session/{sid}/events",
+                            timeout=600) as resp:
+                        for raw in resp:
+                            line = raw.decode().strip()
+                            if line.startswith("data:"):
+                                sse.append(json.loads(line[5:]))
+                                first.set()
+                finally:
+                    first.set()
+                    ended.set()
+
+            reader = threading.Thread(target=read_sse, daemon=True)
+            reader.start()
+            if not first.wait(600):
+                fail("serve leg 3: no SSE event")
+            patches = []
+            for batch in batches:
+                code, out = serve_http(
+                    url + f"/session/{sid}/events", "PATCH",
+                    {"events": batch, "wait": True, "timeout": 600})
+                if code != 200 or not out.get("applied"):
+                    fail(f"serve leg 3: PATCH {code}: {out}")
+                patches.append(out["result"])
+            code, final = serve_http(url + f"/session/{sid}", "DELETE")
+            if code != 200 or final.get("status") != "CLOSED":
+                fail(f"serve leg 3: DELETE {code}: {final}")
+            if not ended.wait(600):
+                fail("serve leg 3: the SSE stream did not end")
+            reader.join(10)
+            legs_s["session"] = time.perf_counter() - t_leg
+
+            # Leg 5: one exact request.
+            t_leg = time.perf_counter()
+            dpop_dcop = mixed_dcop(0, 3)
+            code, dpop_body = serve_http(url + "/solve", "POST", {
+                "dcop": dcop_yaml(dpop_dcop), "params": {"algo": "dpop"},
+                "wait": True, "timeout": 600})
+            if code != 200 or not dpop_body.get("optimal"):
+                fail(f"serve leg 5: dpop {code}: {dpop_body}")
+            legs_s["dpop"] = time.perf_counter() - t_leg
+            code, stats["serve"] = serve_http(url + "/stats")
+            if code != 200:
+                fail(f"serve: GET /stats {code}")
+        finally:
+            handle.stop(drain=False)
+
+        # Leg 4: journal recovery.  The first flush's device call is
+        # held until the service has stopped (a crash mid-flush), so
+        # the stop without drain finds every request accepted and
+        # unfinished, whatever the host's speed.
+        t_leg = time.perf_counter()
+        journal = os.path.join(tmp, "recover")
+        recover_keys = [(s, 200 + s) for s in range(SERVE_RECOVER_REQUESTS)]
+        handle = api.serve(port=0, device=dev, journal_dir=journal,
+                           batch_window_s=0.05, max_batch=4)
+        gate, entered = threading.Event(), threading.Event()
+        real_run = handle.service._run_batch
+
+        def held(reqs, params, **kw):
+            entered.set()
+            gate.wait(600)
+            return real_run(reqs, params, **kw)
+
+        handle.service._run_batch = held
+        ids = []
+        scheduler = handle.service._scheduler._thread
+        try:
+            for key in recover_keys:
+                code, ack = serve_http(handle.url + "/solve", "POST", {
+                    "dcop": dcop_yaml(mixed_dcop(*key)),
+                    "params": mixed_params})
+                if code != 202:
+                    fail(f"serve leg 4: POST /solve {code}: {ack}")
+                ids.append(ack["id"])
+            if not entered.wait(600):
+                fail("serve leg 4: no flush reached the device call")
+        finally:
+            handle.front_end.stop()
+            summary = handle.service.stop(drain=False, timeout=0.01)
+            # The held flush then runs on its own thread: wait for it
+            # before the card is shared again.
+            gate.set()
+            scheduler.join(600)
+        if scheduler.is_alive():
+            fail("serve leg 4: the stopped scheduler did not end")
+        if summary["replayable"] != SERVE_RECOVER_REQUESTS:
+            fail(f"serve leg 4: {summary} at the stop, expected "
+                 f"{SERVE_RECOVER_REQUESTS} replayable")
+        handle = api.serve(port=0, device=dev, journal_dir=journal,
+                           recover=True, batch_window_s=0.05)
+        recovered = {}
+        try:
+            for key, rid in zip(recover_keys, ids):
+                code, body = serve_http(handle.url + f"/result/{rid}")
+                deadline = time.perf_counter() + 600
+                while code == 202 and time.perf_counter() < deadline:
+                    body = handle.service.result(rid, wait=10)
+                    code = 202 if body is None else 200
+                if code != 200:
+                    fail(f"serve leg 4: {rid} did not finish: {body}")
+                recovered[key] = body
+            stats["recover"] = handle.service.stats()
+        finally:
+            handle.stop(drain=False)
+        legs_s["recover"] = time.perf_counter() - t_leg
+        sync()
+        launches = dict(_build.launch_counts)
+        served_s = time.perf_counter() - t_phase
+
+        # The answers: every one against the card's solo api.solve;
+        # leg 2 also against the CPU's; the session against a CPU
+        # service's.
+        t_check = time.perf_counter()
+        for k, dcop in enumerate(bin_dcops):
+            solo = api.solve(dcop, "maxsum", max_cycles=SERVE_BIN_CYCLES,
+                             device=dev)
+            for rnd in bin_rounds:
+                _served_equal(f"bin member {k}", rnd[k], solo)
+        for (s, seed, _), res in served.items():
+            dcop = mixed_dcop(s, seed)
+            for where in (dev, "cpu"):
+                solo = api.solve(dcop, "maxsum",
+                                 max_cycles=SERVE_MIXED_CYCLES, device=where)
+                _served_equal(f"mixed {(s, seed)} vs {where}", res, solo)
+        for key, res in recovered.items():
+            solo = api.solve(mixed_dcop(*key), "maxsum",
+                             max_cycles=SERVE_MIXED_CYCLES, device=dev)
+            _served_equal(f"recovered {key}", res, solo)
+        exact = api.solve(dpop_dcop, "dpop", device=dev)
+        if (dpop_body["assignment"] != exact["assignment"]
+                or dpop_body["cost"] != exact["cost"]):
+            fail(f"serve leg 5: dpop cost {dpop_body['cost']} != solo "
+                 f"{exact['cost']}")
+        cpu = SolveService(device="cpu", batch_window_s=0.01,
+                           speculate=False).start()
+        try:
+            sess = cpu.sessions.open(session_dcop, params=session_params)
+            cpu_patches = [cpu.sessions.apply_events(
+                sess.id, b, wait=600)["result"] for b in batches]
+            cpu_final = cpu.sessions.close(sess.id, wait=600)
+        finally:
+            cpu.stop(drain=False)
+        keys = ("cycle", "cost", "converged", "assignment")
+        for i, (a, b) in enumerate(zip(patches, cpu_patches)):
+            if any(a[k] != b[k] for k in keys):
+                fail(f"serve leg 3: event batch {i}: card segment != CPU")
+        for k in ("assignment", "cost", "cycles", "converged",
+                  "events_applied"):
+            if final[k] != cpu_final[k]:
+                fail(f"serve leg 3: final {k} card != CPU")
+        segments = [e for e in sse if e.get("phase") == "segment"]
+        if (len(segments) != SERVE_SESSION_EVENTS + 1
+                or sse[-1].get("phase") != "closed"
+                or [e["cost"] for e in segments[1:]]
+                != [p["cost"] for p in patches]):
+            fail(f"serve leg 3: SSE stream {[e.get('phase') for e in sse]}")
+        check_s = time.perf_counter() - t_check
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    serve_stats = stats["serve"]
+    dispatches = {
+        "pipelined": (stats["bin"]["pipeline"]["pipelined_dispatches"]
+                      + serve_stats["pipeline"]["pipelined_dispatches"]),
+        "envelope": serve_stats["envelope_dispatches"],
+        "lane": serve_stats["lane_dispatches"],
+        "total": stats["bin"]["dispatches"] + serve_stats["dispatches"],
+    }
+    if not (dispatches["pipelined"] and dispatches["envelope"]
+            and dispatches["lane"]):
+        fail(f"serve: pipelined/envelope/lane dispatches {dispatches}")
+    from pydcop_tpu_torch.ops.binary_factor import LANE
+    from pydcop_tpu_torch.ops.lane_sum import KERNEL as LANE_SUM
+    from pydcop_tpu_torch.ops.lane_var_update import SEND, V2F
+
+    for name in ("binary_factor_update", "segment_sum", "var_update",
+                 LANE, LANE_SUM, V2F, SEND):
+        if not launches.get(name) and dev == "cuda":
+            fail(f"serve: {name} was not launched ({launches})")
+    problems_per_s = SERVE_MIXED_REQUESTS / stream_s
+    return dict(
+        launches=launches, legs_s=legs_s, served_s=served_s,
+        check_s=check_s, dispatches=dispatches,
+        pipelined_share=dispatches["pipelined"] / dispatches["total"],
+        mixed=dict(requests=SERVE_MIXED_REQUESTS,
+                   clients=SERVE_MIXED_CLIENTS, stream_s=stream_s,
+                   problems_per_s=problems_per_s,
+                   p50_ms=_percentile(latencies, 50) * 1e3,
+                   p99_ms=_percentile(latencies, 99) * 1e3,
+                   distinct_instances=len(served),
+                   envelope_group=len(group),
+                   ledger_mean_s=_mean_ledger(list(served.values()))),
+        bin=dict(members=SERVE_BIN_MEMBERS, n_vars=SERVE_BIN_VARS,
+                 cycles=SERVE_BIN_CYCLES, flush_s=bin_walls,
+                 warm_problems_per_s=SERVE_BIN_MEMBERS / bin_walls[1],
+                 warm_flush_launches=grew,
+                 warm_ledger_mean_s=_mean_ledger(bin_rounds[1])),
+        session=dict(events=SERVE_SESSION_EVENTS,
+                     sse_events=len(sse), final_cost=final["cost"]),
+        recover=dict(requests=SERVE_RECOVER_REQUESTS,
+                     replayable_at_stop=summary["replayable"],
+                     replayed=stats["recover"]["replayed"]),
+        stats={k: {key: v[key] for key in (
+            "dispatches", "batched_dispatches", "envelope_dispatches",
+            "lane_dispatches", "dpop_dispatches", "completed", "failed")}
+            for k, v in stats.items()})
+
+
 def main() -> int:
     import torch
 
@@ -5140,6 +5634,22 @@ def main() -> int:
                       "batch_stacked": stacked["launches"],
                       "batch_envelope": packed["envelope"]["launches"],
                       "batch_lane": packed["lane"]["launches"]})
+
+    # 14. The serving slice: api.serve on the card, five legs (the
+    # flagship bin, the mixed stream, a session, journal recovery,
+    # dpop), with the launch counts set to 0 just before and read
+    # after the served legs.
+    serve = phase_serve(ctx)
+    emit("serve", **serve)
+    emit("serve_problems_per_s", card=smi,
+         mixed_stream=serve["mixed"]["problems_per_s"],
+         flagship_bin_warm=serve["bin"]["warm_problems_per_s"])
+    emit("serve_latency_ms", card=smi, p50=serve["mixed"]["p50_ms"],
+         p99=serve["mixed"]["p99_ms"])
+    emit("serve_seconds", card=smi, served_s=serve["served_s"],
+         check_s=serve["check_s"], legs_s=serve["legs_s"],
+         pipelined_share=serve["pipelined_share"])
+    new_paths["serve"] = serve["launches"]
 
     # 7. Fixture parity: the verify oracle.
     fixture = os.path.join(HERE, "tests", "instances", "coloring_12_3.yml")

@@ -8,6 +8,10 @@ keys as the reference's device solve.  ``device`` defaults to
 Checkpointing, recovery, decimation and observation route the solve
 through the engine's segmented loop (``MaxSumEngine.run_checkpointed``),
 as the reference's ``_solve`` does.
+
+:func:`serve` is the reference's ``api.serve`` for one replica: the
+solve service (``serving/service.py``) and its HTTP front end on one
+device.
 """
 
 import time
@@ -298,3 +302,251 @@ def _solve_segmented(dcop: DCOP, algo_def: AlgorithmDef, module, *,
 
         attach_result_metrics(res, probe)
     return res
+
+
+# ------------------------------------------------------------------ #
+# Serving (port of the reference's ``api.serve``, single replica).
+
+# Where the fleet knobs stand: raised, never silently ignored.
+_FLEET_NOT_PORTED = (
+    "is fleet serving, which is not ported yet (ROADMAP.md, Queue A "
+    "item 5(b): serving/router.py and the elastic fleet); the port "
+    "serves one replica")
+
+
+class ServeHandle:
+    """A running solve service + HTTP front end.
+
+    ``url``/``port`` locate the front end; ``service`` is the
+    underlying :class:`~pydcop_tpu_torch.serving.service.SolveService`
+    (submit/result work in-process too); ``stop()`` drains the queue
+    and shuts both down.  Context-manager friendly."""
+
+    def __init__(self, service, front_end):
+        self.service = service
+        self.front_end = front_end
+
+    @property
+    def url(self):
+        return self.front_end.url
+
+    @property
+    def port(self):
+        return self.front_end.port
+
+    def stop(self, drain: bool = True) -> Dict[str, Any]:
+        """Stop front end + service; returns the service's drain
+        summary (``drained`` / ``replayable`` / ``failed_pending``)."""
+        self.front_end.stop()
+        return self.service.stop(drain=drain)
+
+    def __enter__(self) -> "ServeHandle":
+        return self
+
+    def __exit__(self, *exc):
+        self.stop()
+        return False
+
+
+def _write_port_file(path: str, port: int) -> None:
+    """Atomically publish the bound port (handy for scripts wrapping
+    ``--port 0``)."""
+    import os
+    import tempfile
+
+    directory = os.path.dirname(os.path.abspath(path)) or "."
+    fd, tmp = tempfile.mkstemp(dir=directory, prefix=".port_")
+    try:
+        with os.fdopen(fd, "w", encoding="utf-8") as f:
+            f.write(f"{port}\n")
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+
+
+def serve(port: int = 8080, host: str = "127.0.0.1",
+          max_queue: int = 256, batch_window_s: float = 0.02,
+          max_batch: int = 16, high_water: Optional[int] = None,
+          default_params: Optional[Dict[str, Any]] = None,
+          breaker_failures: int = 3, breaker_reset_s: float = 5.0,
+          result_keep: int = 4096,
+          journal_dir: Optional[str] = None,
+          journal_sync: bool = False,
+          recover: bool = False,
+          envelope_packing: bool = True,
+          envelope_overhead_ms: Optional[float] = None,
+          pipeline: bool = True,
+          speculate: bool = True,
+          session_max: int = 64,
+          session_segment_cycles: Optional[int] = None,
+          session_checkpoint_every_events: int = 8,
+          session_certify_after: Optional[float] = None,
+          replicas: int = 1,
+          affinity: str = "structure",
+          compile_cache_dir: Optional[str] = None,
+          heartbeat_s: float = 0.25,
+          probe_timeout_s: Optional[float] = None,
+          spill_slack: int = 4,
+          hosts: int = 1,
+          slo_p99_ms: Optional[float] = None,
+          min_replicas: Optional[int] = None,
+          max_replicas: Optional[int] = None,
+          join: Optional[str] = None,
+          host_id: Optional[str] = None,
+          fleet_trace: Optional[bool] = None,
+          port_file: Optional[str] = None,
+          block: bool = False,
+          device: DeviceLike = "cuda") -> Optional[ServeHandle]:
+    """Start the multi-tenant solve service on one torch device (the
+    reference's ``api.serve``, docs/serving.md).
+
+    Incoming problems are binned by structure signature and
+    same-structure requests are stacked into ONE device dispatch;
+    different-structure singletons are packed into envelope-padded or
+    lane-packed dispatches when the per-flush cost model says so
+    (``envelope_packing``, ``envelope_overhead_ms``).  The front end
+    serves ``POST /solve`` / ``GET /result/<id>`` / ``GET /stats``,
+    the stateful sessions (``/session``) and the telemetry routes
+    (``/metrics``, ``/healthz``, ``/events``, ``/profile``).
+    Admission control: a submit past ``high_water`` (default
+    ``max_queue``) is a 429; ``breaker_failures`` dispatch failures in
+    a row open the breaker (503) for ``breaker_reset_s``.
+    ``journal_dir`` makes every 202 crash-durable; ``recover=True``
+    replays the journal's unfinished requests and open sessions on
+    start.  ``pipeline`` queues warm dispatches on a side stream of the
+    card while the previous one is decoded; ``speculate`` builds the
+    kernel libraries predicted dispatches will load on a background
+    thread.  ``compile_cache_dir`` (or ``PYDCOP_COMPILE_CACHE_DIR``)
+    keeps those libraries in a directory shared across processes
+    (engine/aotcache.py).
+
+    ``device`` (default ``"cuda"``) is where every dispatch runs;
+    without a card this raises unless ``device="cpu"``.
+
+    The fleet knobs — ``replicas > 1``, ``hosts > 1``, ``join``,
+    ``min_replicas``/``max_replicas`` and ``slo_p99_ms`` — raise
+    ``NotImplementedError``: the fleet router is not ported yet.
+    ``affinity``, ``heartbeat_s``, ``probe_timeout_s``,
+    ``spill_slack`` and ``host_id`` only shape a fleet and, as in the
+    reference's single-replica path, do nothing here.
+
+    ``port=0`` asks the OS for a free port (``port_file`` atomically
+    publishes it).  ``block=True`` (the CLI) serves until
+    SIGTERM/SIGINT, then stops WITH drain and returns None;
+    ``block=False`` returns a :class:`ServeHandle`."""
+    import os
+
+    for name, value, default in (
+            ("replicas", replicas, 1), ("hosts", hosts, 1),
+            ("join", join, None), ("min_replicas", min_replicas, None),
+            ("max_replicas", max_replicas, None),
+            ("slo_p99_ms", slo_p99_ms, None)):
+        if value is not None and value != default and not (
+                name in ("replicas", "hosts") and value < 1):
+            raise NotImplementedError(
+                f"{name}={value!r} {_FLEET_NOT_PORTED}")
+    resolve_device(device)
+    if fleet_trace is not None:
+        os.environ["PYDCOP_FLEET_TRACE"] = "1" if fleet_trace else "0"
+    if compile_cache_dir:
+        # Before the service loads any kernel library.
+        from pydcop_tpu_torch.engine.aotcache import (
+            enable_persistent_compile_cache,
+        )
+
+        enable_persistent_compile_cache(compile_cache_dir)
+    from pydcop_tpu_torch.serving.admission import AdmissionPolicy
+    from pydcop_tpu_torch.serving.http import ServeFrontEnd
+    from pydcop_tpu_torch.serving.service import SolveService
+
+    service = SolveService(
+        max_queue=max_queue,
+        batch_window_s=batch_window_s,
+        max_batch=max_batch,
+        default_params=default_params,
+        admission=AdmissionPolicy(
+            high_water=(high_water if high_water is not None
+                        else max_queue),
+            breaker_failures=breaker_failures,
+            breaker_reset_s=breaker_reset_s,
+        ),
+        result_keep=result_keep,
+        journal_dir=journal_dir,
+        journal_sync=journal_sync,
+        recover=recover,
+        envelope_packing=envelope_packing,
+        envelope_overhead_ms=envelope_overhead_ms,
+        pipeline=pipeline,
+        speculate=speculate,
+        session_max=session_max,
+        session_segment_cycles=session_segment_cycles,
+        session_checkpoint_every_events=(
+            session_checkpoint_every_events),
+        session_certify_after=session_certify_after,
+        device=device,
+    ).start()
+    try:
+        front_end = ServeFrontEnd(service, port=port, host=host).start()
+    except Exception:
+        service.stop(drain=False)
+        raise
+    handle = ServeHandle(service, front_end)
+    import sys
+
+    print(f"pydcop serve: listening on {handle.url} "
+          "(POST /solve, GET /result/<id>, /metrics, /healthz)",
+          file=sys.stderr)
+    if port_file:
+        _write_port_file(port_file, handle.port)
+    if not block:
+        return handle
+    _serve_until_signal(
+        handle,
+        lambda summary: (
+            "pydcop serve: shut down — "
+            f"{summary['drained']} request(s) drained, "
+            f"{summary['replayable']} journaled replayable, "
+            f"{summary['failed_pending']} failed pending"))
+    return None
+
+
+def _serve_until_signal(handle, summarize) -> None:
+    """``block=True`` tail: wait for SIGTERM/SIGINT, cut the black-box
+    bundle, drain-stop the handle, log the summary."""
+    import signal
+    import sys
+    import threading
+
+    stop_event = threading.Event()
+    got_signal = []
+
+    def _on_signal(signum, frame):  # noqa: ARG001 — signal signature
+        got_signal.append(signum)
+        stop_event.set()
+
+    # Original handlers are restored on exit; handlers can only be
+    # installed from the main thread — a background-thread caller just
+    # blocks on the event.
+    previous = {}
+    if threading.current_thread() is threading.main_thread():
+        previous = {
+            sig: signal.signal(sig, _on_signal)
+            for sig in (signal.SIGTERM, signal.SIGINT)
+        }
+    try:
+        stop_event.wait()
+        print("pydcop serve: signal received, draining…",
+              file=sys.stderr)
+        from pydcop_tpu_torch.observability import flight
+
+        flight.trigger("fatal_signal", force=True,
+                       signum=(got_signal[0] if got_signal else None))
+    finally:
+        summary = handle.stop(drain=True)
+        for sig, handler in previous.items():
+            signal.signal(sig, handler)
+        print(summarize(summary), file=sys.stderr)

@@ -31,7 +31,22 @@ not.
 (``commands/trace.py``, ``commands/profile.py``).  ``python -m
 pydcop_tpu_torch batch [--simulate] FILE.yaml`` runs the sweep a batch
 file defines, one ``python -m pydcop_tpu_torch`` process a job
-(``commands/batch.py``).
+(``commands/batch.py``).  ``python -m pydcop_tpu_torch serve
+[--device cuda|cpu] [--port P] [--journal_dir D [--recover]] ...``
+runs the solve service over HTTP (``commands/serve.py``,
+``api.serve``); without ``--device cpu`` and no card it exits with an
+error.  ``python -m pydcop_tpu_torch debug bundle [--url URL] [--out
+PATH]`` cuts a flight-recorder postmortem bundle
+(``commands/debug.py``).
+
+The global options are the reference's: ``-t/--timeout`` (accepted; a
+device solve runs to its cycle budget, as the reference's device solve
+does), ``--output FILE`` (the result JSON is also written there),
+``-v/--verbosity 0..3`` and ``--version``.  ``solve`` also takes the
+reference's ``--flight_recorder_events N`` (the flight-recorder ring,
+``observability/flight.py``) and ``--profile DIR`` (a
+``torch.profiler`` trace of the solve written to DIR, TensorBoard's
+format, where the reference writes a JAX profiler trace).
 
 The metrics files are the reference's CSV (``commands/metrics_io.py``):
 with ``--collect_on cycle_change``, ``--run_metrics`` gets one row per
@@ -41,10 +56,28 @@ then gets the final summary row.
 """
 
 import argparse
+import contextlib
 import json
+import logging
 import os
 import sys
 from typing import Dict, List, Optional
+
+
+def _configure_logs(level: int):
+    if level >= 3:
+        log_level = logging.DEBUG
+    elif level == 2:
+        log_level = logging.INFO
+    elif level == 1:
+        log_level = logging.WARNING
+    else:
+        log_level = logging.ERROR
+    logging.basicConfig(
+        level=log_level,
+        format="%(asctime)s %(levelname)s %(name)s %(message)s",
+        stream=sys.stderr,
+    )
 
 
 def parse_algo_params(param_strs: Optional[List[str]]) -> Dict[str, str]:
@@ -65,7 +98,21 @@ def make_parser() -> argparse.ArgumentParser:
         prog="python -m pydcop_tpu_torch",
         description="DCOP solver on PyTorch/CUDA (port of pydcop_tpu)",
     )
-    sub = parser.add_subparsers(dest="command", required=True)
+    parser.add_argument(
+        "-t", "--timeout", type=float, default=None,
+        help="global timeout in seconds",
+    )
+    parser.add_argument(
+        "--output", default=None, help="output file for results"
+    )
+    parser.add_argument(
+        "-v", "--verbosity", type=int, default=0,
+        help="verbosity: 0 error, 1 warning, 2 info, 3 debug",
+    )
+    parser.add_argument(
+        "--version", action="store_true", help="print version and exit"
+    )
+    sub = parser.add_subparsers(dest="command")
     solve = sub.add_parser("solve", help="solve a static DCOP")
     solve.add_argument("dcop_files", nargs="+", help="dcop yaml file(s)")
     solve.add_argument("-a", "--algo", required=True,
@@ -150,6 +197,16 @@ def make_parser() -> argparse.ArgumentParser:
                        help="serve live telemetry over HTTP while the "
                             "solve runs (/metrics, /healthz, /events, "
                             "/profile; 0 = OS-assigned port)")
+    solve.add_argument("--flight_recorder_events",
+                       "--flight-recorder-events",
+                       type=int, default=None, metavar="N",
+                       help="size of the always-on flight-recorder "
+                            "ring (trace events kept for postmortem "
+                            "bundles; 0 disables; default: "
+                            "PYDCOP_FLIGHT_RECORDER or 2048)")
+    solve.add_argument("--profile", default=None,
+                       help="write a torch.profiler trace of the solve "
+                            "to this directory (TensorBoard format)")
     from pydcop_tpu_torch.commands import batch as batch_cmd
     from pydcop_tpu_torch.commands import profile as profile_cmd
     from pydcop_tpu_torch.commands import trace as trace_cmd
@@ -157,6 +214,11 @@ def make_parser() -> argparse.ArgumentParser:
     trace_cmd.set_parser(sub)
     profile_cmd.set_parser(sub)
     batch_cmd.set_parser(sub)
+    from pydcop_tpu_torch.commands import debug as debug_cmd
+    from pydcop_tpu_torch.commands import serve as serve_cmd
+
+    serve_cmd.set_parser(sub)
+    debug_cmd.set_parser(sub)
     return parser
 
 
@@ -166,21 +228,23 @@ def _guard_backend(args) -> None:
     the command at once instead of hanging it; raises otherwise (there
     is no CPU fallback).  ``PYDCOP_CLI_PROBE_TIMEOUT`` (seconds,
     default 60) bounds the probe."""
-    if args.command != "solve" or args.device != "cuda":
+    if args.command not in ("solve", "serve") or args.device != "cuda":
         return
     from pydcop_tpu_torch.utils.cleanenv import ensure_live_backend
 
-    ensure_live_backend(tag="cli_solve", retries=1,
+    ensure_live_backend(tag=f"cli_{args.command}", retries=1,
                         probe_timeout=float(os.environ.get(
                             "PYDCOP_CLI_PROBE_TIMEOUT", "60")))
 
 
 def run_solve(args) -> int:
     from pydcop_tpu_torch.algorithms import AlgorithmDef
-    from pydcop_tpu_torch.api import solve
-    from pydcop_tpu_torch.commands.metrics_io import add_csvline
     from pydcop_tpu_torch.dcop.yamldcop import load_dcop_from_file
 
+    if args.flight_recorder_events is not None:
+        from pydcop_tpu_torch.observability import flight
+
+        flight.install(events=args.flight_recorder_events)
     dcop = load_dcop_from_file(args.dcop_files)
     auto_params = None
     if args.algo == "auto":
@@ -203,18 +267,11 @@ def run_solve(args) -> int:
             noise_scale=args.recovery_noise,
             damping_bump=args.recovery_damping_bump,
         )
-    res = solve(dcop, algo_def, max_cycles=args.cycles,
-                algo_params=auto_params,
-                checkpoint_dir=args.checkpoint_dir,
-                checkpoint_every=args.checkpoint_every,
-                checkpoint_async=args.checkpoint_async,
-                checkpoint_keep=args.checkpoint_keep,
-                resume=args.resume, recovery=recovery,
-                trace=args.trace, trace_format=args.trace_format,
-                metrics_file=args.metrics,
-                metrics_every=args.metrics_every,
-                serve_metrics=args.serve_metrics,
-                device=args.device)
+    profile_ctx = contextlib.nullcontext()
+    if args.profile:
+        profile_ctx = _torch_profile(args.profile, args.device)
+    with profile_ctx:
+        res = _run_solve(args, dcop, algo_def, auto_params, recovery)
     result = {
         "status": res["status"],
         "assignment": res["assignment"],
@@ -227,6 +284,57 @@ def run_solve(args) -> int:
         "compile_time": res["compile_time"],
         "backend": "device",
     }
+    _write_metrics(args, dcop, algo_def, res, result)
+    _emit(result, args.output)
+    return 0
+
+
+def _torch_profile(directory: str, device: str):
+    """A ``torch.profiler`` session writing its trace to ``directory``
+    (the reference's ``--profile`` writes a JAX profiler trace)."""
+    from torch.profiler import (
+        ProfilerActivity,
+        profile,
+        tensorboard_trace_handler,
+    )
+
+    activities = [ProfilerActivity.CPU]
+    if device == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(directory, exist_ok=True)
+    return profile(activities=activities,
+                   on_trace_ready=tensorboard_trace_handler(directory))
+
+
+def _emit(result: dict, output_file: Optional[str]) -> None:
+    """Print the result JSON (and write it to ``output_file``)."""
+    text = json.dumps(result, sort_keys=True, indent="  ")
+    if output_file:
+        with open(output_file, "w", encoding="utf-8") as f:
+            f.write(text)
+    print(text)
+
+
+def _run_solve(args, dcop, algo_def, auto_params, recovery):
+    from pydcop_tpu_torch.api import solve
+
+    return solve(dcop, algo_def, max_cycles=args.cycles,
+                algo_params=auto_params,
+                checkpoint_dir=args.checkpoint_dir,
+                checkpoint_every=args.checkpoint_every,
+                checkpoint_async=args.checkpoint_async,
+                checkpoint_keep=args.checkpoint_keep,
+                resume=args.resume, recovery=recovery,
+                trace=args.trace, trace_format=args.trace_format,
+                metrics_file=args.metrics,
+                metrics_every=args.metrics_every,
+                serve_metrics=args.serve_metrics,
+                device=args.device)
+
+
+def _write_metrics(args, dcop, algo_def, res, result) -> None:
+    from pydcop_tpu_torch.commands.metrics_io import add_csvline
+
     params = {} if isinstance(algo_def, str) else algo_def.params
     if (args.run_metrics and args.collect_on == "cycle_change"
             and not isinstance(algo_def, str)
@@ -248,8 +356,6 @@ def run_solve(args) -> int:
     for path in (args.run_metrics, args.end_metrics):
         if path:
             add_csvline(path, args.collect_on, result)
-    print(json.dumps(result, sort_keys=True, indent="  "))
-    return 0
 
 
 def _run_scenario_cmd(args, dcop, algo_def) -> int:
@@ -295,15 +401,25 @@ def _run_scenario_cmd(args, dcop, algo_def) -> int:
             "events": out["events"],
         },
     }
-    print(json.dumps(result, sort_keys=True, indent="  "))
+    _emit(result, args.output)
     return 0
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    args = make_parser().parse_args(argv)
+    parser = make_parser()
+    args = parser.parse_args(argv)
+    _configure_logs(args.verbosity)
+    if args.version:
+        import pydcop_tpu_torch
+
+        print(f"pydcop-tpu-torch {pydcop_tpu_torch.__version__}")
+        return 0
+    if args.command is None:
+        parser.print_help()
+        return 2
+    _guard_backend(args)
     if args.command != "solve":
         return args.func(args)
-    _guard_backend(args)
     return run_solve(args)
 
 

@@ -20,7 +20,8 @@ reference computes for its lane, given the same order of every sum:
   each vmapped lane sees): :func:`stacked_fold`, which is
   ``segment_sum.separate_buckets`` with no one-edge bucket moved (under
   vmap a one-edge bucket's scatter has a row per lane, and XLA does not
-  rewrite it into a one-row update as it does for a solo solve);
+  rewrite it into a one-row update as it does for a solo solve) — for
+  a stack of one, the solo fold (:func:`member_fold`);
 - ``stable`` is per member: after the fixed cycle count every edge of
   the member matched its last message (count >= 2, both directions),
   reduced on the card and read once at the end;
@@ -259,13 +260,24 @@ def stacked_fold(graph: CompiledFactorGraph) -> Tuple[Tuple[int, ...], int]:
     """The belief sum's bucket ``(order, sep)`` of one member as the
     vmapped reference sums it: the buckets in their own order,
     ``separate_buckets`` of their edge counts over the member's V + 1
-    rows (no one-edge bucket moves under vmap)."""
+    rows (no one-edge bucket moves under vmap).  This holds for stacks
+    of two members or more: a stack of one is summed as a solo solve
+    (:func:`member_fold`)."""
     sizes = [b.var_ids.size for b in graph.buckets]
     starts = np.cumsum([0] + sizes).tolist()
     order = tuple(range(len(sizes)))
     if len(sizes) < 2:
         return order, 0
     return order, separate_buckets(starts, graph.var_costs.shape[0])
+
+
+def member_fold(graphs: Sequence[CompiledFactorGraph]):
+    """The ``fold`` to place a stack of ``graphs`` with:
+    :func:`stacked_fold` of the first member, or None (the solo solve's
+    own fold, ``segment_sum.positional_fold``) for a stack of one —
+    XLA drops a batch axis of one, and then moves a one-edge bucket's
+    one-row update as it does for a solo solve."""
+    return stacked_fold(graphs[0]) if len(graphs) > 1 else None
 
 
 def stack_union(graphs: Sequence[CompiledFactorGraph]
@@ -355,7 +367,7 @@ class _StackedPrep(NamedTuple):
     synchronous and launched paths."""
 
     graphs: tuple
-    fold: tuple
+    fold: Optional[tuple]
     statics: dict
     key: tuple
     n_real: int
@@ -404,7 +416,7 @@ def _prepare_stacked(graphs, max_cycles, damping, damping_nodes,
         "maxsum_batch", len(graphs), _shape_signature(graphs),
         tuple(sorted(statics.items())),
     )
-    return _StackedPrep(tuple(graphs), stacked_fold(graphs[0]), statics,
+    return _StackedPrep(tuple(graphs), member_fold(graphs), statics,
                         key, n_real, pad_fraction, envelope_waste,
                         max_cycles, t_pack)
 

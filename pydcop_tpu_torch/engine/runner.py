@@ -415,10 +415,10 @@ class MaxSumEngine:
         """``(out, run seconds, build seconds)`` of ``fn()`` through
         :meth:`_call`, the window closed by a synchronise on the
         card."""
-        build_before = _build.build_seconds
+        build_before = _build.thread_build_seconds()
         sync(self.device)
         out, _, run_s = self._call(key, fn, cycles)
-        return out, run_s, _build.build_seconds - build_before
+        return out, run_s, _build.thread_build_seconds() - build_before
 
     def _metrics(self, compile_s: float, stats: Dict[str, int]
                  ) -> Dict[str, Any]:
@@ -610,7 +610,7 @@ class MaxSumEngine:
         writer = None
         if manager is not None and checkpoint_async:
             writer = AsyncCheckpointWriter(manager)
-        build_before = _build.build_seconds
+        build_before = _build.thread_build_seconds()
         t0 = time.perf_counter()
         segments = 0
         checkpoints = 0
@@ -727,7 +727,7 @@ class MaxSumEngine:
         values_host = values.cpu().numpy()
         cycle, stable = int(state.cycle), bool(state.stable)
         total = time.perf_counter() - t0
-        compile_s = _build.build_seconds - build_before
+        compile_s = _build.thread_build_seconds() - build_before
         if decim is not None and decim.fixed.all() and not interrupted:
             # Fully decimated = solved: every variable carries its
             # clamped value.
@@ -771,7 +771,7 @@ class MaxSumEngine:
         fixed = np.zeros(n_vars, dtype=bool)
         graph = self.graph
         state = maxsum_ops.init_state(graph)
-        build_before = _build.build_seconds
+        build_before = _build.thread_build_seconds()
         t0 = time.perf_counter()
         values = None
         while True:
@@ -811,7 +811,7 @@ class MaxSumEngine:
         values = _host(values)
         cycle = int(state.cycle)
         total = time.perf_counter() - t0
-        compile_s = _build.build_seconds - build_before
+        compile_s = _build.thread_build_seconds() - build_before
         steady = max(total - compile_s, 0.0)
         return DeviceRunResult(
             assignment=self.meta.assignment_from_indices(values),

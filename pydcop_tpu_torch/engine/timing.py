@@ -21,6 +21,7 @@ from typing import Any, Callable, Tuple
 
 import torch
 
+from pydcop_tpu_torch.engine import aotcache
 from pydcop_tpu_torch.observability.efficiency import (
     note_backend,
     tracker as efficiency_tracker,
@@ -106,6 +107,11 @@ def timed_engine_call(warm: set, key, fn: Callable, device: torch.device,
     entry = None
     if first and profiler.enabled:
         entry = profiler.capture(key, fn, device, cycles)
+    # Library-cache attribution (engine/aotcache.py): a cold call that
+    # found every kernel library it loaded in the cache reports the
+    # load time, not its whole interval, as its compile.
+    cache_before = aotcache.counters() if first and aotcache.enabled() \
+        else None
     t0 = time.perf_counter()
     span = None
     if tracer.enabled or (first and tracer.active):
@@ -126,10 +132,18 @@ def timed_engine_call(warm: set, key, fn: Callable, device: torch.device,
     if metrics_registry.active:
         _account_jit_call(str(key), first, elapsed)
     note_backend(device)
-    efficiency_tracker.record_jit(str(key), first, elapsed)
     if first:
         warm.add(key)
+        cached_compile = None
+        if cache_before is not None:
+            cached_compile = aotcache.split_cold_call(
+                elapsed, cache_before, aotcache.counters())
+        efficiency_tracker.record_jit(str(key), first, elapsed,
+                                      compile_s=cached_compile)
+        if cached_compile is not None:
+            return out, cached_compile, elapsed
         return out, elapsed, elapsed
+    efficiency_tracker.record_jit(str(key), first, elapsed)
     return out, 0.0, elapsed
 
 

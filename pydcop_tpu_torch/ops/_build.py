@@ -6,7 +6,15 @@ compiled by ``nvcc`` for ``sm_90a`` into a shared library under
 No PyTorch headers are included, so a build takes seconds, not the
 minutes of ``torch.utils.cpp_extension.load``.  Libraries are named by
 a hash of their source and flags, so an edited kernel is rebuilt and
-an unchanged one is reused.
+an unchanged one is reused.  ``engine/aotcache.py`` points the library
+directory elsewhere (``set_build_dir``), as the reference points its
+persistent compile cache, and reads the hit/miss counts kept here.
+
+Builds may run on several threads (the serving scheduler and its
+speculative builder): each library has its own lock, so two threads
+asking for the same one run one ``nvcc``, and the build seconds are
+counted per thread as well as per process, so a solve's compile time
+(``thread_build_seconds``) never includes another thread's build.
 
 Nothing here runs at import: the CPU tests import every module on a
 host with neither ``nvcc`` nor a card.
@@ -43,12 +51,59 @@ NVCC_FLAGS = (
 # the main path to show the path went through the kernels).
 launch_counts: "collections.Counter[str]" = collections.Counter()
 
-# Seconds spent compiling kernels in this process (the engine reports
-# the part spent inside a solve as its compile time).
+# Seconds spent compiling kernels in this process, all threads.
 build_seconds = 0.0
+
+# Library-cache counts, all threads: a hit is a library found built, a
+# miss one that had to be compiled.
+cache_counts = {"hits": 0, "misses": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+# One lock per library name, taken around its build (never while
+# ``_lock`` is wanted by the same thread for another name).
+_name_locks: Dict[str, threading.Lock] = {}
+_name_locks_guard = threading.Lock()
+_tls = threading.local()
+
+
+def _thread_counter(name: str) -> float:
+    return getattr(_tls, name, 0.0)
+
+
+def _thread_add(name: str, value: float) -> None:
+    setattr(_tls, name, _thread_counter(name) + value)
+
+
+def thread_build_seconds() -> float:
+    """Seconds this thread has spent compiling kernels (the engine
+    reports the part spent inside a solve as its compile time)."""
+    return _thread_counter("build_s")
+
+
+def thread_counters() -> Dict[str, float]:
+    """This thread's library-cache activity: hits, misses, and the
+    seconds spent in :func:`load` (finding, building and opening
+    libraries)."""
+    return {"hits": _thread_counter("hits"),
+            "misses": _thread_counter("misses"),
+            "load_s": _thread_counter("load_s")}
+
+
+def set_build_dir(path) -> Path:
+    """Build and load libraries under ``path`` from now on (libraries
+    already loaded stay loaded)."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path).resolve()
+    return BUILD_DIR
+
+
+def _name_lock(name: str) -> threading.Lock:
+    with _name_locks_guard:
+        lock = _name_locks.get(name)
+        if lock is None:
+            lock = _name_locks[name] = threading.Lock()
+        return lock
 
 
 def _nvcc() -> str:
@@ -87,23 +142,42 @@ def _start(name: str):
 
 def build(names: Iterable[str]) -> float:
     """Compile every named kernel that is not built yet, one ``nvcc``
-    per source, all started together.  Returns the wall seconds."""
+    per source, all started together.  Returns the wall seconds.  A
+    library another thread is building is waited for, not built
+    twice."""
     global build_seconds
+    names = sorted(set(names))
+    locks = [_name_lock(n) for n in names]
     t0 = time.perf_counter()
-    jobs = [(n, _start(n)) for n in names]
-    errors = []
-    for name, job in jobs:
-        if job is None:
-            continue
-        proc, tmp, final = job
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            errors.append(f"nvcc failed for {name}.cu:\n{out}")
-        else:
-            os.replace(tmp, final)
+    for lock in locks:
+        lock.acquire()
+    try:
+        jobs = [(n, _start(n)) for n in names]
+        errors = []
+        hits = misses = 0
+        for name, job in jobs:
+            if job is None:
+                hits += 1
+                continue
+            misses += 1
+            proc, tmp, final = job
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                errors.append(f"nvcc failed for {name}.cu:\n{out}")
+            else:
+                os.replace(tmp, final)
+    finally:
+        for lock in reversed(locks):
+            lock.release()
     elapsed = time.perf_counter() - t0
-    build_seconds += elapsed
+    with _name_locks_guard:
+        build_seconds += elapsed
+        cache_counts["hits"] += hits
+        cache_counts["misses"] += misses
+    _thread_add("build_s", elapsed)
+    _thread_add("hits", hits)
+    _thread_add("misses", misses)
     if errors:
         raise RuntimeError("\n".join(errors))
     return elapsed
@@ -114,9 +188,11 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
+            t0 = time.perf_counter()
             build([name])
             lib = ctypes.CDLL(str(_lib_path(name)))
             _libs[name] = lib
+            _thread_add("load_s", time.perf_counter() - t0)
         return lib
 
 

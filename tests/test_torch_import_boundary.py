@@ -10,12 +10,16 @@ slice: DPOP's ops, engine and algorithm, SyncBB, NCBB, the pseudo-tree
 and ordered graph, and the window sum's wrapper, and the portfolio and
 dynamic slice: the autotuner, the dynamic engine, the scenario model and
 the YAML writers, and the batch and lane slice: the binning copy, the
-lane ops and belief sum, the batched engine and the batch command), then
+lane ops and belief sum, the batched engine and the batch command,
+and the serving slice: the service, scheduler, sessions, journal,
+admission, retry, speculation, migration, link-fault seam, fleet trace,
+HTTP front end, library cache and the serve and debug commands), then
 ``sys.modules`` must hold no ``jax*``
 module and no ``pydcop_tpu``/``pydcop_tpu.*`` module.  The sources of
 the package, of chip_smoke.py, chip_compare.py,
 chip_var_update_compare.py and of the card-only test files of the local
-search, the exact slice, the dynamic slice and the batch slice are also
+search, the exact slice, the dynamic slice, the batch slice and the
+serving slice are also
 scanned for such
 imports (the scan reads the imports inside functions too, such as the
 portfolio racer's).
@@ -113,6 +117,21 @@ REQUIRED = [
     "pydcop_tpu_torch.ops.lane_var_update",
     "pydcop_tpu_torch.engine.batch",
     "pydcop_tpu_torch.commands.batch",
+    "pydcop_tpu_torch.resilience.retry",
+    "pydcop_tpu_torch.serving",
+    "pydcop_tpu_torch.serving.admission",
+    "pydcop_tpu_torch.serving.journal",
+    "pydcop_tpu_torch.serving.netfault",
+    "pydcop_tpu_torch.observability.fleettrace",
+    "pydcop_tpu_torch.serving.migration",
+    "pydcop_tpu_torch.serving.sessions",
+    "pydcop_tpu_torch.serving.scheduler",
+    "pydcop_tpu_torch.serving.speculate",
+    "pydcop_tpu_torch.serving.service",
+    "pydcop_tpu_torch.serving.http",
+    "pydcop_tpu_torch.engine.aotcache",
+    "pydcop_tpu_torch.commands.serve",
+    "pydcop_tpu_torch.commands.debug",
 ]
 
 
@@ -146,7 +165,8 @@ SOURCES = sorted(
        REPO / "tests" / "test_torch_gpu_localsearch.py",
        REPO / "tests" / "test_torch_gpu_dpop.py",
        REPO / "tests" / "test_torch_gpu_dynamic.py",
-       REPO / "tests" / "test_torch_gpu_batch.py"]
+       REPO / "tests" / "test_torch_gpu_batch.py",
+       REPO / "tests" / "test_torch_gpu_serve.py"]
 )
 
 
