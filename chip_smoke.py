@@ -89,7 +89,19 @@ SSE, journal recovery after a stop without drain, and a dpop request —
 every answer equal to its solo card solve (the mixed stream's to the
 CPU's too, the session to a CPU session's), the pipelined, envelope and
 lane dispatch counts and the kernels' launches non-zero, and
-problems/s, p50/p99 and seconds on lines of their own.
+problems/s, p50/p99 and seconds on lines of their own.  The
+partitioned slice adds ``sharded``: ``ShardedMaxSumEngine`` on meshes
+naming the card 2, 4 and 8 times, each equal to the same engine on the
+CPU after every cycle (every message, count, the halo slot and the
+values), the S = 4 flagship run with its launch counts, ms a cycle
+beside the unsharded engine, the 1M-variable scale arrays at S = 4
+card = CPU, ``csrc/halo_sum.cu`` and ``segment_sum.cu``'s subset entry
+bit for bit against their plain versions (subnormals included) timed
+beside their bounds and ``torch.sum`` / ``index_add_``, one
+``trip_shard`` recovery card = CPU, and ``api.solve(shards=)`` above
+the card count refused; its S = 4 profile is taken in a fresh process,
+``python3 chip_smoke.py --shard-profile``, held to the launch counters
+of its run.
 Each phase prints one JSON line (with ``t_s``, the seconds since the
 start); any failure raises and the
 script exits non-zero without the final line.  On success the last
@@ -114,6 +126,7 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12      # HBM3 rate of one H100 SXM
 H100_F32_OPS_PER_S = 67e12      # f32 peak outside the tensor cores
+H100_L2_BYTES = 50 * 2 ** 20     # one H100 SXM's L2
 BIG = np.float32(1e9)
 FLAGSHIP_VARS = 10_000
 N_COLORS = 3
@@ -236,10 +249,11 @@ def profile_cycles(torch, run, cycles: int, counts=None):
     With ``counts`` (``_build.launch_counts``), the counts are set to 0
     after the warm run and the profiled run's are returned too, beside
     the launches the profile saw of the port's own kernels (the CUDA
-    rows of kernels declared in an anonymous namespace, ``void
-    (anonymous namespace)::name<...>(...)``; torch's kernels are
-    ``at::native`` ones, whose template arguments may name anonymous
-    namespaces)."""
+    rows of kernels declared in an anonymous namespace: ``void
+    (anonymous namespace)::name<...>(...)`` for a template, ``(anonymous
+    namespace)::name(...)``, with no return type, for a plain function;
+    torch's kernels are ``at::native`` ones, whose template arguments may
+    name anonymous namespaces)."""
     from torch.profiler import ProfilerActivity, profile
 
     run(cycles)   # warm
@@ -266,7 +280,8 @@ def profile_cycles(torch, run, cycles: int, counts=None):
         "launches": dict(counts),
         "own_kernel_launches": sum(
             e.count for e in events
-            if e.key.startswith("void (anonymous namespace)::"))}
+            if e.key.startswith(("void (anonymous namespace)::",
+                                 "(anonymous namespace)::")))}
     return extra | {
         "cycles": cycles,
         "wall_ms_per_cycle": wall / cycles * 1e3,
@@ -1990,10 +2005,16 @@ BEST_CHOICE_DENSITIES = [0.0, 0.1, 0.4, 0.9, 1.0]
 # dynamic phases were added: cut to make room for them; their CPU runs
 # are most of the phase).  DBA's CSP must stop before it (at 121).
 LS_CYCLES = 130
+# ... and those of the other algorithms' solves (LS_CYCLES until the
+# partitioned slice's phase was added: cut to keep the script well
+# inside its time limit on a slow host; MGM2's and ADSA's CPU runs were
+# 70 of the phase's 129 s of CPU solves).
+LS_CHECK_CYCLES = 60
 # The flagship ops loop is timed over this many cycles and profiled over
 # LS_PROFILE_CYCLES (200 and 20 before the exact slice's phases were
-# added: cut to make room for them); the solves still run LS_CYCLES, and
-# a second card solve repeats the first case of each algorithm only.
+# added: cut to make room for them); the solves run LS_CHECK_CYCLES
+# (DBA LS_CYCLES), and a second card solve repeats the first case of
+# each algorithm only.
 LS_TIMED_CYCLES = 50
 LS_PROFILE_CYCLES = 10
 # 30 until the batch and lane slice, 20 until the lane kernels slice.
@@ -2541,9 +2562,9 @@ def phase_localsearch_flagship(ctx):
     repeated = set()
     for label, algo, params, problem in LS_CASES:
         dcop = problems[problem]
+        cycles = LS_CYCLES if algo == "dba" else LS_CHECK_CYCLES
         _build.launch_counts.clear()
-        res = api.solve(dcop, algo, max_cycles=LS_CYCLES,
-                        algo_params=params)
+        res = api.solve(dcop, algo, max_cycles=cycles, algo_params=params)
         launches = ls_launch_counts(_build)
         if main_launches is None:
             main_launches = dict(launches)
@@ -2553,9 +2574,9 @@ def phase_localsearch_flagship(ctx):
         if algo not in repeated:
             repeated.add(algo)
             others.append(("second card run", api.solve(
-                dcop, algo, max_cycles=LS_CYCLES, algo_params=params)))
-        cpu = api.solve(dcop, algo, max_cycles=LS_CYCLES,
-                        algo_params=params, device="cpu")
+                dcop, algo, max_cycles=cycles, algo_params=params)))
+        cpu = api.solve(dcop, algo, max_cycles=cycles, algo_params=params,
+                        device="cpu")
         others.append(("CPU run", cpu))
         for name, other in others:
             if (other["assignment"] != res["assignment"]
@@ -2612,7 +2633,8 @@ def phase_localsearch_flagship(ctx):
         if "n_classes" in res["metrics"]:
             rows[label]["n_classes"] = res["metrics"]["n_classes"]
         del graph
-    return {"n_vars": FLAGSHIP_VARS, "cycles": LS_CYCLES, "runs": rows,
+    return {"n_vars": FLAGSHIP_VARS, "cycles": LS_CHECK_CYCLES,
+            "dba_cycles": LS_CYCLES, "runs": rows,
             "main_path_launches": main_launches}
 
 
@@ -4483,6 +4505,52 @@ def lane_profiles() -> int:
     return 0
 
 
+def shard_profile() -> int:
+    """``--shard-profile``: the sharded phase's profile, run by it in a
+    fresh process.  torch.profiler over SHARD_PROFILE_CYCLES fixed
+    cycles of the flagship through ShardedMaxSumEngine on a mesh naming
+    the card SHARD_MAIN times; the profile's launches of the port's
+    kernels held equal to the launch counters of the same run (a profile
+    that missed one fails).  Prints the profile as one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    from pydcop_tpu_torch.algorithms import AlgorithmDef
+    from pydcop_tpu_torch.dcop import dcop as dcop_mod
+    from pydcop_tpu_torch.dcop import objects, relations
+    from pydcop_tpu_torch.engine.compile import compile_dcop
+    from pydcop_tpu_torch.engine.runner import ShardedMaxSumEngine
+    from pydcop_tpu_torch.engine.sharding import make_mesh
+    from pydcop_tpu_torch.ops import _build
+
+    _build.build(_build.kernel_names())   # built by the parent already
+    dcop = build_flagship(objects, relations, dcop_mod, FLAGSHIP_VARS)
+    params = AlgorithmDef.build_with_default_param("maxsum").params
+    graph, meta = compile_dcop(dcop, noise_level=params.get("noise", 0.01))
+    eng = ShardedMaxSumEngine(
+        graph, meta, mesh=make_mesh(devices=["cuda"] * SHARD_MAIN),
+        device="cuda", damping=params.get("damping", 0.5),
+        damping_nodes=params.get("damping_nodes", "both"),
+        stability=params.get("stability", 0.1))
+
+    def run(n):
+        eng.run(n, stop_on_convergence=False)
+        torch.cuda.synchronize()
+
+    prof = profile_cycles(torch, run, SHARD_PROFILE_CYCLES,
+                          _build.launch_counts)
+    want = sum(n * DEVICE_LAUNCHES.get(k, 1)
+               for k, n in prof["launches"].items())
+    if prof["own_kernel_launches"] != want:
+        fail(f"shard profile saw {prof['own_kernel_launches']} launches "
+             f"of the port's kernels, the counters {prof['launches']} "
+             f"make {want}")
+    print(json.dumps(prof), flush=True)
+    return 0
+
+
 def phase_batch_stacked(ctx):
     """solve_maxsum_batch over BATCH_MEMBERS instances of
     build_dcop_small(10_000, seed), seeds from 0, 200 cycles, as ONE
@@ -5126,6 +5194,392 @@ def phase_serve(ctx):
             for k, v in stats.items()})
 
 
+SHARD_COUNTS = (2, 4, 8)     # meshes naming the one card S times
+SHARD_MAIN = 4               # the sharded path the kernel line reports
+SHARD_COMPARE_CYCLES = 8     # flagship: card = CPU after every cycle
+SHARD_TIMED_CYCLES = 40      # ms a cycle, sharded and unsharded
+SHARD_PROFILE_CYCLES = 10
+SHARD_SCALE = 4              # the 1M-variable scale arrays' shard count
+SHARD_SCALE_CYCLES = 3       # scale: card = CPU after every cycle
+SHARD_TRIP = ((20, 1),)      # trip_shard: lose shard 1 at cycle 20
+SHARD_TRIP_CYCLES = 60
+SHARD_TRIP_SEGMENT = 10
+
+
+def halo_sum_bound(s: int, b: int, d: int):
+    """(bound_ms, bound_by) of halo_sum: the S partials read once and
+    the totals written once, against one add per partial element."""
+    bytes_moved = 4 * (s * b * d + b * d)
+    ops = s * b * d
+    bytes_ms = bytes_moved / H100_BYTES_PER_S * 1e3
+    ops_ms = ops / H100_F32_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
+def subset_bound(n_edges: int, n_seg: int, d: int):
+    """(bound_ms, bound_by) of a shard's boundary partial: the gathered
+    edges' messages, perm and offsets read once, the [B, D] sums written
+    once, against one add per edge element.  The reused segment_sum
+    entry also reads a [B, D] zero cost operand and writes a [B, D]
+    beliefs output that subset_sum drops; neither is the function's
+    work, so neither is in the bound."""
+    bytes_moved = 4 * (n_edges * d + n_edges + (n_seg + 1) + n_seg * d)
+    ops = n_edges * d
+    bytes_ms = bytes_moved / H100_BYTES_PER_S * 1e3
+    ops_ms = ops / H100_F32_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
+def halo_partials(torch, s: int, b: int, d: int, seed: int,
+                  subnormal: bool = False, card: str = "cuda"):
+    """Drawn [S, B, D] partials on the card: seven decades, signed zeros
+    on every 13th row, or (``subnormal``) values around float32's
+    smallest normal, half of them subnormal."""
+    rng = np.random.default_rng(seed)
+    if subnormal:
+        x = (rng.choice([-1.0, 1.0], size=(s, b, d))
+             * rng.uniform(0.25, 2.0, size=(s, b, d)) * FLT_MIN)
+    else:
+        x = rng.normal(size=(s, b, d)) * 10.0 ** rng.integers(
+            -3, 4, size=(s, b, d))
+    x = x.astype(np.float32)
+    x[:, ::13] = -0.0
+    return torch.tensor(x, device=card)
+
+
+def halo_sum_check(torch, hs, label: str, s: int, b: int, d: int,
+                   seed: int, card: str = "cuda"):
+    """halo_sum on the card bit for bit against its plain version at one
+    [S, B, D] shape (drawn and subnormal partials; the stacked tensor
+    and the S separate tensors), then timed beside its bound and
+    ``torch.sum(stacked, 0)`` (not on the CPU rehearsal)."""
+    err = 0.0
+    for sub in (False, True):
+        parts = halo_partials(torch, s, b, d, seed, sub, card)
+        got = hs.halo_sum(parts)
+        want = hs.halo_sum_reference(parts)
+        listed = hs.halo_sum(list(parts.unbind(0)))
+        for out in (got, listed):
+            if b:
+                err = max(err, float((out - want).abs().max()))
+            if not np.array_equal(out.cpu().numpy().view(np.int32),
+                                  want.cpu().numpy().view(np.int32)):
+                fail(f"halo_sum kernel != plain at {label} [S={s}, "
+                     f"B={b}, D={d}] subnormal={sub}")
+    bound_ms, bound_by = halo_sum_bound(s, b, d)
+    if card != "cuda":
+        return dict(S=s, B=b, D=d, max_abs_err=err, ms="not measured",
+                    bound_ms=bound_ms, bound_by=bound_by)
+    # The bound is HBM's, so the timed calls rotate over enough input
+    # sets to spill the L2 (at least 4x its size where ``reps`` calls
+    # allow): one set replayed would be read from the L2.
+    reps = 200 if b < 100_000 else 50
+    set_bytes = 4 * s * b * d
+    n_sets = min(reps, max(1, -(-4 * H100_L2_BYTES // set_bytes)))
+    sets = [halo_partials(torch, s, b, d, seed + 1 + i)
+            for i in range(n_sets)]
+
+    def rotating(fn):
+        turn = [0]
+
+        def call():
+            parts = sets[turn[0] % n_sets]
+            turn[0] += 1
+            return fn(parts)
+        return call
+
+    k_ms, p_ms, l_ms = (graph_ms(torch, rotating(fn), reps) for fn in (
+        hs.halo_sum, hs.halo_sum_reference, lambda p: torch.sum(p, 0)))
+    del sets
+    return dict(S=s, B=b, D=d, ms=k_ms[2], plain_ms=p_ms[2],
+                library_ms=l_ms[2], ms_spread=[k_ms[0], k_ms[-1]],
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                timed_input_sets=n_sets,
+                timed_input_mb=n_sets * set_bytes / 2 ** 20,
+                tolerance="exact (int32 views equal)")
+
+
+def subset_sum_check(torch, seg_mod, sh, f2v, n_bnd: int, d: int,
+                     card: str = "cuda"):
+    """The boundary partial (segment_sum.cu's subset entry) of one shard
+    bit for bit against its plain version on CPU copies, timed beside its
+    bound and ``index_add_`` over the gathered edges."""
+    args = (sh.part_perm, sh.part_offsets, sh.part_tiles, sh.part_zeros)
+    got = seg_mod.subset_sum(f2v, *args)
+    want = seg_mod.subset_sum([m.cpu() for m in f2v],
+                              *(a.cpu() for a in args))
+    err = float((got.cpu() - want).abs().max()) if n_bnd else 0.0
+    if not np.array_equal(got.cpu().numpy().view(np.int32),
+                          want.numpy().view(np.int32)):
+        fail("segment_sum subset entry != plain on the flagship shard")
+    if card != "cuda":
+        return dict(B=n_bnd, D=d, max_abs_err=err, ms="not measured")
+    flat = torch.cat([m.reshape(-1, d) for m in f2v])
+    edges = sh.part_perm.to(torch.int64)
+    counts = sh.part_offsets[1:] - sh.part_offsets[:-1]
+    seg = torch.repeat_interleave(torch.arange(n_bnd, device="cuda"),
+                                  counts.to(torch.int64))
+
+    def library():
+        # One call, atomics in no fixed order: yardstick only.
+        return torch.zeros((n_bnd, d), device="cuda").index_add_(
+            0, seg, flat[edges])
+
+    k_ms, l_ms = (graph_ms(torch, fn, 200) for fn in (
+        lambda: seg_mod.subset_sum(f2v, *args), library))
+    cpu_f2v = [m.cpu() for m in f2v]
+    cpu_args = tuple(a.cpu() for a in args)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        seg_mod.subset_sum(cpu_f2v, *cpu_args)
+    plain_ms = (time.perf_counter() - t0) / 3 * 1e3
+    n_edges = int(edges.shape[0])
+    bound_ms, bound_by = subset_bound(n_edges, n_bnd, d)
+    return dict(Eb=n_edges, B=n_bnd, D=d, ms=k_ms[2], max_abs_err=err,
+                tolerance="exact (int32 views equal)",
+                ms_spread=[k_ms[0], k_ms[-1]], plain_ms=plain_ms,
+                plain_on="cpu (the plain walk reads the host)",
+                library_ms=l_ms[2], bound_ms=bound_ms, bound_by=bound_by,
+                beyond_bound="the kernel also reads [B, D] zeros and "
+                "writes [B, D] beliefs that subset_sum drops")
+
+
+def sharded_compare(ctx, card_ops, card_graph, cpu_ops, cpu_graph,
+                    cycles: int, label: str, card: str = "cuda"):
+    """Run the card's and the CPU's partitioned layouts one cycle at a
+    time from zero messages; every leaf of the state (messages, counts,
+    the halo slot, stable, cycle) and the values equal bit for bit after
+    each cycle.  Returns the card's final state."""
+    from pydcop_tpu_torch.utils.tree import tree_leaves
+
+    kw = dict(ctx["kw"], stop_on_convergence=False)
+    cs, ps = card_ops.init_state(card_graph), cpu_ops.init_state(cpu_graph)
+    for c in range(cycles):
+        cs, cv = card_ops.run_maxsum_from(card_graph, cs, 1, **kw)
+        ps, pv = cpu_ops.run_maxsum_from(cpu_graph, ps, 1, **kw)
+        if cs.f2v[0].device.type != card:
+            fail(f"{label}: the card's state is not on the card")
+        for i, (a, b) in enumerate(zip(tree_leaves(cs), tree_leaves(ps))):
+            a, b = a.cpu().numpy(), b.cpu().numpy()
+            if (a.dtype != b.dtype or a.shape != b.shape
+                    or a.tobytes() != b.tobytes()):
+                fail(f"{label}: card != CPU after cycle {c + 1} in leaf "
+                     f"{i} of the state")
+        if not np.array_equal(cv.cpu().numpy(), pv.numpy()):
+            fail(f"{label}: card values != CPU after cycle {c + 1}")
+    return cs
+
+
+def phase_sharded(ctx, card="cuda"):
+    """The partitioned engine on the card: ``ShardedMaxSumEngine`` on a
+    mesh naming the one card 2, 4 and 8 times (the entry point a user
+    calls on one card; ``api.solve(shards=)`` counts real cards and
+    raises here, as the reference does past its device count), each
+    equal to the same engine on the CPU after every cycle; the S = 4
+    flagship run with the launch counts set to 0 just before it; ms a
+    cycle beside the unsharded edge engine; the 1M-variable scale arrays
+    at S = 4, card = CPU after every cycle; halo_sum.cu and the
+    boundary partial against their plain versions, timed; one
+    trip_shard recovery, card = CPU.  ``card="cpu"`` rehearses the phase
+    on the CPU (the CPU against itself, nothing timed)."""
+    torch, _build = ctx["torch"], ctx["_build"]
+    from pydcop_tpu_torch.engine.compile import (
+        CompiledFactorGraph,
+        FactorBucket,
+        compile_dcop,
+    )
+    from pydcop_tpu_torch.engine.partition import partition_compiled
+    from pydcop_tpu_torch.engine.runner import ShardedMaxSumEngine
+    from pydcop_tpu_torch.engine.sharding import (
+        ShardOps,
+        make_mesh,
+        partitioned_layout,
+        place_partitioned,
+    )
+    from pydcop_tpu_torch.ops import halo_sum as hs
+    from pydcop_tpu_torch.ops import segment_sum as seg_mod
+    from pydcop_tpu_torch.resilience.recovery import RecoveryPolicy
+
+    t_phase = time.perf_counter()
+    dcop, params = ctx["dcop"], ctx["params"]
+    graph, meta = compile_dcop(dcop, noise_level=params.get("noise", 0.01))
+    kw = dict(damping=params.get("damping", 0.5),
+              damping_nodes=params.get("damping_nodes", "both"),
+              stability=params.get("stability", 0.1))
+    out = {"flagship": {}, "halo_sum_timing": {}}
+    engines = {}
+    timed = card == "cuda"
+    sync = torch.cuda.synchronize if timed else (lambda: None)
+    for s in SHARD_COUNTS:
+        eng = ShardedMaxSumEngine(
+            graph, meta, mesh=make_mesh(devices=[card] * s), device=card,
+            **kw)
+        cpu = ShardedMaxSumEngine(
+            graph, meta, mesh=make_mesh(devices=["cpu"] * s),
+            device="cpu", **kw)
+        if eng.graph.n_boundary == 0:
+            fail(f"flagship at S={s} has no boundary to exchange")
+        sharded_compare(ctx, eng._ops, eng.graph, cpu._ops, cpu.graph,
+                        SHARD_COMPARE_CYCLES, f"flagship S={s}", card)
+        m = eng.extra_metrics
+        out["flagship"][f"S{s}"] = dict(
+            bit_equal_cycles=SHARD_COMPARE_CYCLES,
+            boundary_vars=m["boundary_vars"],
+            edge_cut_fraction=m["edge_cut_fraction"],
+            halo_exchange_bytes_per_superstep=m[
+                "halo_exchange_bytes_per_superstep"],
+            replicated_allreduce_bytes_per_superstep=m[
+                "replicated_allreduce_bytes_per_superstep"],
+            local_rows=list(eng.graph.var_costs.shape[:2]))
+        out["halo_sum_timing"][f"flagship_S{s}"] = halo_sum_check(
+            torch, hs, f"flagship S={s}", s, eng.graph.n_boundary,
+            N_COLORS, seed=300 + s, card=card)
+        engines[s] = (eng, cpu)
+
+    # The main path of this slice: the S = 4 flagship run, the launch
+    # counts set to 0 just before it and read just after.
+    eng, cpu = engines[SHARD_MAIN]
+    eng.run(3, stop_on_convergence=False)
+    sync()
+    _build.launch_counts.clear()
+    res = eng.run(SHARD_TIMED_CYCLES, stop_on_convergence=False)
+    launches = dict(_build.launch_counts)
+    n, s = SHARD_TIMED_CYCLES, SHARD_MAIN
+    want = {"binary_factor_update": s * n, "segment_sum": s * (n + 1),
+            "var_update": 2 * s * n, seg_mod.HALO: s * n, "halo_sum": n}
+    if timed and launches != want:
+        fail(f"sharded path launched {launches}, expected {want}")
+    ref = cpu.run(SHARD_TIMED_CYCLES, stop_on_convergence=False)
+    if (res.assignment, res.cycles, res.converged) != (
+            ref.assignment, ref.cycles, ref.converged):
+        fail("sharded flagship run: card != CPU")
+    cost, _ = dcop.solution_cost(res.assignment)
+    if not np.isfinite(cost):
+        fail(f"sharded flagship run: non-finite cost {cost}")
+    out["main"] = dict(shards=s, cycles=res.cycles, cost=cost,
+                       cpu_equal=True, launches=launches,
+                       launches_per_cycle={k: v / n for k, v in
+                                           launches.items()})
+
+    # ms a cycle: every mesh beside the unsharded edge engine, one call.
+    ms = {}
+    if timed:
+        plain = ctx["engine"]
+        ms["unsharded"] = ms_per_cycle(
+            torch, lambda c: plain.run(c, stop_on_convergence=False),
+            SHARD_TIMED_CYCLES)
+        for s_, (e_, _) in engines.items():
+            ms[f"S{s_}"] = ms_per_cycle(
+                torch, lambda c, e=e_: e.run(c, stop_on_convergence=False),
+                SHARD_TIMED_CYCLES)
+        # The profile, in a fresh process (a profiler session late in
+        # this long one drops device events); the child holds its
+        # launches of the port's kernels to the launch counters.
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--shard-profile"],
+            cwd=HERE, capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            fail(f"shard profile (exit {proc.returncode}): "
+                 f"{proc.stderr[-2000:]}")
+        out["profile_S4"] = json.loads(
+            proc.stdout.strip().splitlines()[-1])
+    out["ms_per_cycle"] = ms
+
+    # The boundary partial of shard 0 at the main path's shapes.
+    state, _ = eng._ops.run_maxsum_from(
+        eng.graph, eng.init_state(), 5, stop_on_convergence=False,
+        damping=eng.damping)
+    sh = eng.graph.shards[0]
+    out["subset_sum_timing"] = subset_sum_check(
+        torch, seg_mod, sh, tuple(m[0] for m in state.f2v),
+        eng.graph.n_boundary, N_COLORS, card)
+    del state
+
+    # One shard loss on the card: the same assignment and cost as the
+    # CPU's recovery.
+    trip = {}
+    for label, eng_dev in (("card", card), ("cpu", "cpu")):
+        tripped = ShardedMaxSumEngine(
+            graph, meta, mesh=make_mesh(devices=[eng_dev] * SHARD_MAIN),
+            device=eng_dev, **kw)
+        r = tripped.run_checkpointed(
+            max_cycles=SHARD_TRIP_CYCLES, segment_cycles=SHARD_TRIP_SEGMENT,
+            recovery=RecoveryPolicy(trip_shard=SHARD_TRIP))
+        trip[label] = (r.assignment, r.cycles, r.metrics["n_shards"],
+                       r.metrics["lost_shards"], r.metrics["shard_losses"])
+        if label == "card":
+            trip_s = r.time_s
+            trip_recovery_s = r.metrics["shard_recovery_s"]
+            layout_dev = tripped.graph.shards[0].graph.var_costs.device
+            if layout_dev.type != card:
+                fail("trip_shard: the surviving layout is not on the card")
+    if trip["card"] != trip["cpu"]:
+        fail(f"trip_shard on the card != CPU: {trip['card'][1:]} vs "
+             f"{trip['cpu'][1:]}")
+    trip_cost, _ = dcop.solution_cost(trip["card"][0])
+    out["trip_shard"] = dict(
+        trips=[list(t) for t in SHARD_TRIP], cycles=trip["card"][1],
+        n_shards_after=trip["card"][2], lost_shards=trip["card"][3],
+        cost=trip_cost, cpu_equal=True, time_s=trip_s,
+        shard_recovery_s=trip_recovery_s)
+
+    # api.solve(shards=) counts the machine's cards, as the reference
+    # counts its devices: above that it raises, never falls back.
+    n_cards = torch.cuda.device_count() if timed else 8
+    try:
+        ctx["api"].solve(dcop, "maxsum", max_cycles=5, shards=n_cards + 1,
+                         device=card)
+    except ValueError as exc:
+        out["api_solve_above_card_count"] = f"raises: {str(exc)[:80]}"
+    else:
+        fail(f"api.solve(shards={n_cards + 1}) ran on {n_cards} card(s)")
+    del engines, eng, cpu, tripped
+
+    # The scale arrays at S = 4: one partition, placed on the card and on
+    # the CPU, equal after every cycle.
+    var_costs, var_valid, buckets = scale_arrays(SCALE_VARS)
+    host = CompiledFactorGraph(var_costs, var_valid, tuple(
+        FactorBucket(c, ids) for c, ids in buckets))
+    del var_costs, var_valid, buckets
+    t0 = time.perf_counter()
+    part = partition_compiled(host, SHARD_SCALE, use_cache=False)
+    layout, metrics = partitioned_layout(host, part, SHARD_SCALE)
+    partition_s = time.perf_counter() - t0
+    meshes = {dev: make_mesh(devices=[dev] * SHARD_SCALE)
+              for dev in (card, "cpu")}
+    card_graph = place_partitioned(layout, meshes[card])
+    cpu_graph = place_partitioned(layout, meshes["cpu"])
+    card_ops = ShardOps(meshes[card], SCALE_VARS)
+    cpu_ops = ShardOps(meshes["cpu"], SCALE_VARS)
+    t0 = time.perf_counter()
+    sharded_compare(ctx, card_ops, card_graph, cpu_ops, cpu_graph,
+                    SHARD_SCALE_CYCLES, f"scale S={SHARD_SCALE}", card)
+    compare_s = time.perf_counter() - t0
+    scale_kw = dict(ctx["kw"], stop_on_convergence=False)
+    scale_ms = ms_per_cycle(torch, lambda c: card_ops.run_maxsum(
+        card_graph, c, **scale_kw), SHARD_SCALE_CYCLES) if timed \
+        else "not measured"
+    out["scale"] = dict(
+        n_vars=SCALE_VARS, shards=SHARD_SCALE,
+        bit_equal_cycles=SHARD_SCALE_CYCLES,
+        boundary_vars=metrics["boundary_vars"],
+        edge_cut_fraction=metrics["edge_cut_fraction"],
+        halo_exchange_bytes_per_superstep=metrics[
+            "halo_exchange_bytes_per_superstep"],
+        local_rows=list(layout.var_costs.shape[:2]),
+        partition_s=partition_s, compare_s=compare_s,
+        ms_per_cycle=scale_ms,
+        unsharded_ms_per_cycle=ctx.get("scale_ms_per_cycle"))
+    out["halo_sum_timing"][f"scale_S{SHARD_SCALE}"] = halo_sum_check(
+        torch, hs, f"scale S={SHARD_SCALE}", SHARD_SCALE,
+        layout.n_boundary, N_COLORS, seed=400, card=card)
+    del card_graph, cpu_graph, layout, host
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5651,6 +6105,19 @@ def main() -> int:
          pipelined_share=serve["pipelined_share"])
     new_paths["serve"] = serve["launches"]
 
+    # 15. The partitioned slice: ShardedMaxSumEngine on meshes naming
+    # the card 2, 4 and 8 times (card = CPU after every cycle), the
+    # S = 4 flagship path with the launch counts set to 0 just before it
+    # and read just after, the scale arrays at S = 4, halo_sum.cu and the
+    # boundary partial against their plain versions, a trip_shard run.
+    ctx["scale_ms_per_cycle"] = scale_s / SCALE_CYCLES * 1e3
+    sharded = phase_sharded(ctx)
+    emit("sharded", **sharded)
+    emit("sharded_ms_per_cycle", card=smi, **sharded["ms_per_cycle"],
+         scale_S4=sharded["scale"]["ms_per_cycle"],
+         scale_unsharded=sharded["scale"]["unsharded_ms_per_cycle"])
+    new_paths["sharded"] = sharded["main"]["launches"]
+
     # 7. Fixture parity: the verify oracle.
     fixture = os.path.join(HERE, "tests", "instances", "coloring_12_3.yml")
     fres = api.solve(load_dcop_from_file(fixture), "maxsum", max_cycles=60)
@@ -5789,7 +6256,37 @@ def main() -> int:
             "shapes": {label: {k: row[k] for k in keys if k in row}
                        for label, row in timing[name].items()
                        if label != "flagship"}})
+    main_halo = sharded["halo_sum_timing"][f"flagship_S{SHARD_MAIN}"]
+    rows.append({
+        "name": "halo_sum", "route": "cuda",
+        "source": "pydcop_tpu_torch/csrc/halo_sum.cu",
+        "replaces": "pydcop_tpu/engine/sharding.py:426",
+        "launches": sharded["main"]["launches"]["halo_sum"],
+        "max_abs_err": max(row["max_abs_err"] for row in
+                           sharded["halo_sum_timing"].values()),
+        "ms": main_halo["ms"],
+        "plain_ms": main_halo["plain_ms"], "bound_ms": main_halo["bound_ms"],
+        "bound_by": main_halo["bound_by"],
+        "library_ms": main_halo["library_ms"],
+        "timed_input_mb": main_halo["timed_input_mb"],
+        "shapes": {label: {k: row[k] for k in (
+            "S", "B", "D", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "timed_input_mb")}
+            for label, row in sharded["halo_sum_timing"].items()
+            if label != f"flagship_S{SHARD_MAIN}"}})
+    sub = sharded["subset_sum_timing"]
+    rows.append({
+        "name": "segment_sum: halo", "route": "cuda",
+        "source": "pydcop_tpu_torch/csrc/segment_sum.cu",
+        "replaces": "pydcop_tpu/engine/sharding.py:439",
+        "launches": sharded["main"]["launches"][seg_mod.HALO],
+        "max_abs_err": sub["max_abs_err"], "ms": sub["ms"],
+        "plain_ms": sub["plain_ms"],
+        "bound_ms": sub["bound_ms"], "bound_by": sub["bound_by"],
+        "library_ms": sub["library_ms"],
+        "beyond_bound": sub.get("beyond_bound"), "shapes": {}})
     counter_of = {
+        "halo_sum": "halo_sum", "segment_sum: halo": seg_mod.HALO,
         "binary_factor_update: lane": LANE, "lane_sum": LANE_SUM,
         "lane_var_update: v2f": V2F, "lane_var_update: send": SEND,
         "binary_factor_update": "binary_factor_update",
@@ -5827,5 +6324,6 @@ def run() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(lane_profiles() if sys.argv[1:] == ["--lane-profiles"]
-             else run())
+    sys.exit({"--lane-profiles": lane_profiles,
+              "--shard-profile": shard_profile}.get(
+                  " ".join(sys.argv[1:]), run)())

@@ -16,6 +16,10 @@ from pydcop_tpu_torch.engine.runner import DeviceRunResult
 
 algo_params = list(_maxsum.algo_params)
 
+# Same engine as maxsum, so partitioned sharding (shards=) comes
+# through the shared build_engine.
+SUPPORTS_SHARDS = True
+
 
 def solve_on_device(dcop: DCOP, algo_def: AlgorithmDef,
                     max_cycles: int = 1000, mesh=None,

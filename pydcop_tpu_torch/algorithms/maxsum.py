@@ -2,8 +2,9 @@
 
 Port of the device path of ``pydcop_tpu/algorithms/maxsum.py``.  The
 parameters are declared exactly as the reference declares them, so a
-parameter set valid there is valid here; the ones whose machinery is
-not ported yet (multi-device runs and partitioned shards) raise
+parameter set valid there is valid here.  ``shards=N`` runs the
+partitioned engine (``engine/sharding.py``); the replicated-variable
+mesh (``mesh``/``n_devices``) is not ported yet and raises
 ``NotImplementedError`` instead of being silently ignored.
 ``layout="lane"`` runs the lane-major ops (``ops/maxsum_lane.py``).
 ``aggregation="auto"`` measures the strategies on the compiled graph
@@ -28,9 +29,13 @@ from pydcop_tpu_torch.engine.runner import (
     DecimationPlan,
     DeviceRunResult,
     MaxSumEngine,
+    ShardedMaxSumEngine,
 )
 
 STABILITY_COEFF = 0.1
+
+# The partitioned engine (shards=) runs this algorithm.
+SUPPORTS_SHARDS = True
 
 algo_params = [
     AlgoParameterDef("damping", "float", None, 0.5),
@@ -106,14 +111,46 @@ def build_engine(dcop: DCOP, params: dict, mesh=None,
     otherwise it compiles with scatter, measures the strategies on the
     compiled graph on ``device`` (``engine/autotune.py``) and swaps in
     the winner's arrays.  Either way the engine's results report the
-    decision in their metrics."""
+    decision in their metrics.
+
+    ``shards=N`` (N >= 2) builds the PARTITIONED engine
+    (:class:`ShardedMaxSumEngine` on ``multihost.partitioned_mesh``):
+    a min-edge-cut partition assigns variables and factors to shards
+    and only cut-edge (halo) state crosses shards per superstep.  It
+    refuses, in the reference's order, ``mesh``/``n_devices``, the
+    lane layout, decimation and a non-scatter aggregation."""
     if shards is not None and shards > 1:
+        if mesh is not None or n_devices:
+            raise ValueError(
+                "shards= (partitioned engine) and mesh=/n_devices= "
+                "(replicated sharding) are mutually exclusive")
         if params.get("layout", "edge") == "lane":
             raise ValueError(
                 "layout='lane' is single-device; the partitioned "
                 "engine uses the edge layout")
-        raise NotImplementedError(
-            "partitioned sharding (shards=) is not ported yet")
+        if decimation_plan_from_params(params) is not None:
+            raise ValueError(
+                "decimation clamps the single-device var_costs "
+                "table; run without shards=")
+        # The partitioned superstep aggregates locally with scatter:
+        # the mesh aggregation policy (auto -> scatter, anything else
+        # refused).
+        aggregation = validated_aggregation(params, max(shards, 2))
+        from pydcop_tpu_torch.engine.multihost import partitioned_mesh
+
+        graph, meta = compile_dcop(
+            dcop, noise_level=params.get("noise", 0.01),
+            aggregation=aggregation,
+        )
+        return ShardedMaxSumEngine(
+            graph, meta,
+            mesh=partitioned_mesh(shards, device),
+            damping=params.get("damping", 0.5),
+            damping_nodes=params.get("damping_nodes", "both"),
+            stability=params.get("stability", STABILITY_COEFF),
+            prune=bool(params.get("prune", False)),
+            device=device,
+        )
     pad_to = 1
     if mesh is not None:
         pad_to = mesh.size

@@ -12,6 +12,10 @@ from pydcop_tpu_torch.dcop.objects import ExternalVariable
 
 algo_params = _maxsum.algo_params
 
+# Delegates to the maxsum engine after slicing externals, so the
+# partitioned-sharding knob (shards=) flows through **kwargs.
+SUPPORTS_SHARDS = True
+
 
 def _slice_externals(dcop: DCOP) -> DCOP:
     """DCOP with every external variable frozen at its current value:

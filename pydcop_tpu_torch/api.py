@@ -37,6 +37,8 @@ class SolveResult(dict):
 def solve(dcop: DCOP, algo_def: Union[str, AlgorithmDef],
           max_cycles: int = 1000,
           algo_params: Optional[Dict[str, Any]] = None,
+          mesh=None, n_devices: Optional[int] = None,
+          shards: Optional[int] = None,
           warmup: bool = False,
           checkpoint_dir: Optional[str] = None,
           checkpoint_every: Optional[int] = None,
@@ -93,11 +95,25 @@ def solve(dcop: DCOP, algo_def: Union[str, AlgorithmDef],
     ``warmup=True`` keeps the plain path, traced but without curves.
     All default off and cost nothing while off.
 
+    Scaling knobs: ``shards=N`` runs the maxsum family on the
+    PARTITIONED engine (a min-edge-cut partition over N devices of
+    ``device``'s kind, only the cut edges' halo exchanged per
+    superstep; ``engine/sharding.py``).  More shards than the machine
+    has devices raises (on the CPU the count is the reference's:
+    ``XLA_FLAGS=--xla_force_host_platform_device_count=N``).  The
+    replicated-variable mesh (``mesh``, ``n_devices > 1``) is not
+    ported yet and raises ``NotImplementedError`` (ROADMAP.md Queue A
+    item 6(b)).
+
     ``algo_def="auto"`` picks the algorithm with the portfolio racer
     (``engine/autotune.py``): a stored decision for the DCOP's shape is
     replayed before compiling, else the candidates race on the compiled
     graph on ``device``; ``metrics["portfolio"]`` says which and how."""
     resolve_device(device)
+    if mesh is not None or (n_devices is not None and n_devices > 1):
+        from pydcop_tpu_torch.engine.sharding import REPLICATED_NOT_PORTED
+
+        raise NotImplementedError(REPLICATED_NOT_PORTED)
     portfolio_info = None
     if isinstance(algo_def, str) and algo_def == "auto":
         algo_def, portfolio_info = _resolve_auto_algo(
@@ -112,6 +128,12 @@ def solve(dcop: DCOP, algo_def: Union[str, AlgorithmDef],
             "resume=True needs checkpoint_dir: there is no snapshot "
             "location to resume from"
         )
+    if shards is not None and shards > 1 \
+            and not getattr(module, "SUPPORTS_SHARDS", False):
+        raise NotImplementedError(
+            f"Algorithm {algo_def.algo} has no partitioned engine "
+            "(maxsum family only); use n_devices= for "
+            "replicated-variable sharding")
     session = None
     if (trace is not None or metrics_file is not None
             or serve_metrics is not None):
@@ -128,6 +150,7 @@ def solve(dcop: DCOP, algo_def: Union[str, AlgorithmDef],
                          backend="device", max_cycles=max_cycles):
             result = _solve(
                 dcop, algo_def, module, max_cycles=max_cycles,
+                shards=shards,
                 warmup=warmup, checkpoint_dir=checkpoint_dir,
                 checkpoint_every=checkpoint_every,
                 checkpoint_async=checkpoint_async,
@@ -193,15 +216,23 @@ def _resolve_auto_algo(dcop: DCOP, algo_params: Dict[str, Any],
 
 
 def _solve(dcop: DCOP, algo_def: AlgorithmDef, module, *,
-           max_cycles: int, warmup: bool, checkpoint_dir, checkpoint_every,
+           max_cycles: int, shards: Optional[int], warmup: bool,
+           checkpoint_dir, checkpoint_every,
            checkpoint_async: bool, checkpoint_keep: int, resume: bool,
            recovery, observing: bool, metrics_file: Optional[str],
            metrics_every: Optional[int], device: DeviceLike) -> SolveResult:
     """The device solve (the reference's ``_solve``, device backend):
     segmented when checkpointing, recovering, decimating or observed
     (the engine probe needs segment boundaries; ``warmup=True`` keeps
-    the plain path), else the algorithm's one-loop solve."""
+    the plain path), else the algorithm's one-loop solve.  A
+    multihost environment is joined first (a no-op on one host)."""
+    from pydcop_tpu_torch.engine.multihost import initialize_multihost
+
+    initialize_multihost()
     t0 = time.perf_counter()
+    # Only the maxsum family takes shards (checked by the caller).
+    extra = {"shards": shards} if shards is not None and shards > 1 \
+        else {}
     decim_plan = None
     if hasattr(module, "decimation_plan_from_params"):
         decim_plan = module.decimation_plan_from_params(algo_def.params)
@@ -216,11 +247,11 @@ def _solve(dcop: DCOP, algo_def: AlgorithmDef, module, *,
             checkpoint_keep=checkpoint_keep, resume=resume,
             recovery=recovery, decim_plan=decim_plan, probed=probed,
             metrics_file=metrics_file, metrics_every=metrics_every,
-            device=device)
+            device=device, **extra)
     else:
         res = module.solve_on_device(
             dcop, algo_def, max_cycles=max_cycles, warmup=warmup,
-            device=device,
+            device=device, **extra,
         )
     cost, violations = dcop.solution_cost(res.assignment)
     return SolveResult(
@@ -245,7 +276,8 @@ def _solve_segmented(dcop: DCOP, algo_def: AlgorithmDef, module, *,
                      probed: bool = False,
                      metrics_file: Optional[str] = None,
                      metrics_every: Optional[int] = None,
-                     device: DeviceLike = "cuda"):
+                     device: DeviceLike = "cuda",
+                     shards: Optional[int] = None):
     """The segmented solve: the algorithm's engine, run by
     ``run_checkpointed`` or resumed by ``resume_from_checkpoint``, with
     an engine probe when ``probed`` (its curves folded into the
@@ -260,7 +292,8 @@ def _solve_segmented(dcop: DCOP, algo_def: AlgorithmDef, module, *,
         resume_from_checkpoint,
     )
 
-    engine = module.build_engine(dcop, algo_def.params, device=device)
+    engine = module.build_engine(dcop, algo_def.params, shards=shards,
+                                 device=device)
     probe = None
     if probed:
         from pydcop_tpu_torch.observability.engine_probe import EngineProbe

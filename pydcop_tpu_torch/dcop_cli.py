@@ -128,6 +128,16 @@ def make_parser() -> argparse.ArgumentParser:
                        choices=["cuda", "cpu"],
                        help="torch device (default cuda; there is no "
                             "silent CPU fallback)")
+    solve.add_argument("--n_devices", type=int, default=None,
+                       help="replicated-variable sharding (not ported "
+                            "yet: above 1 it raises, ROADMAP.md Queue "
+                            "A item 6(b))")
+    solve.add_argument("--shards", type=int, default=None,
+                       help="partitioned sharding (maxsum family): "
+                            "min-edge-cut partition of the factor "
+                            "graph over this many devices, per-shard "
+                            "variable slices, halo-only exchange; "
+                            "mutually exclusive with --n_devices")
     solve.add_argument("--scenario", default=None, metavar="FILE",
                        help="dynamic DCOP: replay this scenario yaml's "
                             "events through the incremental "
@@ -319,7 +329,8 @@ def _run_solve(args, dcop, algo_def, auto_params, recovery):
     from pydcop_tpu_torch.api import solve
 
     return solve(dcop, algo_def, max_cycles=args.cycles,
-                algo_params=auto_params,
+                algo_params=auto_params, n_devices=args.n_devices,
+                shards=args.shards,
                 checkpoint_dir=args.checkpoint_dir,
                 checkpoint_every=args.checkpoint_every,
                 checkpoint_async=args.checkpoint_async,
@@ -345,8 +356,9 @@ def _write_metrics(args, dcop, algo_def, res, result) -> None:
         # from a cost-trace run of the same solve, written afterwards.
         from pydcop_tpu_torch.algorithms.maxsum import build_engine
 
-        trace = build_engine(dcop, params, device=args.device).run_trace(
-            max_cycles=max(res["cycles"], 1))
+        trace = build_engine(
+            dcop, params, n_devices=args.n_devices, shards=args.shards,
+            device=args.device).run_trace(max_cycles=max(res["cycles"], 1))
         for i, cost in enumerate(trace.metrics["cost_trace"]):
             add_csvline(args.run_metrics, "cycle_change", {
                 "time": None, "cycle": i + 1, "cost": float(cost),

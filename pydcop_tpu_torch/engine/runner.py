@@ -41,6 +41,7 @@ from pydcop_tpu_torch.engine.compile import (
     CompiledFactorGraph,
     FactorGraphMeta,
 )
+from pydcop_tpu_torch.engine.sharding import REPLICATED_NOT_PORTED
 from pydcop_tpu_torch.engine.timing import timed_engine_call
 from pydcop_tpu_torch.observability.profiler import key_str, profiler
 from pydcop_tpu_torch.observability.trace import tracer
@@ -141,11 +142,10 @@ def run_device_fn(graph: CompiledFactorGraph, meta: FactorGraphMeta,
     runs in a ``device_solve`` span (``warmed=``); with the profiler on,
     a profiled throwaway call first records the entry under
     ``("device_fn", <function name>)`` into ``metrics['xla_cost']``.
-    ``mesh`` / ``n_devices`` (multi-device runs) are not ported and
-    raise."""
+    ``mesh`` / ``n_devices`` (the replicated-variable mesh) are not
+    ported and raise, naming ROADMAP.md Queue A item 6(b)."""
     if mesh is not None or (n_devices is not None and n_devices > 1):
-        raise NotImplementedError(
-            "multi-device runs (mesh/n_devices) are not ported yet")
+        raise NotImplementedError(REPLICATED_NOT_PORTED)
     placed = to_device_graph(graph, device)
     dev = placed.var_costs.device
     entry = key = None
@@ -324,9 +324,11 @@ class MaxSumEngine:
     scatter aggregation, one device); it refuses pruning, a sorted or
     ell graph, several devices and decimation, as the reference does.
     ``device`` defaults to ``"cuda"`` and raises when no card is present
-    (pass ``"cpu"`` to run there).  Sharding (``mesh``/``n_devices``)
-    is not ported yet and raises.  ``extra_metrics`` (e.g. the aggregation
-    autotuner's decision) is merged into every result's metrics.
+    (pass ``"cpu"`` to run there).  The replicated-variable mesh
+    (``mesh``/``n_devices``) is not ported yet and raises; the
+    partitioned engine is :class:`ShardedMaxSumEngine`.
+    ``extra_metrics`` (e.g. the aggregation autotuner's decision) is
+    merged into every result's metrics.
     Every run reads ``damping`` from the engine when it starts a
     segment, so a recovery damping bump takes effect at the next
     one."""
@@ -355,8 +357,7 @@ class MaxSumEngine:
                     "layout='lane' uses its own scatter aggregation; "
                     "compile with aggregation='scatter'")
         if mesh is not None or (n_devices is not None and n_devices > 1):
-            raise NotImplementedError(
-                "multi-device runs (mesh/n_devices) are not ported yet")
+            raise NotImplementedError(REPLICATED_NOT_PORTED)
         self.meta = meta
         self.layout = layout
         if layout == "lane":
@@ -366,12 +367,22 @@ class MaxSumEngine:
             self.graph = to_device_graph(graph, device)
         self._ops = lane_ops if layout == "lane" else maxsum_ops
         self.device = self.graph.var_costs.device
+        self._init_solver_state(damping, damping_nodes, stability, prune)
+
+    def _init_solver_state(self, damping: float, damping_nodes: str,
+                           stability: float, prune: bool):
+        """The solver parameters and run bookkeeping every engine
+        initializer ends with (``ShardedMaxSumEngine`` builds its own
+        graph and ops first)."""
         self.damping = damping
         self.damp_vars = damping_nodes in ("vars", "both")
         self.damp_factors = damping_nodes in ("factors", "both")
         self.stability = stability
         self.prune = prune
         self.extra_metrics: Dict[str, Any] = {}
+        # Extra args stamped onto every engine_segment span (the
+        # partitioned engine tags its shard count here).
+        self._segment_span_args: Dict[str, Any] = {}
         # Keys already called once: the next call of a key is warm.
         self._warm: set = set()
 
@@ -386,7 +397,7 @@ class MaxSumEngine:
         kw = dict(damping=self.damping, damp_vars=self.damp_vars,
                   damp_factors=self.damp_factors,
                   stability=self.stability, prune=self.prune)
-        if self._ops is maxsum_ops:
+        if self._ops is not lane_ops:
             kw["stats"] = stats
         return kw
 
@@ -442,10 +453,8 @@ class MaxSumEngine:
                 **self._kwargs(stats)), max_cycles)
         values = values.cpu().numpy()
         cycle, stable = int(state.cycle), bool(state.stable)
-        n_msgs = sum(
-            int(b.var_ids.shape[0] * b.var_ids.shape[1])
-            for b in self.graph.buckets
-        )
+        n_msgs = sum(int(np.prod(tuple(b.var_ids.shape)))
+                     for b in self.graph.buckets)
         return DeviceRunResult(
             assignment=self.meta.assignment_from_indices(values),
             cycles=cycle,
@@ -503,8 +512,7 @@ class MaxSumEngine:
                 finite = finite & torch.all(torch.isfinite(leaf))
         cost = (self._ops.assignment_constraint_cost(graph, values)
                 if with_cost else
-                torch.zeros((), dtype=graph.var_costs.dtype,
-                            device=self.device))
+                torch.zeros((), dtype=torch.float32, device=self.device))
         ok, cost = torch.stack([finite.to(cost.dtype), cost]).tolist()
         return bool(ok), cost
 
@@ -635,7 +643,8 @@ class MaxSumEngine:
                 with tracer.span("engine_segment", "engine",
                                  segment=segments,
                                  from_cycle=int(state.cycle),
-                                 extra_cycles=extra):
+                                 extra_cycles=extra,
+                                 **self._segment_span_args):
                     out = self._call(key, call, extra)
             else:
                 out = self._call(key, call, extra)
@@ -673,6 +682,11 @@ class MaxSumEngine:
                         state, values = rec.rollback(violation)
                         if decim is not None:
                             graph = decim.rollback()
+                        else:
+                            # A shard-loss rollback rebuilt the
+                            # engine's graph on the surviving mesh
+                            # (repartition_after_loss): re-read it.
+                            graph = self.graph
                         if max_segments is not None \
                                 and segments >= max_segments:
                             interrupted = True
@@ -825,3 +839,144 @@ class MaxSumEngine:
                 "cycles_per_s": cycle / steady if steady > 0 else 0.0,
             },
         )
+
+
+class ShardedMaxSumEngine(MaxSumEngine):
+    """MaxSum on a PARTITIONED factor graph (the reference's
+    ``ShardedMaxSumEngine``): each shard owns a local slice of the
+    variable tables and the messages of its own factors; the
+    per-superstep cross-shard traffic is the compacted ``[B, D]`` halo
+    buffer instead of a dense ``[V+1, D]`` reduction
+    (``engine/sharding.py``: ``build_partitioned_graph`` + ``ShardOps``;
+    ``engine/partition.py``: the min-edge-cut partitioner).
+
+    ``mesh`` is an ``engine.sharding.Mesh`` (a list of torch devices,
+    one per shard, a device possibly named more than once); without
+    one, ``n_shards`` devices of ``device``'s kind.  Everything above
+    the kernels — segmented runs, checkpoints, the recovery guard,
+    probes — is inherited through the ``_ops`` seam: ``ShardOps``
+    exposes the ``ops.maxsum`` call surface over the sharded state and
+    returns values in global order.
+
+    ``metrics`` on every result carry the partition statistics
+    (``edge_cut_fraction``, ``halo_vars_per_shard``, ``balance``) and
+    the communication accounting
+    (``halo_exchange_elems_per_superstep`` vs
+    ``replicated_allreduce_elems_per_superstep``)."""
+
+    def __init__(self, graph: CompiledFactorGraph, meta: FactorGraphMeta,
+                 *, n_shards: Optional[int] = None, mesh=None,
+                 partition=None, damping: float = 0.5,
+                 damping_nodes: str = "both", stability: float = 0.1,
+                 prune: bool = False, device: DeviceLike = "cuda"):
+        from pydcop_tpu_torch.engine.partition import partition_compiled
+        from pydcop_tpu_torch.engine.sharding import (
+            ShardOps,
+            build_partitioned_graph,
+            make_mesh,
+        )
+
+        if mesh is None:
+            mesh = make_mesh(n_shards, device=device)
+        if mesh.size < 2:
+            raise ValueError(
+                "partitioned sharding needs a mesh of >= 2 devices; "
+                "run unsharded (or name one device several times: "
+                "engine.sharding.make_mesh(devices=[...]))")
+        if partition is None:
+            partition = partition_compiled(graph, mesh.size)
+        self.meta = meta
+        # Edge-major messages; the partitioning is orthogonal to the
+        # layout.
+        self.layout = "edge"
+        self.mesh = mesh
+        self.partition = partition
+        # Kept for shard-loss recovery: re-partitioning onto a
+        # surviving mesh rebuilds the layout from the ORIGINAL graph.
+        self._source_graph = graph
+        self.graph, part_metrics = build_partitioned_graph(
+            graph, partition, mesh)
+        self._ops = ShardOps(mesh, len(meta.var_names))
+        self.device = mesh.devices[0]
+        self._init_solver_state(damping, damping_nodes, stability, prune)
+        self.extra_metrics.update(part_metrics)
+        self._segment_span_args["shards"] = mesh.size
+
+    def _call(self, key, fn, cycles: int):
+        out = super()._call(key, fn, cycles)
+        if tracer.active:
+            # One instant per shard with its static partition stats
+            # (the trace merge routes shard-tagged events onto lanes of
+            # their own).
+            owned = self.extra_metrics.get("owned_vars_per_shard", [])
+            halo = self.extra_metrics.get("halo_vars_per_shard", [])
+            for s in range(self.mesh.size):
+                tracer.instant(
+                    "shard_segment", "engine", shard=s,
+                    owned_vars=owned[s] if s < len(owned) else None,
+                    halo_vars=halo[s] if s < len(halo) else None,
+                    key=str(key),
+                )
+        return out
+
+    def repartition_after_loss(self, lost_shard: int, snapshot_state):
+        """Shard-loss recovery: rebuild this engine on the surviving
+        mesh and remap a validated snapshot onto the new layout.
+
+        Called by the recovery run when a ``shard_loss`` guard trips:
+        (1) a mesh over the surviving devices, (2) a re-partition of the
+        ORIGINAL compiled graph onto it (memoized by structure key +
+        shard count), (3) the per-shard layout rebuilt, (4) the
+        snapshot's messages remapped onto the new factor->shard packing
+        with the halo slot recomputed, (5) every warm key dropped.
+        Returns the remapped state; raises ``NoSurvivingDevices`` when
+        the mesh would be empty.  The wall time lands in
+        ``extra_metrics['shard_recovery_s']``."""
+        from pydcop_tpu_torch.engine.partition import partition_compiled
+        from pydcop_tpu_torch.engine.sharding import (
+            Mesh,
+            ShardOps,
+            build_partitioned_graph,
+            remap_partitioned_state,
+        )
+        from pydcop_tpu_torch.resilience.recovery import NoSurvivingDevices
+
+        t0 = time.perf_counter()
+        devices = list(self.mesh.devices)
+        if not 0 <= lost_shard < len(devices):
+            raise ValueError(
+                f"lost shard {lost_shard} out of range for a mesh "
+                f"of {len(devices)}")
+        survivors = [d for i, d in enumerate(devices) if i != lost_shard]
+        if not survivors:
+            raise NoSurvivingDevices(
+                f"shard {lost_shard} was the last device")
+        new_mesh = Mesh(tuple(survivors))
+        new_part = partition_compiled(self._source_graph, new_mesh.size)
+        new_graph, part_metrics = build_partitioned_graph(
+            self._source_graph, new_part, new_mesh)
+        new_ops = ShardOps(new_mesh, len(self.meta.var_names))
+        state = remap_partitioned_state(
+            self._source_graph, self.partition, new_part,
+            snapshot_state, new_graph, new_ops)
+        self.mesh = new_mesh
+        self.partition = new_part
+        self.graph = new_graph
+        self._ops = new_ops
+        self.device = new_mesh.devices[0]
+        # The next segment call of every key runs on the new layout.
+        self._warm.clear()
+        self.extra_metrics.update(part_metrics)
+        self.extra_metrics["repartitions"] = (
+            self.extra_metrics.get("repartitions", 0) + 1)
+        self.extra_metrics.setdefault(
+            "lost_shards", []).append(int(lost_shard))
+        self.extra_metrics["shard_recovery_s"] = round(
+            time.perf_counter() - t0, 4)
+        self._segment_span_args["shards"] = new_mesh.size
+        return state
+
+    def run_decimated(self, *args, **kwargs):
+        raise ValueError(
+            "decimation clamps rows of the single-device var_costs "
+            "table; run without shards=")

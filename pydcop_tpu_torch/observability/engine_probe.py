@@ -72,7 +72,9 @@ class EngineProbe:
         """The selected assignment's cost on the device, as a 0-d
         tensor: constraint cost + variable base costs (the reference's
         ``cost_of``, ``run_maxsum_trace``'s sum), one total at the
-        probe's site (the reference closes the graph over)."""
+        probe's site (the reference closes the graph over); on a
+        partitioned engine the shards' constraint costs reduced across
+        shards, then the variable costs added."""
         import torch
 
         from pydcop_tpu_torch.ops import maxsum as maxsum_ops
@@ -80,9 +82,20 @@ class EngineProbe:
         graph = self.engine.graph
         base = self.engine.meta.var_base_costs
         if base is not None and self._base is None:
-            self._base = torch.as_tensor(
-                base, dtype=graph.var_costs.dtype,
-                device=graph.var_costs.device)
+            self._base = torch.as_tensor(base, dtype=torch.float32,
+                                         device=self.engine.device)
+        if hasattr(self.engine, "partition"):
+            # A partitioned engine (the reference's probe takes its
+            # ``_ops.assignment_constraint_cost``): the shards' costs
+            # reduced across shards, then the variable costs.
+            from pydcop_tpu_torch.ops.window_sum import add
+
+            cost = self.engine._ops.assignment_constraint_cost(
+                graph, values, site="probe")
+            if self._base is None:
+                return cost
+            return add(cost, maxsum_ops.variable_cost(
+                self._base, values, site="probe"))
         return maxsum_ops.assignment_total(graph, values, self._base,
                                            site="probe")
 
@@ -97,12 +110,15 @@ class EngineProbe:
         port adds into zeros) of each bucket's |Δ| over the [F, arity,
         D] messages, in the lanes of ``residual_lanes`` and
         ``residual_rows``, so it is the reference's bit for bit where
-        those forms were probed; the flip rate sums integer values,
-        exact in any order."""
+        those forms were probed; a partitioned engine's blocked
+        [S, F, arity, D] messages are summed shard by shard and reduced
+        across shards, as the reference's sum over a sharded array is;
+        the flip rate sums integer values, exact in any order."""
         import numpy as np
         import torch
 
         from pydcop_tpu_torch.ops.flush import ftz
+        from pydcop_tpu_torch.ops.halo_sum import halo_sum
         from pydcop_tpu_torch.ops.window_sum import (
             Plain,
             residual_lanes,
@@ -110,11 +126,23 @@ class EngineProbe:
             window_total,
         )
 
+        def _residual(x):
+            return Plain(x, lanes=residual_lanes(x.shape),
+                         rows=residual_rows(x.shape))
+
         ops, den = [], 0
         for a, b in zip(prev_msgs, msgs):
-            ops.append(Plain(ftz(torch.abs(b.float() - a.float())),
-                             lanes=residual_lanes(a.shape),
-                             rows=residual_rows(a.shape)))
+            diff = ftz(torch.abs(b.float() - a.float()))
+            if diff.dim() == 4:
+                # A partitioned engine's [S, F, arity, D] blocks: the
+                # reference's sum over a sharded array is each shard's
+                # sum, then an all-reduce (ops/halo_sum.py's order).
+                ops.append(Plain(halo_sum([
+                    window_total([_residual(block)],
+                                 from_zero=True).reshape(1)
+                    for block in diff])))
+            else:
+                ops.append(_residual(diff))
             den += a.numel()
         num = (window_total(ops, from_zero=True) if ops else
                torch.zeros((), dtype=torch.float32, device=values.device))

@@ -2,9 +2,9 @@
 anomaly postmortem bundles.
 
 A copy of ``pydcop_tpu/observability/flight.py`` (pure Python).  In the
-port the triggers that fire are the solve's: guard trips and
-``RecoveryExhausted`` (``resilience/recovery.py``); the serving,
-journal and shard-loss triggers arrive with those slices.
+port the triggers that fire are the solve's — guard trips,
+``RecoveryExhausted`` and a partitioned engine's shard loss
+(``resilience/recovery.py``) — and the serving plane's.
 
 A crash, a ``RecoveryExhausted``, a poison request — by the time an
 operator looks, the evidence is gone: file tracing is off in

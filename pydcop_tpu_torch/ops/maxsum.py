@@ -430,6 +430,20 @@ def constraint_operands(graph: TorchFactorGraph,
     return ops
 
 
+def trace_site(d: int) -> str:
+    """The ``gather_stages`` site of the constraint sums inside the
+    reference's traced run (the costs summed in the loop body, beside
+    the superstep): at D >= 2 LLVM gives them the forms it gives the
+    probe's sums (``"probe"``: e.g. 20-23 factors of arity 2-6 in lanes
+    of 8 then 2, where a standalone ``assignment_constraint_cost`` uses
+    lanes of 4 then 2), read off the bits of the jitted reference
+    (jax 0.9.0) over random mixes of arities 1-6 with 2-40 factors at
+    D = 2..5.  At D = 1 every direct sum runs left to right
+    (``"eager"``: no vectorised head), as read over arities 1-6 with
+    4-32 factors."""
+    return "probe" if d >= 2 else "eager"
+
+
 def variable_operand(var_base_costs: torch.Tensor,
                      site: str = "maxsum", folded: bool = False):
     """The gather of ``var_base_costs[v, values[v]]`` ([V, D] costs) for
@@ -584,7 +598,7 @@ def run_maxsum_trace(graph: TorchFactorGraph, max_cycles: int, *,
     :func:`run_maxsum_from`: pruning never changes a cost.
 
     Returns (final state, selected values [V], costs [max_cycles])."""
-    ops = constraint_operands(graph)
+    ops = constraint_operands(graph, trace_site(graph.var_costs.shape[1]))
     if var_base_costs is not None:
         ops.append(variable_operand(var_base_costs, folded=True))
 

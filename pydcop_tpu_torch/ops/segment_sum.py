@@ -36,12 +36,14 @@ import numpy as np
 import torch
 
 from pydcop_tpu_torch.ops import _build
-from pydcop_tpu_torch.ops.flush import ftz
+from pydcop_tpu_torch.ops.flush import FLT_MIN, ftz
 
 KERNEL = "segment_sum"
 # Launch-count keys of the positional entries (``_build.launch_counts``).
 POSITIONAL = "segment_sum:positional"
 POSITIONAL_TABLE = "segment_sum:positional_table"
+# ... and of the partitioned engine's boundary partial (subset_sum).
+HALO = "segment_sum:halo"
 
 # Threads per block of the tiled kernel (kThreads in the source): a
 # light tile holds at most TILE_THREADS // D variables, one thread per
@@ -241,6 +243,30 @@ def positional_sum_reference(msgs: torch.Tensor, perm: torch.Tensor,
     return _walk(msgs, perm, offsets, units, init, False, sep)
 
 
+# The walk's tail: once at most TAIL_ROWS rows are left with more than
+# TAIL_RANKS ranks to go, each finishes in one sequential accumulate.
+TAIL_ROWS = 8
+TAIL_RANKS = 64
+
+
+def _finish_row(msgs, perm, lo: int, hi: int, row: torch.Tensor):
+    """Add the edges ``perm[lo:hi]`` into ``row`` [D] one at a time, each
+    sum flushed: numpy's float32 ``add.accumulate`` is that chain of
+    rounded adds, and where none of its partial sums is subnormal each
+    flush is the identity; otherwise the chain is run add by add."""
+    m = msgs[perm[lo:hi]].cpu().numpy()
+    chain = np.add.accumulate(
+        np.concatenate([row.cpu().numpy()[None], m]), axis=0,
+        dtype=np.float32)[1:]
+    if np.any((chain != 0) & (np.abs(chain) < FLT_MIN)):
+        acc = row.clone()
+        for k in range(m.shape[0]):
+            acc = ftz(acc + torch.from_numpy(m[k]).to(row.device))
+        row.copy_(acc)
+        return
+    row.copy_(torch.from_numpy(chain[-1]).to(row.device))
+
+
 def _walk(msgs, perm, offsets, buckets, acc, one_sum, sep=None):
     """The edge-rank walk of :func:`segment_sum_reference` from the
     running sums ``acc`` [V+1, D], ``sep`` as there (``None``: from
@@ -279,6 +305,14 @@ def _walk(msgs, perm, offsets, buckets, acc, one_sum, sep=None):
             b.masked_fill_(go, bb + 1)
 
     for r, n in enumerate(active):
+        if not sep and n <= TAIL_ROWS and len(active) - r > TAIL_RANKS:
+            # A few rows of high degree left (a hub, or the sentinel row
+            # of a padded graph): finish each on its own.
+            counts_sorted = counts[order]
+            for i in range(n):
+                _finish_row(msgs, perm, int(starts[i]) + r,
+                            int(starts[i] + counts_sorted[i]), acc[i])
+            break
         edge = perm[starts[:n] + r]
         m = msgs[edge]
         a = acc[:n]
@@ -457,6 +491,78 @@ def segment_sum(msgs: Messages, perm: torch.Tensor,
         raise RuntimeError(f"segment_sum launch failed: CUDA error {err}")
     _build.launch_counts[KERNEL] += 1
     return beliefs, sums
+
+
+def subset_sum_reference(msgs: torch.Tensor, perm: torch.Tensor,
+                         offsets: torch.Tensor) -> torch.Tensor:
+    """The plain version of :func:`subset_sum`: the walk of
+    :func:`segment_sum_reference` in its ``one_sum`` form over the edges
+    ``perm`` lists, from +0.0.  ``msgs`` is [E, D]."""
+    n_seg = offsets.shape[0] - 1
+    d = msgs.shape[1]
+    whole = torch.tensor([0, msgs.shape[0]], dtype=torch.int32,
+                         device=perm.device)
+    return _walk(msgs, perm, offsets, whole,
+                 torch.zeros((n_seg, d), dtype=msgs.dtype,
+                             device=msgs.device), True)
+
+
+def subset_sum(msgs: Sequence[torch.Tensor], perm: torch.Tensor,
+               offsets: torch.Tensor, tiles: Optional[torch.Tensor],
+               zeros: torch.Tensor) -> torch.Tensor:
+    """[n_seg, D] sums of a subset of the buckets' edges: segment ``s``
+    adds the edges ``perm[offsets[s]:offsets[s + 1]]`` (indices into
+    the buckets' edges taken in order, each bucket's tensor [..., D]
+    read where it lies) one at a time from +0.0, in that order.  This is
+    the reference's ``jax.ops.segment_sum`` over gathered edges (a
+    scatter-add, which XLA:CPU runs in update order): the partitioned
+    engine's per-shard boundary partial (``pydcop_tpu/engine/
+    sharding.py:438``), whose perm lists a shard's boundary edges by
+    boundary variable, in edge order within each.
+
+    ``zeros`` [n_seg, D] float32 zeros on the messages' device is the
+    kernel's cost operand (its beliefs output is dropped); ``tiles`` the
+    :func:`aggregation_plan` of ``offsets`` (needed on the card).  On a
+    CUDA tensor it launches ``csrc/segment_sum.cu`` in its one-sum form
+    (counter ``segment_sum:halo``) and raises if the launch fails; on a
+    CPU tensor it runs :func:`subset_sum_reference`."""
+    parts = tuple(msgs)
+    n_seg, d = zeros.shape
+    named = [("msgs", p, torch.float32) for p in parts] + [
+        ("perm", perm, torch.int32), ("offsets", offsets, torch.int32),
+        ("var_costs", zeros, torch.float32)]
+    _check_tensors(named, perm.device)
+    if tuple(offsets.shape) != (n_seg + 1,):
+        raise ValueError(f"offsets must be [{n_seg + 1}], got "
+                         f"{tuple(offsets.shape)}")
+    if not parts or len(parts) > MAX_BUCKETS:
+        raise ValueError(f"{len(parts)} bucket tensors: the kernel takes "
+                         f"1 to {MAX_BUCKETS}")
+    if perm.device.type == "cpu":
+        whole = torch.cat([p.reshape(-1, d) for p in parts])
+        return subset_sum_reference(whole, perm, offsets)
+    if tiles is None:
+        raise ValueError("subset_sum on the card needs the placement "
+                         "plan (aggregation_plan of offsets)")
+    if perm.device.index != torch.cuda.current_device():
+        with torch.cuda.device(perm.device):
+            return subset_sum(parts, perm, offsets, tiles, zeros)
+    sums = torch.empty_like(zeros)
+    beliefs = torch.empty_like(zeros)
+    if sums.numel() == 0:
+        return sums
+    bases = (ctypes.c_void_p * len(parts))(*(p.data_ptr() for p in parts))
+    edge_starts = np.cumsum([0] + [p.numel() // d for p in parts]).tolist()
+    starts = (ctypes.c_int * (len(parts) + 1))(*edge_starts)
+    err = _launcher()(bases, starts, len(parts), perm.data_ptr(),
+                      offsets.data_ptr(), tiles.data_ptr(), tiles.shape[0],
+                      zeros.data_ptr(), sums.data_ptr(), beliefs.data_ptr(),
+                      n_seg, d, _load_width(parts, d), pass_edges(d), 1, 0,
+                      torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"segment_sum launch failed: CUDA error {err}")
+    _build.launch_counts[HALO] += 1
+    return sums
 
 
 class TableUnit(NamedTuple):

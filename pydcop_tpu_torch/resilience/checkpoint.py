@@ -22,7 +22,10 @@ snapshot that verifies.  :class:`AsyncCheckpointWriter` takes the
 device-to-host copy and the write off the solve loop.  The state's
 structure is not stored: restore goes through a template state built
 from the same compiled graph, whose leaves give each array its dtype
-and device.
+and device.  A partitioned engine's template (``ShardOps.init_state``)
+holds the reference's blocked leaves — ``[S, F, arity, D]`` messages
+and the ``[B, D]`` halo slot, on the mesh's first device — so its
+snapshots cross packages too.
 
 Every write is logged in ``CheckpointManager.writes`` (bytes, and the
 seconds of the host copy, the checksum and the file write), and the

@@ -24,8 +24,11 @@ span and ``pydcop_recovery_attempts_total{action}`` per attempt, and
 the flight recorder's ``guard_trip`` / ``recovery_exhausted``
 triggers (postmortem bundles).
 
-Not ported yet: device-loss recovery on a partitioned engine
-(``trip_shard``; it comes with multi-GPU runs).
+Device loss on the partitioned engine (``trip_shard``) takes its own
+path: roll back, re-partition onto the surviving mesh
+(``ShardedMaxSumEngine.repartition_after_loss``), remap the snapshot,
+resume — with a ``shard_loss`` trip, a ``repartition`` rollback span
+and the flight recorder's ``shard_loss`` trigger.
 """
 
 import logging
@@ -45,9 +48,11 @@ logger = logging.getLogger("pydcop_tpu_torch.resilience.recovery")
 
 
 class GuardViolation(NamedTuple):
-    """One tripped segment guard."""
+    """One tripped segment guard.  ``shard`` is set only for
+    ``shard_loss`` trips (the lost device's mesh position)."""
 
-    kind: str      # "nonfinite" | "divergence" | "injected"
+    kind: str      # "nonfinite" | "divergence" | "injected" |
+    #                "shard_loss"
     cycle: int     # end cycle of the segment that tripped
     detail: str
     shard: Optional[int] = None
@@ -58,6 +63,13 @@ class GuardViolation(NamedTuple):
         if self.shard is not None:
             out["shard"] = int(self.shard)
         return out
+
+
+class NoSurvivingDevices(RuntimeError):
+    """A shard loss left the mesh empty: there is nothing left to
+    re-partition onto.  Raised by the engine's shard-loss hook and
+    turned into :class:`RecoveryExhausted` (with the partial
+    trajectory) by the recovery run."""
 
 
 class RecoveryExhausted(RuntimeError):
@@ -88,8 +100,16 @@ class RecoveryPolicy:
 
     ``trip_cycles`` injects guard trips (tests, chaos runs): the first
     segment ending at or past each listed cycle trips once with kind
-    ``"injected"``.  ``trip_shard`` (device losses of a partitioned
-    engine) is not ported yet and must stay empty.
+    ``"injected"``.
+
+    ``trip_shard`` injects DEVICE LOSSES on a partitioned engine
+    (``(cycle, shard)`` pairs: the first segment ending at or past
+    ``cycle`` loses mesh position ``shard``).  A shard loss does not
+    walk the escalation ladder and does not consume the restart budget:
+    the engine rolls back to the last validated snapshot, re-partitions
+    the factor graph onto the surviving mesh, remaps the snapshot and
+    resumes; only when no device remains does the run abort with
+    :class:`RecoveryExhausted` carrying the partial trajectory.
 
     ``verify_restore`` (default True) asserts that every rollback
     restored the snapshot bit for bit before intervening.
@@ -115,10 +135,11 @@ class RecoveryPolicy:
         if self.noise_scale < 0:
             raise ValueError(
                 f"noise_scale must be >= 0: {self.noise_scale}")
-        if self.trip_shard:
-            raise NotImplementedError(
-                "trip_shard (device loss on a partitioned engine) is "
-                "not ported yet")
+        for entry in self.trip_shard:
+            if len(tuple(entry)) != 2:
+                raise ValueError(
+                    "trip_shard entries are (cycle, shard) pairs: "
+                    f"{entry!r}")
 
     def action_for(self, attempt: int) -> str:
         """Attempt 1 reseeds tie-break noise, attempt 2 bumps damping,
@@ -194,6 +215,10 @@ class RecoveryRun:
         # Sorted, duplicates kept: (c, c, c) arms three consecutive
         # trips at cycle c.
         self._pending_injections = sorted(policy.trip_cycles)
+        # (cycle, shard) device-loss injections, sorted by cycle: the
+        # second entry's shard applies to the ALREADY-SHRUNK mesh.
+        self._pending_shard_trips = sorted(
+            tuple(t) for t in policy.trip_shard)
         self.shard_losses = 0
         self._m_trips = metrics_registry.counter(
             "pydcop_guard_trips_total",
@@ -232,6 +257,13 @@ class RecoveryRun:
             return GuardViolation(
                 "injected", end_cycle, f"injected trip armed at "
                 f"cycle {at}")
+        if self._pending_shard_trips \
+                and end_cycle >= self._pending_shard_trips[0][0]:
+            at, shard = self._pending_shard_trips.pop(0)
+            return GuardViolation(
+                "shard_loss", end_cycle,
+                f"injected loss of shard {shard} armed at cycle "
+                f"{at}", shard=int(shard))
         if not finite:
             return GuardViolation(
                 "nonfinite", end_cycle, "NaN/Inf in solver state")
@@ -271,7 +303,10 @@ class RecoveryRun:
     def rollback(self, violation: GuardViolation):
         """Restore the last valid snapshot and intervene; returns the
         (state, values) to continue from.  Raises RecoveryExhausted
-        past the restart budget."""
+        past the restart budget.  ``shard_loss`` violations take the
+        repartition path instead of the escalation ladder."""
+        if violation.kind == "shard_loss":
+            return self._rollback_shard_loss(violation)
         self.trips.append(violation)
         self._m_trips.inc(kind=violation.kind)
         if tracer.active:
@@ -338,6 +373,63 @@ class RecoveryRun:
         # window's verdict.
         self._window.clear()
         return restored, self._snap_values
+
+    def _rollback_shard_loss(self, violation: GuardViolation):
+        """Shard-loss recovery: roll back to the last validated snapshot
+        AND re-partition onto the surviving mesh.  No noise or damping
+        intervention (losing a device says nothing about the numerics)
+        and no restart budget consumed.  The engine hook builds the new
+        mesh, re-partitions (memoized) and remaps the snapshot;
+        :class:`NoSurvivingDevices` becomes :class:`RecoveryExhausted`
+        carrying the partial trajectory."""
+        self.trips.append(violation)
+        self._m_trips.inc(kind="shard_loss")
+        if tracer.active:
+            tracer.instant("guard_trip", "resilience",
+                           kind="shard_loss",
+                           cycle=int(violation.cycle),
+                           shard=violation.shard,
+                           detail=violation.detail)
+        flight.trigger("shard_loss", shard=violation.shard,
+                       cycle=int(violation.cycle),
+                       detail=violation.detail)
+        hook = getattr(self.engine, "repartition_after_loss", None)
+        if hook is None:
+            raise ValueError(
+                "trip_shard requires a partitioned sharded engine "
+                "(solve with shards=N); this engine has no "
+                "repartition_after_loss hook")
+        self.shard_losses += 1
+        self.actions.append("repartition")
+        self._m_attempts.inc(action="repartition")
+        logger.warning(
+            "Shard loss (shard %s at cycle %d): rollback to cycle "
+            "%s and re-partition onto the surviving mesh",
+            violation.shard, violation.cycle, self.snapshot_cycle,
+        )
+        with tracer.span("recovery_rollback", "resilience",
+                         attempt=self.attempts, action="repartition",
+                         kind="shard_loss",
+                         to_cycle=self.snapshot_cycle,
+                         lost_shard=violation.shard):
+            try:
+                state = hook(violation.shard, self._snap_state)
+            except NoSurvivingDevices as exc:
+                flight.trigger(
+                    "recovery_exhausted", force=True,
+                    trip_kind="shard_loss", shard=violation.shard,
+                    cycle=int(violation.cycle))
+                raise RecoveryExhausted(
+                    f"no surviving devices after loss of shard "
+                    f"{violation.shard} at cycle {violation.cycle}",
+                    violations=self.trips, attempts=self.attempts,
+                    partial=self._partial(),
+                ) from exc
+        # The old snapshot's layout died with the lost shard: the
+        # remapped state IS the new rollback target.
+        self.retain(state, self._snap_values)
+        self._window.clear()
+        return state, self._snap_values
 
     def metrics(self) -> Dict[str, Any]:
         return {

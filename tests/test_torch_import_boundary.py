@@ -13,13 +13,15 @@ the YAML writers, and the batch and lane slice: the binning copy, the
 lane ops and belief sum, the batched engine and the batch command,
 and the serving slice: the service, scheduler, sessions, journal,
 admission, retry, speculation, migration, link-fault seam, fleet trace,
-HTTP front end, library cache and the serve and debug commands), then
+HTTP front end, library cache and the serve and debug commands, and
+the partitioned slice: the partitioner, the sharded engine's device
+side, the multihost join and the halo reduction's wrapper), then
 ``sys.modules`` must hold no ``jax*``
 module and no ``pydcop_tpu``/``pydcop_tpu.*`` module.  The sources of
 the package, of chip_smoke.py, chip_compare.py,
 chip_var_update_compare.py and of the card-only test files of the local
-search, the exact slice, the dynamic slice, the batch slice and the
-serving slice are also
+search, the exact slice, the dynamic slice, the batch slice, the
+serving slice and the partitioned slice are also
 scanned for such
 imports (the scan reads the imports inside functions too, such as the
 portfolio racer's).
@@ -132,6 +134,20 @@ REQUIRED = [
     "pydcop_tpu_torch.engine.aotcache",
     "pydcop_tpu_torch.commands.serve",
     "pydcop_tpu_torch.commands.debug",
+    "pydcop_tpu_torch.engine.partition",
+    "pydcop_tpu_torch.engine.sharding",
+    "pydcop_tpu_torch.engine.multihost",
+    "pydcop_tpu_torch.ops.halo_sum",
+]
+
+# The partitioned slice's modules, each scanned on its own below.
+PARTITIONED_SLICE = [
+    "pydcop_tpu_torch/engine/partition.py",
+    "pydcop_tpu_torch/engine/sharding.py",
+    "pydcop_tpu_torch/engine/multihost.py",
+    "pydcop_tpu_torch/ops/halo_sum.py",
+    "chip_smoke.py",
+    "tests/test_torch_gpu_sharding.py",
 ]
 
 
@@ -166,7 +182,8 @@ SOURCES = sorted(
        REPO / "tests" / "test_torch_gpu_dpop.py",
        REPO / "tests" / "test_torch_gpu_dynamic.py",
        REPO / "tests" / "test_torch_gpu_batch.py",
-       REPO / "tests" / "test_torch_gpu_serve.py"]
+       REPO / "tests" / "test_torch_gpu_serve.py",
+       REPO / "tests" / "test_torch_gpu_sharding.py"]
 )
 
 
@@ -175,3 +192,14 @@ def test_source_imports_neither_jax_nor_the_reference(source):
     for name in _imported_roots(REPO / source):
         root = name.split(".")[0]
         assert root not in ("jax", "jaxlib", "pydcop_tpu"), (source, name)
+
+
+@pytest.mark.parametrize("source", PARTITIONED_SLICE)
+def test_partitioned_slice_imports_neither_jax_nor_the_reference(source):
+    """The partitioned slice's modules exist and import neither JAX nor
+    the JAX package (its partitioner is a copy, not an import)."""
+    path = REPO / source
+    assert path.exists(), source
+    assert source in SOURCES
+    roots = {name.split(".")[0] for name in _imported_roots(path)}
+    assert not roots & {"jax", "jaxlib", "pydcop_tpu"}, (source, roots)

@@ -254,8 +254,12 @@ def test_policy_checks():
         trec.RecoveryPolicy(max_restarts=-1)
     with pytest.raises(ValueError):
         trec.RecoveryPolicy(noise_scale=-1.0)
-    with pytest.raises(NotImplementedError):
-        trec.RecoveryPolicy(trip_shard=((10, 1),))
+    # trip_shard takes (cycle, shard) pairs, as the reference's does
+    # (the device-loss path itself: tests/test_torch_shardloss.py).
+    with pytest.raises(ValueError, match="cycle, shard"):
+        trec.RecoveryPolicy(trip_shard=((10,),))
+    assert trec.RecoveryPolicy(trip_shard=((10, 1),)).trip_shard == (
+        (10, 1),)
     assert [trec.RecoveryPolicy().action_for(a) for a in (1, 2, 3, 4)] == [
         jrec.RecoveryPolicy().action_for(a) for a in (1, 2, 3, 4)]
 

@@ -108,11 +108,18 @@ def test_default_device_is_cuda_and_never_falls_back():
 
 @pytest.mark.parametrize("params,kw", [
     ({}, {"n_devices": 2}),
-    ({}, {"shards": 2}),
+    ({}, {"mesh": "two cpus"}),
 ])
 def test_unported_options_raise(params, kw):
+    """The replicated-variable mesh is not ported: ``n_devices > 1`` and
+    ``mesh`` raise, naming the ROADMAP item that holds them (the
+    partitioned ``shards=`` runs: ``tests/test_torch_sharding*.py``)."""
+    from pydcop_tpu_torch.engine.sharding import make_mesh
+
+    if "mesh" in kw:
+        kw = {"mesh": make_mesh(devices=["cpu", "cpu"])}
     dcop = load_both("coloring_chain.yaml")[1]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match=r"item 6\(b\)"):
         build_engine(dcop, params, device="cpu", **kw)
 
 
