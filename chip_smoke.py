@@ -101,7 +101,17 @@ beside their bounds and ``torch.sum`` / ``index_add_``, one
 ``trip_shard`` recovery card = CPU, and ``api.solve(shards=)`` above
 the card count refused; its S = 4 profile is taken in a fresh process,
 ``python3 chip_smoke.py --shard-profile``, held to the launch counters
-of its run.
+of its run.  The fleet slice adds ``fleet``: ``api.serve(port=0,
+replicas=2, device="cuda")``, two worker processes sharing the card
+behind the router, started with the kernel libraries the earlier
+phases built, driven with the serve phase's mixed stream and one bin
+of flagship problems; one worker is killed with SIGKILL mid-burst and
+every acknowledged request is answered after its restart (the restarted
+worker replaying its journal segment on the card); every answer equals
+its solo solve on the card and on the CPU, each worker's own
+``/profile`` names the card and the kernel libraries it loaded and
+launched, and problems/s, p50/p99 and the start and restart seconds
+print beside the serve phase's figures.
 Each phase prints one JSON line (with ``t_s``, the seconds since the
 start); any failure raises and the
 script exits non-zero without the final line.  On success the last
@@ -4790,6 +4800,18 @@ def _mean_ledger(results):
             for k in keys}
 
 
+def mixed_stream_draws():
+    """bench.py's mixed serving stream: SERVE_MIXED_REQUESTS
+    (structure, seed) pairs drawn zipf(SERVE_MIXED_ZIPF_A) over the
+    MIXED_STRUCTS build_dcop_mixed structures, seeds 0..3."""
+    rng = np.random.default_rng(965)
+    ranks = np.arange(1, MIXED_STRUCTS + 1, dtype=float)
+    probs = ranks ** -SERVE_MIXED_ZIPF_A
+    probs /= probs.sum()
+    return [(int(s), int(rng.integers(4))) for s in rng.choice(
+        MIXED_STRUCTS, size=SERVE_MIXED_REQUESTS, p=probs)]
+
+
 def phase_serve(ctx):
     """The serving plane on the card, through ``api.serve(port=0,
     device="cuda")`` and its HTTP front end, in five legs:
@@ -4899,12 +4921,7 @@ def phase_serve(ctx):
                                               dcop_mod, s, seed)
             return mixed[key]
 
-        rng = np.random.default_rng(965)
-        ranks = np.arange(1, MIXED_STRUCTS + 1, dtype=float)
-        probs = ranks ** -SERVE_MIXED_ZIPF_A
-        probs /= probs.sum()
-        draws = [(int(s), int(rng.integers(4))) for s in rng.choice(
-            MIXED_STRUCTS, size=SERVE_MIXED_REQUESTS, p=probs)]
+        draws = mixed_stream_draws()
         bodies = [dcop_yaml(mixed_dcop(s, seed)) for s, seed in draws]
         mixed_params = {"max_cycles": SERVE_MIXED_CYCLES}
         handle = api.serve(port=0, device=dev,
@@ -5580,6 +5597,282 @@ def phase_sharded(ctx, card="cuda"):
     return out
 
 
+FLEET_REPLICAS = 2           # worker processes sharing the one card
+FLEET_HEARTBEAT_S = 0.25
+FLEET_BIN_MEMBERS = 2        # copies of the flagship: one structure bin
+FLEET_BIN_CYCLES = 60
+FLEET_KILL_REQUESTS = 16     # the burst the SIGKILL lands in
+FLEET_KILL_SEED = 300
+
+
+def await_served(url: str, rid: str, timeout: float = 600.0):
+    """The result of router-minted request ``rid``, polled through the
+    router until it is done: 202 (pending) and 503 (its replica is
+    restarting) are waited out, anything else is returned."""
+    deadline = time.perf_counter() + timeout
+    while True:
+        code, body = serve_http(url + f"/result/{rid}", timeout=60)
+        if code not in (202, 503):
+            return code, body
+        if time.perf_counter() > deadline:
+            fail(f"fleet: {rid} still {code} after {timeout} s: {body}")
+        time.sleep(0.05)
+
+
+def fleet_backends(url: str):
+    """Each live worker's own backend report (``/profile`` through the
+    router's ``/fleet/profile``): backend, card name, kernel libraries
+    loaded and kernels launched in that process."""
+    code, doc = serve_http(url + "/fleet/profile")
+    if code != 200:
+        fail(f"fleet: GET /fleet/profile {code}: {doc}")
+    return {source: rep["backend"] for source, rep in
+            doc["replicas"].items()}
+
+
+def phase_fleet(ctx, card="cuda"):
+    """The fixed-size fleet: ``api.serve(port=0, replicas=2,
+    device=card)`` — two worker processes on the card behind the router,
+    their kernel libraries loaded from the directory the earlier phases
+    built them in — driven in three legs:
+
+    1. the serve phase's mixed stream (64 requests zipf over the 24
+       build_dcop_mixed structures from 8 clients at 60 cycles) through
+       the router;
+    2. one bin of flagship problems: FLEET_BIN_MEMBERS copies of
+       build_dcop(10,000) from as many clients;
+    3. a burst of FLEET_KILL_REQUESTS acknowledged requests, then
+       SIGKILL of the worker that owns most of them while some are
+       still pending; every acknowledged request is then answered, the
+       killed worker's share by its restart replaying its journal
+       segment.
+
+    Every answer equals its instance's solo api.solve on ``card`` and
+    on the CPU (assignment and cost, the serve phase's comparison).
+    Each worker's own reports show where it ran: ``/stats`` (the
+    backend its dispatches used, the restart's replayed requests) and
+    ``/profile`` (the card's name, the kernel libraries it loaded and
+    its kernels' launch counts).  With ``card="cpu"`` the phase
+    rehearses on the CPU (the tests shrink its sizes)."""
+    import shutil
+    import signal
+    import tempfile
+
+    torch, _build = ctx["torch"], ctx["_build"]
+    objects, relations, dcop_mod = (ctx["objects"], ctx["relations"],
+                                    ctx["dcop_mod"])
+    from pydcop_tpu_torch import api
+    from pydcop_tpu_torch.dcop.yamldcop import dcop_yaml
+
+    mixed = {}
+
+    def mixed_dcop(s, seed):
+        if (s, seed) not in mixed:
+            mixed[(s, seed)] = build_dcop_mixed(objects, relations,
+                                                dcop_mod, s, seed)
+        return mixed[(s, seed)]
+
+    t_phase = time.perf_counter()
+    draws = mixed_stream_draws()
+    bodies = {key: dcop_yaml(mixed_dcop(*key)) for key in set(draws)}
+    kill_keys = [(s % MIXED_STRUCTS, FLEET_KILL_SEED + s)
+                 for s in range(FLEET_KILL_REQUESTS)]
+    for key in kill_keys:
+        bodies[key] = dcop_yaml(mixed_dcop(*key))
+    flagship = ctx.get("dcop") or build_flagship(
+        objects, relations, dcop_mod, FLAGSHIP_VARS)
+    flagship_yaml = dcop_yaml(flagship)
+    params = {"max_cycles": SERVE_MIXED_CYCLES}
+    bin_params = {"max_cycles": FLEET_BIN_CYCLES}
+    prep_s = time.perf_counter() - t_phase
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    served, latencies, acks = {}, [], {}
+    try:
+        t0 = time.perf_counter()
+        handle = api.serve(
+            port=0, replicas=FLEET_REPLICAS, device=card,
+            journal_dir=os.path.join(tmp, "journal"),
+            compile_cache_dir=str(_build.BUILD_DIR),
+            batch_window_s=SERVE_MIXED_WINDOW_S, max_batch=16,
+            envelope_overhead_ms=1e6, heartbeat_s=FLEET_HEARTBEAT_S)
+        start_s = time.perf_counter() - t0
+        router, url = handle.router, handle.url
+        try:
+            # Leg 1: the mixed stream.
+            def client(k):
+                for i in range(k, len(draws), SERVE_MIXED_CLIENTS):
+                    t1 = time.perf_counter()
+                    code, body = serve_http(url + "/solve", "POST", {
+                        "dcop": bodies[draws[i]], "params": params,
+                        "wait": True, "timeout": 600})
+                    latencies.append(time.perf_counter() - t1)
+                    if code != 200:
+                        fail(f"fleet leg 1: POST /solve {code}: {body}")
+                    served[draws[i]] = body
+
+            t0 = time.perf_counter()
+            run_clients(client, SERVE_MIXED_CLIENTS)
+            stream_s = time.perf_counter() - t0
+
+            # Leg 2: the flagship bin.
+            flagship_served = [None] * FLEET_BIN_MEMBERS
+
+            def submit(k):
+                code, body = serve_http(url + "/solve", "POST", {
+                    "dcop": flagship_yaml, "params": bin_params,
+                    "wait": True, "timeout": 600})
+                if code != 200:
+                    fail(f"fleet leg 2: POST /solve {code}: {body}")
+                flagship_served[k] = body
+
+            t0 = time.perf_counter()
+            run_clients(submit, FLEET_BIN_MEMBERS)
+            bin_s = time.perf_counter() - t0
+
+            # Leg 3: the burst, then SIGKILL mid-burst.
+            completed_before = {
+                w["index"]: w["stats"]["completed"]
+                for w in serve_http(url + "/stats")[1]["workers"]}
+
+            def fire(k):
+                for i in range(k, len(kill_keys), SERVE_MIXED_CLIENTS):
+                    code, ack = serve_http(url + "/solve", "POST", {
+                        "dcop": bodies[kill_keys[i]], "params": params})
+                    if code != 202:
+                        fail(f"fleet leg 3: POST /solve {code}: {ack}")
+                    acks[kill_keys[i]] = ack["id"]
+
+            run_clients(fire, SERVE_MIXED_CLIENTS)
+            owners = collections.Counter(
+                router.pinned(rid).index for rid in acks.values())
+            victim = router.replicas[owners.most_common(1)[0][0]]
+            code, vstats = serve_http(victim.url + "/stats")
+            pending_at_kill = owners[victim.index] - (
+                vstats["completed"] - completed_before[victim.index])
+            if pending_at_kill < 1:
+                fail("fleet leg 3: the burst finished before the kill "
+                     f"({owners[victim.index]} owned, none pending)")
+            lost_launches = fleet_backends(url)[
+                f"replica-{victim.index}"].get("kernel_launches", {})
+            t_kill = time.perf_counter()
+            os.kill(victim.proc.pid, signal.SIGKILL)
+            while not (victim.restarts == 1
+                       and victim.status == "up"):
+                if time.perf_counter() - t_kill > 300:
+                    fail(f"fleet leg 3: replica {victim.index} not back "
+                         f"({victim.status})")
+                time.sleep(0.02)
+            restart_s = time.perf_counter() - t_kill
+            answered = {key: await_served(url, rid)
+                        for key, rid in acks.items()}
+            answered_s = time.perf_counter() - t_kill
+            lost = {key: code for key, (code, _) in answered.items()
+                    if code != 200}
+            if lost:
+                fail(f"fleet leg 3: acknowledged requests lost: {lost}")
+            code, stats = serve_http(url + "/stats")
+            if code != 200:
+                fail(f"fleet: GET /stats {code}")
+            backends = fleet_backends(url)
+        finally:
+            summary = handle.stop()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    served_s = time.perf_counter() - t_phase
+    exits = [w["exit"] for w in summary["workers"]]
+    if exits != [0] * FLEET_REPLICAS:
+        fail(f"fleet: worker exits {summary}")
+
+    # What each worker reports of itself.
+    workers = {w["index"]: w for w in stats["workers"]}
+    if stats["up"] != FLEET_REPLICAS or stats["deaths"] != 1 \
+            or workers[victim.index]["restarts"] != 1:
+        fail(f"fleet: after the kill {stats['up']} up, "
+             f"{stats['deaths']} deaths")
+    replayed = workers[victim.index]["stats"]["replayed"]
+    if replayed < pending_at_kill:
+        fail(f"fleet: the restart replayed {replayed} of "
+             f"{pending_at_kill} pending requests")
+    kind = torch.cuda.get_device_name(0) if card == "cuda" else None
+    launches = collections.Counter(lost_launches)
+    for k, worker in workers.items():
+        backend = backends[f"replica-{k}"]
+        used = worker["stats"]["efficiency"]["backend"]
+        if used != card or backend["backend"] != card:
+            fail(f"fleet: replica {k} ran on {used} / {backend}")
+        if card == "cuda":
+            # binary_factor_update.cu ran in every worker: its edge
+            # entry, or its lane entry where the worker's flushes were
+            # all lane-packed (the restarted worker's replay may be).
+            counts = backend.get("kernel_launches", {})
+            if backend.get("device_name") != kind \
+                    or "binary_factor_update" not in backend.get(
+                        "kernel_libraries", ()) \
+                    or not any(n for name, n in counts.items()
+                               if name.startswith("binary_factor_update")):
+                fail(f"fleet: replica {k} reports {backend}")
+            launches.update(counts)
+
+    # The answers: every one against its solo solve, card and CPU.
+    t_check = time.perf_counter()
+    where = [card] if card == "cpu" else [card, "cpu"]
+    for key in sorted(set(served) | set(answered)):
+        got = [served[key]] if key in served else []
+        if key in answered:
+            got.append(answered[key][1])
+        for dev in where:
+            solo = api.solve(mixed_dcop(*key), "maxsum",
+                             max_cycles=SERVE_MIXED_CYCLES, device=dev)
+            for res in got:
+                _served_equal(f"fleet {key} vs {dev}", res, solo)
+    for dev in where:
+        solo = api.solve(flagship, "maxsum", max_cycles=FLEET_BIN_CYCLES,
+                         device=dev)
+        for k, res in enumerate(flagship_served):
+            _served_equal(f"fleet flagship copy {k} vs {dev}", res, solo)
+    check_s = time.perf_counter() - t_check
+    return dict(
+        replicas=FLEET_REPLICAS, device=card, prep_s=prep_s,
+        start_s=start_s, restart_s=restart_s,
+        answered_after_kill_s=answered_s, served_s=served_s,
+        check_s=check_s,
+        mixed=dict(requests=len(draws), clients=SERVE_MIXED_CLIENTS,
+                   stream_s=stream_s,
+                   problems_per_s=len(draws) / stream_s,
+                   p50_ms=_percentile(latencies, 50) * 1e3,
+                   p99_ms=_percentile(latencies, 99) * 1e3,
+                   distinct_instances=len(served),
+                   ledger_mean_s=_mean_ledger(list(served.values())),
+                   slowest_ledger_s=max(
+                       (r["ledger"] for r in served.values()),
+                       key=lambda ledger: sum(ledger.values()))),
+        flagship_bin=dict(members=FLEET_BIN_MEMBERS, n_vars=FLAGSHIP_VARS,
+                          cycles=FLEET_BIN_CYCLES, wall_s=bin_s,
+                          ledgers_s=[r["ledger"] for r in flagship_served],
+                          flushes=[r["batch"] for r in flagship_served],
+                          replicas=sorted({router.pinned(r["id"]).index
+                                           for r in flagship_served})),
+        kill=dict(requests=len(acks), victim=victim.index,
+                  owned_by_victim=owners[victim.index],
+                  pending_at_kill=pending_at_kill, replayed=replayed,
+                  lost=0),
+        affinity_hit_fraction=stats["affinity_hit_fraction"],
+        routed=stats["routed"], reroutes=stats["reroutes"],
+        worker_exits=exits,
+        workers={k: dict(
+            backend=backends[f"replica-{k}"]["backend"],
+            device_name=backends[f"replica-{k}"].get("device_name"),
+            kernel_libraries=backends[f"replica-{k}"].get(
+                "kernel_libraries"),
+            forwarded=w["forwarded"], restarts=w["restarts"],
+            dispatches=w["stats"]["dispatches"],
+            lane_dispatches=w["stats"]["lane_dispatches"],
+            envelope_dispatches=w["stats"]["envelope_dispatches"])
+            for k, w in workers.items()},
+        launches=dict(launches))
+
+
 def main() -> int:
     import torch
 
@@ -6117,6 +6410,28 @@ def main() -> int:
          scale_S4=sharded["scale"]["ms_per_cycle"],
          scale_unsharded=sharded["scale"]["unsharded_ms_per_cycle"])
     new_paths["sharded"] = sharded["main"]["launches"]
+
+    # 16. The fleet slice: api.serve(replicas=2) on the card, two
+    # worker processes behind the router; the mixed stream, a flagship
+    # bin, SIGKILL mid-burst.  The launches are the workers' own counts
+    # (each process starts at 0), summed over the live workers and the
+    # killed one's last report.
+    fleet = phase_fleet(ctx)
+    emit("fleet", **fleet)
+    emit("fleet_problems_per_s", card=smi,
+         fleet_mixed_stream=fleet["mixed"]["problems_per_s"],
+         serve_mixed_stream=serve["mixed"]["problems_per_s"])
+    emit("fleet_latency_ms", card=smi, fleet_p50=fleet["mixed"]["p50_ms"],
+         fleet_p99=fleet["mixed"]["p99_ms"],
+         serve_p50=serve["mixed"]["p50_ms"],
+         serve_p99=serve["mixed"]["p99_ms"])
+    emit("fleet_seconds", card=smi, phase_s=fleet["served_s"],
+         check_s=fleet["check_s"], worker_start_s=fleet["start_s"],
+         worker_restart_s=fleet["restart_s"],
+         answered_after_kill_s=fleet["answered_after_kill_s"],
+         flagship_bin_s=fleet["flagship_bin"]["wall_s"],
+         affinity_hit_fraction=fleet["affinity_hit_fraction"])
+    new_paths["fleet"] = fleet["launches"]
 
     # 7. Fixture parity: the verify oracle.
     fixture = os.path.join(HERE, "tests", "instances", "coloring_12_3.yml")

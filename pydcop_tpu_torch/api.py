@@ -338,13 +338,8 @@ def _solve_segmented(dcop: DCOP, algo_def: AlgorithmDef, module, *,
 
 
 # ------------------------------------------------------------------ #
-# Serving (port of the reference's ``api.serve``, single replica).
-
-# Where the fleet knobs stand: raised, never silently ignored.
-_FLEET_NOT_PORTED = (
-    "is fleet serving, which is not ported yet (ROADMAP.md, Queue A "
-    "item 5(b): serving/router.py and the elastic fleet); the port "
-    "serves one replica")
+# Serving (port of the reference's ``api.serve``: one replica, or a
+# fixed-size fleet of worker processes behind the router).
 
 
 class ServeHandle:
@@ -374,6 +369,37 @@ class ServeHandle:
         return self.service.stop(drain=drain)
 
     def __enter__(self) -> "ServeHandle":
+        return self
+
+    def __exit__(self, *exc):
+        self.stop()
+        return False
+
+
+class FleetHandle:
+    """A running fleet: N serve-worker processes behind one router
+    front end.  ``router`` is the
+    :class:`~pydcop_tpu_torch.serving.router.FleetRouter` (replica
+    states, routing stats); ``stop()`` SIGTERM-drains every worker and
+    shuts the front end down."""
+
+    def __init__(self, router, front_end):
+        self.router = router
+        self.front_end = front_end
+
+    @property
+    def url(self):
+        return self.front_end.url
+
+    @property
+    def port(self):
+        return self.front_end.port
+
+    def stop(self, drain: bool = True) -> Dict[str, Any]:
+        self.front_end.stop()
+        return self.router.stop(drain=drain)
+
+    def __enter__(self) -> "FleetHandle":
         return self
 
     def __exit__(self, *exc):
@@ -433,7 +459,7 @@ def serve(port: int = 8080, host: str = "127.0.0.1",
           fleet_trace: Optional[bool] = None,
           port_file: Optional[str] = None,
           block: bool = False,
-          device: DeviceLike = "cuda") -> Optional[ServeHandle]:
+          device: DeviceLike = "cuda") -> Optional[Any]:
     """Start the multi-tenant solve service on one torch device (the
     reference's ``api.serve``, docs/serving.md).
 
@@ -460,31 +486,60 @@ def serve(port: int = 8080, host: str = "127.0.0.1",
     ``device`` (default ``"cuda"``) is where every dispatch runs;
     without a card this raises unless ``device="cpu"``.
 
-    The fleet knobs — ``replicas > 1``, ``hosts > 1``, ``join``,
-    ``min_replicas``/``max_replicas`` and ``slo_p99_ms`` — raise
-    ``NotImplementedError``: the fleet router is not ported yet.
-    ``affinity``, ``heartbeat_s``, ``probe_timeout_s``,
-    ``spill_slack`` and ``host_id`` only shape a fleet and, as in the
-    reference's single-replica path, do nothing here.
+    ``replicas=N`` (N > 1) spawns N ``serve`` worker processes on
+    ``device`` — each a full solve service with its own scheduler
+    thread, journal segment (``<journal_dir>/replica-<k>/``) and
+    /metrics — behind a structure-affinity router speaking this same
+    wire protocol (serving/router.py); the return value is then a
+    :class:`FleetHandle`.  The device is resolved before any worker is
+    spawned.  ``affinity`` (``"structure"`` or ``"round_robin"``),
+    ``heartbeat_s``, ``probe_timeout_s``, ``spill_slack`` and
+    ``hosts`` (simulated host ids striped over the replicas) shape the
+    fleet; ``fleet_trace`` turns its causal tracing on or off (exported
+    as ``PYDCOP_FLEET_TRACE`` so the workers inherit it).  The elastic
+    fleet's knobs — ``join``, ``min_replicas``/``max_replicas`` and
+    ``slo_p99_ms`` — raise ``NotImplementedError`` (ROADMAP.md, Queue A
+    item 5(c)); ``host_id`` only goes with ``join``.
 
     ``port=0`` asks the OS for a free port (``port_file`` atomically
     publishes it).  ``block=True`` (the CLI) serves until
     SIGTERM/SIGINT, then stops WITH drain and returns None;
-    ``block=False`` returns a :class:`ServeHandle`."""
+    ``block=False`` returns a :class:`ServeHandle` (or
+    :class:`FleetHandle`)."""
     import os
 
-    for name, value, default in (
-            ("replicas", replicas, 1), ("hosts", hosts, 1),
-            ("join", join, None), ("min_replicas", min_replicas, None),
-            ("max_replicas", max_replicas, None),
-            ("slo_p99_ms", slo_p99_ms, None)):
-        if value is not None and value != default and not (
-                name in ("replicas", "hosts") and value < 1):
-            raise NotImplementedError(
-                f"{name}={value!r} {_FLEET_NOT_PORTED}")
-    resolve_device(device)
+    for name, value in (("join", join), ("min_replicas", min_replicas),
+                        ("max_replicas", max_replicas),
+                        ("slo_p99_ms", slo_p99_ms)):
+        if value is not None:
+            from pydcop_tpu_torch.serving.router import refuse_elastic
+
+            refuse_elastic(f"{name}={value!r}")
+    dev = resolve_device(device)
     if fleet_trace is not None:
         os.environ["PYDCOP_FLEET_TRACE"] = "1" if fleet_trace else "0"
+    if replicas > 1:
+        return _serve_fleet(
+            port=port, host=host, max_queue=max_queue,
+            batch_window_s=batch_window_s, max_batch=max_batch,
+            high_water=high_water, default_params=default_params,
+            breaker_failures=breaker_failures,
+            breaker_reset_s=breaker_reset_s, result_keep=result_keep,
+            journal_dir=journal_dir, journal_sync=journal_sync,
+            envelope_packing=envelope_packing,
+            envelope_overhead_ms=envelope_overhead_ms,
+            pipeline=pipeline, speculate=speculate,
+            session_max=session_max,
+            session_segment_cycles=session_segment_cycles,
+            session_checkpoint_every_events=(
+                session_checkpoint_every_events),
+            session_certify_after=session_certify_after,
+            replicas=replicas, affinity=affinity,
+            compile_cache_dir=compile_cache_dir,
+            heartbeat_s=heartbeat_s,
+            probe_timeout_s=probe_timeout_s,
+            spill_slack=spill_slack, hosts=hosts,
+            port_file=port_file, block=block, device=dev.type)
     if compile_cache_dir:
         # Before the service loads any kernel library.
         from pydcop_tpu_torch.engine.aotcache import (
@@ -544,6 +599,102 @@ def serve(port: int = 8080, host: str = "127.0.0.1",
             f"{summary['drained']} request(s) drained, "
             f"{summary['replayable']} journaled replayable, "
             f"{summary['failed_pending']} failed pending"))
+    return None
+
+
+def _serve_fleet(*, port, host, max_queue, batch_window_s, max_batch,
+                 high_water, default_params, breaker_failures,
+                 breaker_reset_s, result_keep, journal_dir,
+                 journal_sync, envelope_packing, envelope_overhead_ms,
+                 pipeline, speculate,
+                 session_max, session_segment_cycles,
+                 session_checkpoint_every_events,
+                 session_certify_after, replicas, affinity,
+                 compile_cache_dir, heartbeat_s, probe_timeout_s,
+                 spill_slack, hosts, port_file, block,
+                 device: str) -> Optional[FleetHandle]:
+    """The ``replicas > 1`` serve path: build the worker CLI tail
+    from the same kwargs the single-service path consumes (so the two
+    cannot drift), spawn the fleet on ``device`` (``"cuda"`` or
+    ``"cpu"``, already resolved), mount the router front end."""
+    import json
+    import sys
+
+    from pydcop_tpu_torch.serving.router import (
+        FleetRouter,
+        RouterFrontEnd,
+    )
+
+    params = dict(default_params or {})
+    worker_args = [
+        "--max_queue", str(max_queue),
+        "--batch_window", str(batch_window_s),
+        "--max_batch", str(max_batch),
+        "--breaker_failures", str(breaker_failures),
+        "--breaker_reset", str(breaker_reset_s),
+        "--result_keep", str(result_keep),
+        "--session_max", str(session_max),
+        "--session_checkpoint_every",
+        str(session_checkpoint_every_events),
+    ]
+    if high_water is not None:
+        worker_args += ["--high_water", str(high_water)]
+    if "max_cycles" in params:
+        worker_args += ["--cycles", str(params["max_cycles"])]
+    if "damping" in params:
+        worker_args += ["--damping", str(params["damping"])]
+    # Every other default-param key rides as JSON: a replicas=2
+    # service dropping the caller's stability/noise/prune defaults
+    # would solve differently than replicas=1.
+    extra_params = {k: v for k, v in params.items()
+                    if k not in ("max_cycles", "damping")}
+    if extra_params:
+        worker_args += ["--params_json", json.dumps(extra_params)]
+    if journal_sync:
+        worker_args += ["--journal_sync"]
+    if not envelope_packing:
+        worker_args += ["--no_envelope"]
+    if not pipeline:
+        worker_args += ["--no_pipeline"]
+    if not speculate:
+        worker_args += ["--no_speculate"]
+    if envelope_overhead_ms is not None:
+        worker_args += ["--envelope_overhead_ms",
+                        str(envelope_overhead_ms)]
+    if session_segment_cycles is not None:
+        worker_args += ["--session_segment_cycles",
+                        str(session_segment_cycles)]
+    if session_certify_after is not None:
+        worker_args += ["--session_certify_after",
+                        str(session_certify_after)]
+    router = FleetRouter(
+        replicas=replicas, worker_args=worker_args,
+        journal_dir=journal_dir,
+        compile_cache_dir=compile_cache_dir, affinity=affinity,
+        heartbeat_s=heartbeat_s, probe_timeout_s=probe_timeout_s,
+        spill_slack=spill_slack, default_params=params, hosts=hosts,
+        device=device,
+    ).start()
+    try:
+        front_end = RouterFrontEnd(router, port=port,
+                                   host=host).start()
+    except Exception:
+        router.stop(drain=False)
+        raise
+    handle = FleetHandle(router, front_end)
+    print(f"pydcop serve: fleet of {replicas} replica(s) on {device} "
+          f"behind {handle.url} (affinity={affinity})", file=sys.stderr)
+    if port_file:
+        _write_port_file(port_file, handle.port)
+    if not block:
+        return handle
+    _serve_until_signal(
+        handle,
+        lambda summary: (
+            "pydcop serve: fleet shut down — worker exits "
+            + ", ".join(
+                f"replica-{w['index']}={w['exit']}"
+                for w in summary["workers"])))
     return None
 
 

@@ -1,12 +1,14 @@
 """``python -m pydcop_tpu_torch serve``: run the multi-tenant solve
 service.
 
-Port of ``pydcop_tpu/commands/serve.py`` (the same flags), one replica
-on one device (``--device cuda|cpu``, default ``cuda``: without a card
-the command exits with an error — there is no CPU fallback).  The fleet
-flags (``--replicas`` > 1, ``--hosts`` > 1, ``--join``,
-``--min_replicas``/``--max_replicas``, ``--slo_p99_ms``) are accepted
-and refused with an error: the fleet router is not ported yet.
+Port of ``pydcop_tpu/commands/serve.py`` (the same flags) on one device
+(``--device cuda|cpu``, default ``cuda``: without a card the command
+exits with an error — there is no CPU fallback).  ``--replicas N``
+(N > 1) serves a fixed-size fleet: N worker processes of this command,
+each on ``--device``, behind the router (serving/router.py).  The
+elastic fleet's flags (``--join``, ``--min_replicas``/
+``--max_replicas``, ``--slo_p99_ms``) are accepted and refused with an
+error (ROADMAP.md, Queue A item 5(c)).
 """
 
 import logging
@@ -331,7 +333,7 @@ def run_cmd(args) -> int:
             device=args.device,
         )
     except NotImplementedError as exc:
-        # A fleet knob: the router is not ported yet.
+        # An elastic-fleet knob (ROADMAP.md, Queue A item 5(c)).
         logger.error("%s", exc)
         print(f"Error: {exc}", file=sys.stderr)
         return 2

@@ -34,8 +34,12 @@ file defines, one ``python -m pydcop_tpu_torch`` process a job
 (``commands/batch.py``).  ``python -m pydcop_tpu_torch serve
 [--device cuda|cpu] [--port P] [--journal_dir D [--recover]] ...``
 runs the solve service over HTTP (``commands/serve.py``,
-``api.serve``); without ``--device cpu`` and no card it exits with an
-error.  ``python -m pydcop_tpu_torch debug bundle [--url URL] [--out
+``api.serve``); with ``--replicas N`` it spawns N worker processes on
+that device behind the fleet router; without ``--device cpu`` and no
+card it exits with an error.  ``python -m pydcop_tpu_torch fleet
+forensics ID --url URL | --trace FILE...`` prints one request's causal
+tree across the router and its replicas (``commands/fleet.py``).
+``python -m pydcop_tpu_torch debug bundle [--url URL] [--out
 PATH]`` cuts a flight-recorder postmortem bundle
 (``commands/debug.py``).
 
@@ -225,10 +229,12 @@ def make_parser() -> argparse.ArgumentParser:
     profile_cmd.set_parser(sub)
     batch_cmd.set_parser(sub)
     from pydcop_tpu_torch.commands import debug as debug_cmd
+    from pydcop_tpu_torch.commands import fleet as fleet_cmd
     from pydcop_tpu_torch.commands import serve as serve_cmd
 
     serve_cmd.set_parser(sub)
     debug_cmd.set_parser(sub)
+    fleet_cmd.set_parser(sub)
     return parser
 
 

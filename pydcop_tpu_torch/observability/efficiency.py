@@ -15,9 +15,12 @@ the backend the solve's tensors ran on — ``cuda`` or ``cpu``, noted by
 the engine from its device (:func:`note_backend`) — plus the
 accelerator-probe outcome from ``utils.cleanenv.diag_events``.
 
-The serving, batch, envelope and session ledgers (the reference's
-``pooled_rollup`` and the dispatch recorders' callers) wait for the
-batched-solving and serving slices.  ``PYDCOP_EFFICIENCY=0`` disables
+On the card the backend block also names the card and what this
+process loaded and launched (``device_name``, ``kernel_libraries``,
+``kernel_launches`` from ``ops/_build.py``): how a fleet worker's
+``/profile`` shows that its dispatches ran through the hand kernels.
+:func:`pooled_rollup` pools the replicas' rollups into the fleet
+router's ``GET /fleet/profile``.  ``PYDCOP_EFFICIENCY=0`` disables
 recording entirely.
 """
 
@@ -107,6 +110,13 @@ def resolved_backend(refresh: bool = False) -> Dict[str, Any]:
 
         out["n_devices"] = (torch.cuda.device_count()
                             if torch.cuda.is_available() else 0)
+        if out["backend"] == "cuda":
+            from pydcop_tpu_torch.ops import _build
+
+            out["device_name"] = torch.cuda.get_device_name(
+                torch.cuda.current_device())
+            out["kernel_libraries"] = sorted(dict(_build._libs))
+            out["kernel_launches"] = dict(_build.launch_counts)
     except Exception as exc:  # noqa: BLE001 — must answer anyway
         out["n_devices"] = 0
         out["error"] = f"{type(exc).__name__}: {exc}"[:120]
@@ -626,3 +636,85 @@ tracker = EfficiencyTracker()
 
 def get_tracker() -> EfficiencyTracker:
     return tracker
+
+
+def pooled_rollup(docs: Dict[str, Dict[str, Any]]) -> Dict[str, Any]:
+    """Pool per-replica ``rollup()`` documents (keyed by source name)
+    into one fleet-level view — the ``GET /fleet/profile`` body.
+
+    Additive pieces (ledger component seconds and counts, waste by
+    cause, jit dispatch/compile totals, pipeline overlap) sum;
+    attainment pools as a device-time-weighted mean (a busy replica's
+    attainment must dominate an idle one's); the per-replica
+    documents ride along untouched under ``replicas`` so nothing is
+    hidden by the pooling."""
+    ledger_components: Dict[str, float] = {}
+    ledger_counts: Dict[str, int] = {}
+    waste: Dict[str, float] = {}
+    jit = {"cold_dispatches": 0, "warm_dispatches": 0,
+           "cold_compile_s": 0.0}
+    pipeline = {"overlap_s": 0.0, "execute_s": 0.0, "dispatches": 0}
+    total_s = 0.0
+    unaccounted = 0.0
+    att_weight = 0.0
+    att_sum = 0.0
+    per_replica: Dict[str, Any] = {}
+    for source in sorted(docs):
+        doc = docs[source] or {}
+        per_replica[source] = doc
+        ledger = doc.get("ledger") or {}
+        for k, v in (ledger.get("components_s") or {}).items():
+            ledger_components[k] = (ledger_components.get(k, 0.0)
+                                    + float(v or 0.0))
+        for k, v in (ledger.get("counts") or {}).items():
+            ledger_counts[k] = ledger_counts.get(k, 0) + int(v or 0)
+        total_s += float(ledger.get("total_s") or 0.0)
+        unaccounted += float(ledger.get("unaccounted_abs_s") or 0.0)
+        for k, v in (doc.get("waste_by_cause") or {}).items():
+            waste[k] = waste.get(k, 0.0) + float(v or 0.0)
+        doc_jit = doc.get("jit") or {}
+        jit["cold_dispatches"] += int(
+            doc_jit.get("cold_dispatches") or 0)
+        jit["warm_dispatches"] += int(
+            doc_jit.get("warm_dispatches") or 0)
+        jit["cold_compile_s"] += float(
+            doc_jit.get("cold_compile_s") or 0.0)
+        doc_pipe = doc.get("pipeline") or {}
+        pipeline["overlap_s"] += float(
+            doc_pipe.get("overlap_s") or 0.0)
+        pipeline["execute_s"] += float(
+            doc_pipe.get("execute_s") or 0.0)
+        pipeline["dispatches"] += int(
+            doc_pipe.get("dispatches") or 0)
+        for agg in (doc.get("backends") or {}).values():
+            att = agg.get("attainment")
+            weight = float(agg.get("execute_s") or 0.0)
+            if att is not None and weight > 0:
+                att_sum += float(att) * weight
+                att_weight += weight
+    return {
+        "replicas": per_replica,
+        "n_replicas": len(per_replica),
+        "attainment": (round(att_sum / att_weight, 6)
+                       if att_weight > 0 else None),
+        "ledger": {
+            "components_s": {k: round(v, 6) for k, v in
+                             sorted(ledger_components.items())},
+            "total_s": round(total_s, 6),
+            "unaccounted_abs_s": round(unaccounted, 6),
+            "counts": ledger_counts,
+        },
+        "waste_by_cause": {k: round(v, 6)
+                           for k, v in sorted(waste.items())},
+        "jit": {"cold_dispatches": jit["cold_dispatches"],
+                "warm_dispatches": jit["warm_dispatches"],
+                "cold_compile_s": round(jit["cold_compile_s"], 6)},
+        "pipeline": {
+            "overlap_s": round(pipeline["overlap_s"], 6),
+            "execute_s": round(pipeline["execute_s"], 6),
+            "dispatches": pipeline["dispatches"],
+        },
+        "pipeline_overlap_fraction": (
+            round(pipeline["overlap_s"] / pipeline["execute_s"], 6)
+            if pipeline["execute_s"] > 0 else 0.0),
+    }

@@ -23,12 +23,15 @@ Port of ``pydcop_tpu/serving`` (docs/serving.md), the in-process plane:
   ``/events``) alongside;
 - :mod:`.sessions` — stateful solve sessions (docs/sessions.md) on
   the port's ``DynamicMaxSumEngine``;
+- :mod:`.router` — the fixed-size fleet: :class:`FleetRouter` spawns
+  N serve-worker processes and routes over them by structure
+  affinity, :class:`RouterFrontEnd` speaks the single service's wire
+  protocol in front of them (the elastic fleet is refused);
 - :mod:`.speculate`, :mod:`.migration`, :mod:`.netfault`.
 
-The exports are the reference's, without ``FleetRouter`` and
-``RouterFrontEnd`` (the fleet router is not ported yet).  They are
-resolved on first use, so ``engine/batch.py`` can import
-:mod:`.binning` without loading the service.
+The exports are the reference's.  They are resolved on first use, so
+``engine/batch.py`` can import :mod:`.binning` without loading the
+service.
 
 Entry points: ``python -m pydcop_tpu_torch serve`` (commands/serve.py)
 and :func:`pydcop_tpu_torch.api.serve`.
@@ -41,6 +44,8 @@ _EXPORTS = {
     "AdmissionPolicy": "admission",
     "AdmissionRejected": "admission",
     "QueueFull": "admission",
+    "FleetRouter": "router",
+    "RouterFrontEnd": "router",
     "ServiceUnavailable": "admission",
     "RequestJournal": "journal",
     "SolveRequest": "service",

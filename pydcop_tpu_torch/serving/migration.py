@@ -53,8 +53,9 @@ observes at most a reconnect and a 409-retry window, never a lost
 acked event.  docs/serving.md "Elastic fleet".
 
 A copy of ``pydcop_tpu/serving/migration.py``: the same bundle
-document.  ``migrate_session`` and ``adopt_dead_sessions`` take the
-router as an argument; the router itself is not ported yet.
+document.  The fleet router (serving/router.py) drives
+``migrate_session`` (``POST /admin/migrate``) and
+``adopt_dead_sessions`` (a replica's death).
 """
 
 import base64

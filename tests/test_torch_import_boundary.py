@@ -15,13 +15,15 @@ and the serving slice: the service, scheduler, sessions, journal,
 admission, retry, speculation, migration, link-fault seam, fleet trace,
 HTTP front end, library cache and the serve and debug commands, and
 the partitioned slice: the partitioner, the sharded engine's device
-side, the multihost join and the halo reduction's wrapper), then
+side, the multihost join and the halo reduction's wrapper, and the
+fleet slice: the router, the phi-accrual estimator and the fleet
+command), then
 ``sys.modules`` must hold no ``jax*``
 module and no ``pydcop_tpu``/``pydcop_tpu.*`` module.  The sources of
 the package, of chip_smoke.py, chip_compare.py,
 chip_var_update_compare.py and of the card-only test files of the local
 search, the exact slice, the dynamic slice, the batch slice, the
-serving slice and the partitioned slice are also
+serving slice, the partitioned slice and the fleet slice are also
 scanned for such
 imports (the scan reads the imports inside functions too, such as the
 portfolio racer's).
@@ -138,6 +140,9 @@ REQUIRED = [
     "pydcop_tpu_torch.engine.sharding",
     "pydcop_tpu_torch.engine.multihost",
     "pydcop_tpu_torch.ops.halo_sum",
+    "pydcop_tpu_torch.serving.router",
+    "pydcop_tpu_torch.resilience.health",
+    "pydcop_tpu_torch.commands.fleet",
 ]
 
 # The partitioned slice's modules, each scanned on its own below.
@@ -183,7 +188,8 @@ SOURCES = sorted(
        REPO / "tests" / "test_torch_gpu_dynamic.py",
        REPO / "tests" / "test_torch_gpu_batch.py",
        REPO / "tests" / "test_torch_gpu_serve.py",
-       REPO / "tests" / "test_torch_gpu_sharding.py"]
+       REPO / "tests" / "test_torch_gpu_sharding.py",
+       REPO / "tests" / "test_torch_gpu_fleet.py"]
 )
 
 
@@ -198,6 +204,30 @@ def test_source_imports_neither_jax_nor_the_reference(source):
 def test_partitioned_slice_imports_neither_jax_nor_the_reference(source):
     """The partitioned slice's modules exist and import neither JAX nor
     the JAX package (its partitioner is a copy, not an import)."""
+    path = REPO / source
+    assert path.exists(), source
+    assert source in SOURCES
+    roots = {name.split(".")[0] for name in _imported_roots(path)}
+    assert not roots & {"jax", "jaxlib", "pydcop_tpu"}, (source, roots)
+
+
+# The fleet slice's modules, each scanned on its own.
+FLEET_SLICE = [
+    "pydcop_tpu_torch/serving/router.py",
+    "pydcop_tpu_torch/resilience/health.py",
+    "pydcop_tpu_torch/commands/fleet.py",
+    "pydcop_tpu_torch/observability/efficiency.py",
+    "pydcop_tpu_torch/api.py",
+    "chip_smoke.py",
+    "tests/test_torch_gpu_fleet.py",
+]
+
+
+@pytest.mark.parametrize("source", FLEET_SLICE)
+def test_fleet_slice_imports_neither_jax_nor_the_reference(source):
+    """The fleet slice's modules exist and import neither JAX nor the
+    JAX package (the router, its estimator and the forensics command
+    are copies, not imports)."""
     path = REPO / source
     assert path.exists(), source
     assert source in SOURCES

@@ -1,7 +1,7 @@
 """The port's serving entry points and CLI on the CPU:
-``api.serve`` and ``python -m pydcop_tpu_torch serve``, the fleet knobs
-that refuse, the device rule, and the reference's global options and
-``solve`` flags the CLI gained with them (``-t/--timeout``,
+``api.serve`` and ``python -m pydcop_tpu_torch serve``, the elastic
+fleet's knobs that refuse, the device rule, and the reference's global
+options and ``solve`` flags the CLI gained with them (``-t/--timeout``,
 ``--output``, ``-v/--verbosity``, ``--version``;
 ``--flight_recorder_events``, ``--profile``).
 
@@ -47,14 +47,15 @@ def _cold_dispatch_caches(monkeypatch, tmp_path):
         yield
 
 
-FLEET_KNOBS = [("replicas", 2), ("hosts", 2), ("join", "http://x:1"),
-               ("min_replicas", 1), ("max_replicas", 4),
-               ("slo_p99_ms", 50.0)]
+# The elastic fleet's knobs (``replicas`` and ``hosts`` serve a
+# fixed-size fleet since the router's port: tests/test_torch_fleet_*.py).
+FLEET_KNOBS = [("join", "http://x:1"), ("min_replicas", 1),
+               ("max_replicas", 4), ("slo_p99_ms", 50.0)]
 
 
 @pytest.mark.parametrize("name,value", FLEET_KNOBS)
 def test_fleet_knobs_raise_naming_the_roadmap_item(name, value):
-    with pytest.raises(NotImplementedError, match=r"Queue A item 5\(b\)"):
+    with pytest.raises(NotImplementedError, match=r"Queue A item 5\(c\)"):
         api.serve(port=0, device="cpu", **{name: value})
 
 
@@ -69,8 +70,8 @@ def test_serve_refuses_without_a_card():
 
 def test_cli_fleet_flag_exits_2(capsys):
     assert dcop_cli.main(["serve", "--device", "cpu", "--port", "0",
-                          "--replicas", "2"]) == 2
-    assert "Queue A item 5(b)" in capsys.readouterr().err
+                          "--replicas", "2", "--max_replicas", "4"]) == 2
+    assert "Queue A item 5(c)" in capsys.readouterr().err
 
 
 def test_api_serve_handle_solves_like_the_reference():
