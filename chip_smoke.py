@@ -3910,9 +3910,9 @@ LANE_SUM_D = [1, 2, 3, 4, 5, 6, 7, 8, 11, 33]
 LANE_SCALE_COMPARE = 5       # card = CPU cycles at scale, lane layout
 LANE_TRACE_CYCLES = 30
 # Stacked instances of build_dcop_small (64 until the lane kernels
-# slice: cut to keep the script's time; the 64 compiles and solo solves
-# were most of the phase).
-BATCH_MEMBERS = 32
+# slice, 32 until the elastic fleet's: cut to keep the script's time;
+# the compiles and solo solves are most of the phase).
+BATCH_MEMBERS = 16
 BATCH_VARS = 10_000
 BATCH_CPU_CYCLES = 20        # the stack's card = CPU comparison
 MIXED_STRUCTS = 24           # build_dcop_mixed structures
@@ -4723,7 +4723,7 @@ def phase_batch_envelope_lane(ctx):
 
 # The serving slice: api.serve on the card.
 SERVE_BIN_VARS = 10_000       # the batch phase's width
-SERVE_BIN_MEMBERS = 16
+SERVE_BIN_MEMBERS = 8         # 16 until the elastic fleet's legs: time
 SERVE_BIN_CYCLES = 200
 SERVE_MIXED_CYCLES = 60       # bench.py's mixed serving leg
 SERVE_MIXED_REQUESTS = 64
@@ -5319,7 +5319,7 @@ def halo_sum_check(torch, hs, label: str, s: int, b: int, d: int,
 
 
 def subset_sum_check(torch, seg_mod, sh, f2v, n_bnd: int, d: int,
-                     card: str = "cuda"):
+                     card: str = "cuda", label: str = "the flagship shard"):
     """The boundary partial (segment_sum.cu's subset entry) of one shard
     bit for bit against its plain version on CPU copies, timed beside its
     bound and ``index_add_`` over the gathered edges."""
@@ -5330,7 +5330,7 @@ def subset_sum_check(torch, seg_mod, sh, f2v, n_bnd: int, d: int,
     err = float((got.cpu() - want).abs().max()) if n_bnd else 0.0
     if not np.array_equal(got.cpu().numpy().view(np.int32),
                           want.numpy().view(np.int32)):
-        fail("segment_sum subset entry != plain on the flagship shard")
+        fail(f"segment_sum subset entry != plain on {label}")
     if card != "cuda":
         return dict(B=n_bnd, D=d, max_abs_err=err, ms="not measured")
     flat = torch.cat([m.reshape(-1, d) for m in f2v])
@@ -5589,6 +5589,14 @@ def phase_sharded(ctx, card="cuda"):
         partition_s=partition_s, compare_s=compare_s,
         ms_per_cycle=scale_ms,
         unsharded_ms_per_cycle=ctx.get("scale_ms_per_cycle"))
+    # The boundary partial of shard 0 at the scale shape.
+    state, _ = card_ops.run_maxsum_from(
+        card_graph, card_ops.init_state(card_graph), 2, **scale_kw)
+    out["subset_sum_timing_scale"] = subset_sum_check(
+        torch, seg_mod, card_graph.shards[0],
+        tuple(m[0] for m in state.f2v), layout.n_boundary, N_COLORS, card,
+        label=f"shard 0 of the scale arrays at S={SHARD_SCALE}")
+    del state
     out["halo_sum_timing"][f"scale_S{SHARD_SCALE}"] = halo_sum_check(
         torch, hs, f"scale S={SHARD_SCALE}", SHARD_SCALE,
         layout.n_boundary, N_COLORS, seed=400, card=card)
@@ -5599,10 +5607,25 @@ def phase_sharded(ctx, card="cuda"):
 
 FLEET_REPLICAS = 2           # worker processes sharing the one card
 FLEET_HEARTBEAT_S = 0.25
-FLEET_BIN_MEMBERS = 2        # copies of the flagship: one structure bin
+# Copies of the flagship as one structure bin (2 until the elastic
+# legs, whose prewarm replays the flagship at the same width).
+FLEET_BIN_MEMBERS = 1
 FLEET_BIN_CYCLES = 60
 FLEET_KILL_REQUESTS = 16     # the burst the SIGKILL lands in
 FLEET_KILL_SEED = 300
+# The elastic legs (bench.py bench_fleet_elastic's phases B-D) on the
+# fleet phase's router: built with FLEET_REPLICAS as its floor and one
+# more as its ceiling, the SLO armed only at run time.
+FLEET_MAX_REPLICAS = 3
+ELASTIC_SLO_UP_MS = 1.0      # below every flush: the armed check scales up
+ELASTIC_SLO_QUIET_MS = 1e9   # above every latency: quiet checks accrue
+ELASTIC_INTERVAL_S = 0.25    # the autoscale check's period in the legs
+ELASTIC_QUIET_CHECKS = 2     # quiet checks in a row before a scale-down
+ELASTIC_SESSION_PARAMS = {"noise": 0.01, "stability": 0.001,
+                          "max_cycles": 500}
+ELASTIC_REMOTE_BURST = 8     # acknowledged requests the joined worker owns
+ELASTIC_REMOTE_SEED = 700
+ELASTIC_DEADLINE_S = 300.0
 
 
 def await_served(url: str, rid: str, timeout: float = 600.0):
@@ -5630,7 +5653,491 @@ def fleet_backends(url: str):
             doc["replicas"].items()}
 
 
-def phase_fleet(ctx, card="cuda"):
+def elastic_session_problem(objects, relations, dcop_mod, seed: int,
+                            n_batches: int, params=None):
+    """bench.py ``_elastic_session_problem`` on the port: a 10-variable
+    path with integer tables, ``n_batches`` event batches, and the cost
+    the same session reaches UNINTERRUPTED (one engine on the CPU, every
+    batch applied in process, under ``params``; None without
+    ``params``) — a migrated or adopted session must end at exactly
+    this cost."""
+    from pydcop_tpu_torch.dcop.yamldcop import dcop_yaml
+    from pydcop_tpu_torch.engine.dynamic import build_dynamic_engine
+    from pydcop_tpu_torch.serving.sessions import apply_event_batch
+
+    rng = np.random.default_rng(seed)
+    dom = objects.Domain("c", "", [0, 1, 2])
+    dcop = dcop_mod.DCOP(f"elastic{seed}", objective="min")
+    vs = [objects.Variable(f"v{i}", dom) for i in range(10)]
+    for v in vs:
+        dcop.add_variable(v)
+    for k in range(9):
+        dcop.add_constraint(relations.NAryMatrixRelation(
+            [vs[k], vs[k + 1]],
+            rng.integers(0, 10, size=(3, 3)).astype(float), f"c{k}"))
+    dcop.add_agents([objects.AgentDef("a0")])
+    batches = [[{"type": "change_factor",
+                 "name": f"c{int(rng.integers(9))}",
+                 "table": rng.integers(0, 10, size=(3, 3))
+                 .astype(float).tolist()}] for _ in range(n_batches)]
+    if params is None:
+        return dcop_yaml(dcop), batches, None
+    ref = build_dynamic_engine(dcop, params, device="cpu")
+    ref.run(max_cycles=params["max_cycles"])
+    for batch in batches:
+        _asg, _touched, err = apply_event_batch(ref, batch)
+        if err is not None:
+            fail(f"elastic session {seed}: reference event failed: {err}")
+        ref.run(max_cycles=params["max_cycles"])
+    expected = ref.cost(ref.run(max_cycles=params["max_cycles"]).assignment)
+    return dcop_yaml(dcop), batches, expected
+
+
+def rendezvous_owner(router, yaml_src: str, params) -> int:
+    """The replica the router's own rendezvous pick gives a request of
+    ``yaml_src`` under ``params`` among its candidates now (idle, so no
+    spillover)."""
+    from pydcop_tpu_torch.dcop.yamldcop import load_dcop
+    from pydcop_tpu_torch.serving import binning
+    from pydcop_tpu_torch.serving.router import _rendezvous_score
+
+    merged = dict(router.default_params)
+    merged.update(params)
+    digest = binning.affinity_key(load_dcop(yaml_src), merged)
+    return max(router.candidates(),
+               key=lambda r: _rendezvous_score(digest, r.index)).index
+
+
+def session_params_for(router, yaml_src: str, target: int):
+    """ELASTIC_SESSION_PARAMS with the first ``max_cycles`` from 500
+    whose rendezvous pick is replica ``target``: the router's structure
+    key ignores the tables, so a seed cannot steer a session, and its
+    solver parameters are part of the key."""
+    for extra in range(64):
+        params = dict(ELASTIC_SESSION_PARAMS,
+                      max_cycles=ELASTIC_SESSION_PARAMS["max_cycles"]
+                      + extra)
+        if rendezvous_owner(router, yaml_src, params) == target:
+            return params
+    fail(f"elastic: no session key lands on replica {target}")
+
+
+def elastic_patch_acked(url: str, sid: str, batch, deadline_s=120.0):
+    """PATCH one event batch until it is acknowledged: 409 (frozen
+    mid-migration) and 503 (its owner recovering) mean retry."""
+    deadline = time.perf_counter() + deadline_s
+    while True:
+        code, out = serve_http(url + f"/session/{sid}/events", "PATCH", {
+            "events": batch, "wait": True, "timeout": 30.0})
+        if code == 200:
+            return out
+        if code not in (409, 503) or time.perf_counter() > deadline:
+            fail(f"elastic: PATCH {sid} not acknowledged: {code} {out}")
+        time.sleep(0.2)
+
+
+def elastic_close_session(url: str, sid: str, deadline_s=120.0):
+    """Wait for the session's last segment to converge, then close it;
+    returns the close document (its final ``cost``)."""
+    deadline = time.perf_counter() + deadline_s
+    while time.perf_counter() < deadline:
+        code, doc = serve_http(url + f"/session/{sid}")
+        if code == 200 and (doc.get("last") or {}).get("converged"):
+            break
+        time.sleep(0.05)
+    code, final = serve_http(url + f"/session/{sid}", "DELETE")
+    if code != 200:
+        fail(f"elastic: closing {sid}: {code} {final}")
+    return final
+
+
+def elastic_session(url: str, router, yaml_src: str, params, batches,
+                    target: int, label: str):
+    """Open a session (its pick must be replica ``target``) and apply
+    its first two batches; returns the session id."""
+    code, opened = serve_http(url + "/session", "POST",
+                              {"dcop": yaml_src, "params": params})
+    if code != 201:
+        fail(f"elastic {label}: session open {code}: {opened}")
+    sid = opened["session_id"]
+    owner = router.pinned(sid, router._session_pins)
+    if owner is None or owner.index != target:
+        fail(f"elastic {label}: session on {owner and owner.index}, "
+             f"not replica {target}")
+    for seq, batch in enumerate(batches[:2], 1):
+        ack = elastic_patch_acked(url, sid, batch)
+        if ack.get("seq") != seq:
+            fail(f"elastic {label}: batch {seq} acknowledged as {ack}")
+    return sid
+
+
+def worker_profile(url: str):
+    """One worker's own ``/profile`` backend block."""
+    code, doc = serve_http(url + "/profile")
+    if code != 200:
+        fail(f"elastic: GET {url}/profile {code}: {doc}")
+    return doc["backend"]
+
+
+def _wait_for(what: str, cond, deadline_s=ELASTIC_DEADLINE_S, every=0.02,
+              alive=None):
+    """Poll ``cond`` until it is true; fail after ``deadline_s`` or as
+    soon as ``alive()`` is false (a worker that died)."""
+    t0 = time.perf_counter()
+    while not cond():
+        if alive is not None and not alive():
+            fail(f"elastic: {what}: the worker died")
+        if time.perf_counter() - t0 > deadline_s:
+            fail(f"elastic: {what}: not within {deadline_s} s")
+        time.sleep(every)
+    return time.perf_counter() - t0
+
+
+def _check_backend(label, backend, card, kind, built_none=False):
+    """A worker's backend block: it ran on ``card``; on the card it
+    names the card and launched binary_factor_update.cu (its edge or
+    its lane entry), and with ``built_none`` it loaded libraries from
+    the shared directory and built none."""
+    if backend.get("backend") != card:
+        fail(f"elastic: {label} ran on {backend}")
+    if card != "cuda":
+        return
+    counts = backend.get("kernel_launches", {})
+    if backend.get("device_name") != kind or not any(
+            n for name, n in counts.items()
+            if name.startswith("binary_factor_update")):
+        fail(f"elastic: {label} reports {backend}")
+    cache = backend.get("compile_cache") or {}
+    if built_none and not (cache.get("hits", 0) > 0
+                           and cache.get("misses", 0) == 0):
+        fail(f"elastic: {label} built kernel libraries: {cache}")
+
+
+def fleet_elastic_legs(ctx, handle, card, flagship_yaml, mixed_dcop,
+                       tmp):
+    """The elastic fleet on a running fleet's router (``handle``, built
+    with ``min_replicas=FLEET_REPLICAS`` and ``max_replicas=
+    FLEET_MAX_REPLICAS`` and no SLO, so its autoscaler is unarmed until
+    here): bench.py bench_fleet_elastic's phases B-D at the port's
+    shapes.
+
+    1. Scale up: admit a flagship problem (FLEET_BIN_CYCLES cycles), arm
+       an SLO every flush breaches: exactly one worker is spawned on
+       ``card``, prewarmed by replaying the last four admission
+       exemplars (the flagship among them) before it takes traffic —
+       its ``/profile`` shows the card and kernel launches while the
+       router has routed it nothing, its compile-cache counts libraries
+       loaded and none built — and the serve phase's mixed stream then
+       runs through the three workers.
+    2. Join: ``serve --join <router> --device <card>`` in a process the
+       router did not spawn; it shows ``up`` with ``managed: false``,
+       is given a session (two batches) and ELASTIC_REMOTE_BURST
+       acknowledged requests it owns, every one answered, its
+       ``/profile`` naming the card.  With four workers up the card's
+       memory in use is read.
+    3. Scale down: a session with two batches applied on the scaled-up
+       worker, then an SLO far above every latency: the worker is
+       drained (its session migrated to a survivor) and retired; the
+       session's next batches land in sequence and its final cost is
+       the uninterrupted cost exactly.
+    4. Remote death: SIGKILL of the joined worker: the router marks it
+       down, never restarts it, and adopts its session onto a survivor
+       from the journal it announced; the session's next batch lands as
+       seq 3 and its final cost is the uninterrupted cost exactly.
+
+    Returns the legs' timings and counts, the answers (keyed like the
+    fleet phase's, for the solo comparisons) and the two new workers'
+    kernel launches.  Every failed check raises."""
+    import signal
+
+    torch = ctx["torch"]
+    objects, relations, dcop_mod = (ctx["objects"], ctx["relations"],
+                                    ctx["dcop_mod"])
+    from pydcop_tpu_torch.dcop.yamldcop import dcop_yaml
+
+    router, url = handle.router, handle.url
+    kind = torch.cuda.get_device_name(0) if card == "cuda" else None
+    params = {"max_cycles": SERVE_MIXED_CYCLES}
+    answers = collections.defaultdict(list)
+    out = {}
+    t_legs = time.perf_counter()
+
+    # Leg 1: scale up.
+    code, flagship_answer = serve_http(url + "/solve", "POST", {
+        "dcop": flagship_yaml, "params": {"max_cycles": FLEET_BIN_CYCLES},
+        "wait": True, "timeout": 600})
+    if code != 200:
+        fail(f"elastic leg 1: flagship POST /solve {code}")
+    with router._lock:
+        exemplars = list(router._exemplars)[-4:]
+    p99, n_before = router.rolling_p99(), len(router.replicas)
+    live = [r for r in router.replicas if r.status == "up"]
+    depth = sum(r.queue_depth for r in live)
+    trigger = ("p99" if p99 is not None and p99 > ELASTIC_SLO_UP_MS
+               else "queue_depth" if depth > 2 * max(len(live), 1)
+               else None)
+    if trigger is None:
+        fail(f"elastic leg 1: nothing to scale on (p99 {p99})")
+    router.autoscale_interval_s = ELASTIC_INTERVAL_S
+    t_arm = time.perf_counter()
+    router.slo_p99_ms = ELASTIC_SLO_UP_MS
+    try:
+        _wait_for("the scale-up's spawn",
+                  lambda: len(router.replicas) > n_before)
+        new = router.replicas[n_before]
+        alive = lambda: new.proc is None or new.proc.poll() is None  # noqa: E731
+        _wait_for("the scaled-up worker's start",
+                  lambda: new.port is not None, alive=alive)
+        spawn_s = time.perf_counter() - t_arm
+        _wait_for("the scale-up's prewarm", lambda: router.scale_ups == 1,
+                  alive=alive)
+        up_s = time.perf_counter() - t_arm
+    finally:
+        router.slo_p99_ms = None     # the fleet's size holds from here
+    if router.scale_ups != 1 or len(router.replicas) != n_before + 1:
+        fail(f"elastic leg 1: {router.scale_ups} scale-ups")
+    if not new.managed or new.status != "up" or new.forwarded != 0 \
+            or new.warm != set(exemplars):
+        fail(f"elastic leg 1: replica {new.index} after the prewarm: "
+             f"{new.summary()}")
+    code, new_stats = serve_http(new.url + "/stats")
+    prewarm_backend = worker_profile(new.url)
+    if new_stats.get("completed") != len(exemplars):
+        fail(f"elastic leg 1: the prewarm ran {new_stats.get('completed')} "
+             f"of {len(exemplars)} exemplars")
+    _check_backend("the scaled-up worker's prewarm", prewarm_backend, card,
+                   kind, built_none=True)
+
+    draws = mixed_stream_draws()
+    bodies = {key: dcop_yaml(mixed_dcop(*key)) for key in set(draws)}
+    stream = []
+
+    def client(k):
+        for i in range(k, len(draws), SERVE_MIXED_CLIENTS):
+            t1 = time.perf_counter()
+            code, body = serve_http(url + "/solve", "POST", {
+                "dcop": bodies[draws[i]], "params": params,
+                "wait": True, "timeout": 600})
+            if code != 200:
+                fail(f"elastic leg 1: POST /solve {code}: {body}")
+            stream.append((t1, time.perf_counter() - t1, draws[i], body))
+
+    t0 = time.perf_counter()
+    run_clients(client, SERVE_MIXED_CLIENTS)
+    stream_s = time.perf_counter() - t0
+    by_replica = collections.Counter()
+    first_new = None
+    for t1, lat, key, body in sorted(stream, key=lambda row: row[0]):
+        answers[key].append(body)
+        index = router.pinned(body["id"]).index
+        by_replica[index] += 1
+        if index == new.index and first_new is None:
+            first_new = lat
+    if len(by_replica) != n_before + 1:
+        fail(f"elastic leg 1: the stream reached replicas {by_replica}")
+    latencies = [row[1] for row in stream]
+    out["scale_up"] = dict(
+        trigger=trigger, rolling_p99_ms_at_arm=p99, replica=new.index,
+        spawn_s=spawn_s, prewarm_s=up_s - spawn_s, armed_to_serving_s=up_s,
+        exemplars_replayed=len(exemplars),
+        prewarm_launches=prewarm_backend.get("kernel_launches"),
+        prewarm_compile_cache=prewarm_backend.get("compile_cache"),
+        first_routed_ms=first_new * 1e3,
+        stream=dict(requests=len(draws), clients=SERVE_MIXED_CLIENTS,
+                    stream_s=stream_s,
+                    problems_per_s=len(draws) / stream_s,
+                    p50_ms=_percentile(latencies, 50) * 1e3,
+                    p99_ms=_percentile(latencies, 99) * 1e3,
+                    by_replica=dict(by_replica)))
+
+    # Leg 2: a worker joins.
+    port = free_port()
+    remote_dir = os.path.join(tmp, "remote")
+    cmd = [sys.executable, "-m", "pydcop_tpu_torch.dcop_cli", "serve",
+           "--port", str(port), "--host", "127.0.0.1", "--device", card,
+           "--join", url, "--journal_dir", remote_dir,
+           "--host_id", "remote0", *router.worker_args]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [HERE] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    if router.compile_cache_dir:
+        env["PYDCOP_COMPILE_CACHE_DIR"] = router.compile_cache_dir
+    with open(os.path.join(tmp, "remote.log"), "ab") as log:
+        remote_proc = subprocess.Popen(cmd, env=env, cwd=HERE, stdout=log,
+                                       stderr=log, start_new_session=True)
+    try:
+        def joined():
+            return next((r for r in router.replicas if not r.managed
+                         and r.port == port and r.status == "up"), None)
+
+        join_s = _wait_for("the join", joined,
+                           alive=lambda: remote_proc.poll() is None)
+        remote = joined()
+        code, stats = serve_http(url + "/stats")
+        doc = stats["workers"][remote.index]
+        if (doc["managed"], doc["status"], doc["host_id"]) != (
+                False, "up", "remote0"):
+            fail(f"elastic leg 2: /stats shows the joined worker as {doc}")
+        # A session and a burst of acknowledged requests the joined
+        # worker owns, every request answered.
+        yaml_b = elastic_session_problem(objects, relations, dcop_mod, 4301,
+                                         3)[0]
+        params_b = session_params_for(router, yaml_b, remote.index)
+        yaml_b, batches_b, expected_b = elastic_session_problem(
+            objects, relations, dcop_mod, 4301, 3, params_b)
+        sid_b = elastic_session(url, router, yaml_b, params_b, batches_b,
+                                remote.index, "leg 2")
+        owned = [s for s in range(MIXED_STRUCTS)
+                 if rendezvous_owner(router, dcop_yaml(mixed_dcop(
+                     s, ELASTIC_REMOTE_SEED)), params) == remote.index]
+        if not owned:
+            fail("elastic leg 2: no structure lands on the joined worker")
+        burst = [(owned[k % len(owned)], ELASTIC_REMOTE_SEED + k)
+                 for k in range(ELASTIC_REMOTE_BURST)]
+        acks = {}
+        for key in burst:
+            code, ack = serve_http(url + "/solve", "POST", {
+                "dcop": dcop_yaml(mixed_dcop(*key)), "params": params})
+            if code != 202 or router.pinned(ack["id"]).index \
+                    != remote.index:
+                fail(f"elastic leg 2: POST /solve {code}: {ack}")
+            acks[key] = ack["id"]
+        for key, rid in acks.items():
+            code, body = await_served(url, rid)
+            if code != 200:
+                fail(f"elastic leg 2: acknowledged {rid} answered {code}")
+            answers[key].append(body)
+        remote_backend = worker_profile(remote.url)
+        _check_backend("the joined worker", remote_backend, card, kind,
+                       built_none=True)
+        ups = [r for r in router.replicas if r.status == "up"]
+        if len(ups) != n_before + 2:
+            fail(f"elastic leg 2: {len(ups)} workers up")
+        names = {f"replica-{r.index}": worker_profile(r.url).get(
+            "device_name") for r in ups}
+        memory = None
+        if card == "cuda":
+            free, total = torch.cuda.mem_get_info()
+            memory = dict(used_mib=(total - free) / 2**20,
+                          total_mib=total / 2**20)
+        out["join"] = dict(replica=remote.index, join_s=join_s,
+                           workers_up=len(ups), device_names=names,
+                           card_memory_all_up=memory)
+
+        # Leg 3: scale down with a drain.
+        yaml_a = elastic_session_problem(objects, relations, dcop_mod, 4201,
+                                         4)[0]
+        params_a = session_params_for(router, yaml_a, new.index)
+        yaml_a, batches_a, expected_a = elastic_session_problem(
+            objects, relations, dcop_mod, 4201, 4, params_a)
+        sid_a = elastic_session(url, router, yaml_a, params_a, batches_a,
+                                new.index, "leg 3")
+        scaled_backend = worker_profile(new.url)
+        migrations = router.migrations
+        router.scale_down_quiet_checks = ELASTIC_QUIET_CHECKS
+        router._quiet_checks = 0
+        router.slo_p99_ms = ELASTIC_SLO_QUIET_MS
+        try:
+            drain_s = _wait_for("the scale-down",
+                                lambda: router.scale_downs == 1)
+        finally:
+            router.slo_p99_ms = None
+        moved_to = router.pinned(sid_a, router._session_pins)
+        if not new.retired or new.status != "down" \
+                or new.proc.poll() != 0 or moved_to is None \
+                or moved_to.index == new.index \
+                or router.migrations != migrations + 1:
+            fail(f"elastic leg 3: after the drain {new.summary()}, "
+                 f"session on {moved_to and moved_to.index}")
+        for seq, batch in enumerate(batches_a[2:], 3):
+            ack = elastic_patch_acked(url, sid_a, batch)
+            if ack.get("seq") != seq:
+                fail(f"elastic leg 3: batch {seq} acknowledged as {ack}")
+        final_a = elastic_close_session(url, sid_a)
+        if final_a.get("cost") != expected_a:
+            fail(f"elastic leg 3: migrated session ended at "
+                 f"{final_a.get('cost')}, uninterrupted {expected_a}")
+        out["scale_down"] = dict(
+            replica=new.index, armed_to_retired_s=drain_s,
+            session_moved_to=moved_to.index, final_cost=final_a["cost"],
+            uninterrupted_cost=expected_a,
+            session_max_cycles=params_a["max_cycles"])
+
+        # Leg 4: the joined worker's death.
+        deaths, adopted = router.deaths, router.adopted_sessions
+        t_kill = time.perf_counter()
+        os.kill(remote_proc.pid, signal.SIGKILL)
+        remote_proc.wait(timeout=60)
+        down_s = _wait_for("the joined worker's death verdict",
+                           lambda: remote.status == "down"
+                           and router.deaths == deaths + 1)
+        adopt_s = _wait_for(
+            "the adoption", lambda: router.adopted_sessions > adopted
+            and router.pinned(sid_b, router._session_pins).index
+            != remote.index)
+        ack = elastic_patch_acked(url, sid_b, batches_b[2])
+        final_b = elastic_close_session(url, sid_b)
+        if ack.get("seq") != 3 or final_b.get("cost") != expected_b:
+            fail(f"elastic leg 4: adopted session acked {ack}, ended at "
+                 f"{final_b.get('cost')}, uninterrupted {expected_b}")
+        if remote.status != "down" or remote.restarts != 0 \
+                or remote.proc is not None:
+            fail(f"elastic leg 4: the dead remote {remote.summary()}")
+        out["remote_death"] = dict(
+            replica=remote.index, burst=len(acks), lost=0,
+            verdict_s=down_s, adopted_s=down_s + adopt_s,
+            session_adopted_by=router.pinned(
+                sid_b, router._session_pins).index,
+            final_cost=final_b["cost"], uninterrupted_cost=expected_b,
+            session_max_cycles=params_b["max_cycles"],
+            since_kill_s=time.perf_counter() - t_kill)
+    finally:
+        if remote_proc.poll() is None:
+            remote_proc.kill()
+            remote_proc.wait(timeout=60)
+    out.update(
+        legs_s=time.perf_counter() - t_legs, scale_ups=router.scale_ups,
+        scale_downs=router.scale_downs,
+        adopted_sessions=router.adopted_sessions,
+        migrations=router.migrations, answers=dict(answers),
+        flagship_answer=flagship_answer,
+        launches=dict(collections.Counter(scaled_backend.get(
+            "kernel_launches", {})) + collections.Counter(
+                remote_backend.get("kernel_launches", {}))),
+        workers={"scaled_up": scaled_backend, "joined": remote_backend})
+    return out
+
+
+def free_port() -> int:
+    """A local TCP port free now, for a process that must listen on a
+    port known before it starts."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def check_fleet_answers(api, mixed_dcop, answers, where, flagship=None,
+                        flagship_answers=()):
+    """Every served answer against its instance's solo ``api.solve`` on
+    each device of ``where`` (assignment and cost): ``answers`` maps a
+    build_dcop_mixed key to its results, ``flagship_answers`` are the
+    flagship's (FLEET_BIN_CYCLES cycles)."""
+    for key in sorted(answers):
+        for dev in where:
+            solo = api.solve(mixed_dcop(*key), "maxsum",
+                             max_cycles=SERVE_MIXED_CYCLES, device=dev)
+            for res in answers[key]:
+                _served_equal(f"fleet {key} vs {dev}", res, solo)
+    if flagship_answers:
+        for dev in where:
+            solo = api.solve(flagship, "maxsum", max_cycles=FLEET_BIN_CYCLES,
+                             device=dev)
+            for k, res in enumerate(flagship_answers):
+                _served_equal(f"fleet flagship copy {k} vs {dev}", res, solo)
+
+
+def phase_fleet(ctx, card="cuda", elastic=True):
     """The fixed-size fleet: ``api.serve(port=0, replicas=2,
     device=card)`` — two worker processes on the card behind the router,
     their kernel libraries loaded from the directory the earlier phases
@@ -5646,6 +6153,13 @@ def phase_fleet(ctx, card="cuda"):
        still pending; every acknowledged request is then answered, the
        killed worker's share by its restart replaying its journal
        segment.
+
+    With ``elastic`` the router is built with ``min_replicas=
+    FLEET_REPLICAS`` and ``max_replicas=FLEET_MAX_REPLICAS`` and no SLO
+    (its autoscaler unarmed through the three legs), and
+    :func:`fleet_elastic_legs` then drives the elastic fleet on it: a
+    scale-up with prewarm, a joined worker, a scale-down drain and the
+    joined worker's death.
 
     Every answer equals its instance's solo api.solve on ``card`` and
     on the CPU (assignment and cost, the serve phase's comparison).
@@ -5695,7 +6209,9 @@ def phase_fleet(ctx, card="cuda"):
             journal_dir=os.path.join(tmp, "journal"),
             compile_cache_dir=str(_build.BUILD_DIR),
             batch_window_s=SERVE_MIXED_WINDOW_S, max_batch=16,
-            envelope_overhead_ms=1e6, heartbeat_s=FLEET_HEARTBEAT_S)
+            envelope_overhead_ms=1e6, heartbeat_s=FLEET_HEARTBEAT_S,
+            **(dict(min_replicas=FLEET_REPLICAS,
+                    max_replicas=FLEET_MAX_REPLICAS) if elastic else {}))
         start_s = time.perf_counter() - t0
         router, url = handle.router, handle.url
         try:
@@ -5775,13 +6291,20 @@ def phase_fleet(ctx, card="cuda"):
             if code != 200:
                 fail(f"fleet: GET /stats {code}")
             backends = fleet_backends(url)
+            fixed_s = time.perf_counter() - t_phase
+            elastic_out = (fleet_elastic_legs(ctx, handle, card,
+                                              flagship_yaml, mixed_dcop,
+                                              tmp) if elastic else None)
         finally:
             summary = handle.stop()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     served_s = time.perf_counter() - t_phase
     exits = [w["exit"] for w in summary["workers"]]
-    if exits != [0] * FLEET_REPLICAS:
+    # The fixed workers and the retired scaled-up one drained (0); the
+    # joined worker was never the router's process (None).
+    want_exits = [0] * FLEET_REPLICAS + ([0, None] if elastic else [])
+    if exits != want_exits:
         fail(f"fleet: worker exits {summary}")
 
     # What each worker reports of itself.
@@ -5817,23 +6340,22 @@ def phase_fleet(ctx, card="cuda"):
     # The answers: every one against its solo solve, card and CPU.
     t_check = time.perf_counter()
     where = [card] if card == "cpu" else [card, "cpu"]
-    for key in sorted(set(served) | set(answered)):
-        got = [served[key]] if key in served else []
-        if key in answered:
-            got.append(answered[key][1])
-        for dev in where:
-            solo = api.solve(mixed_dcop(*key), "maxsum",
-                             max_cycles=SERVE_MIXED_CYCLES, device=dev)
-            for res in got:
-                _served_equal(f"fleet {key} vs {dev}", res, solo)
-    for dev in where:
-        solo = api.solve(flagship, "maxsum", max_cycles=FLEET_BIN_CYCLES,
-                         device=dev)
-        for k, res in enumerate(flagship_served):
-            _served_equal(f"fleet flagship copy {k} vs {dev}", res, solo)
+    got = collections.defaultdict(list)
+    for key, res in served.items():
+        got[key].append(res)
+    for key, (_code, res) in answered.items():
+        got[key].append(res)
+    flagship_got = list(flagship_served)
+    if elastic:
+        for key, results in elastic_out.pop("answers").items():
+            got[key].extend(results)
+        flagship_got.append(elastic_out.pop("flagship_answer"))
+    check_fleet_answers(api, mixed_dcop, got, where, flagship=flagship,
+                        flagship_answers=flagship_got)
     check_s = time.perf_counter() - t_check
     return dict(
         replicas=FLEET_REPLICAS, device=card, prep_s=prep_s,
+        fixed_legs_s=fixed_s, elastic=elastic_out,
         start_s=start_s, restart_s=restart_s,
         answered_after_kill_s=answered_s, served_s=served_s,
         check_s=check_s,
@@ -5859,7 +6381,7 @@ def phase_fleet(ctx, card="cuda"):
                   lost=0),
         affinity_hit_fraction=stats["affinity_hit_fraction"],
         routed=stats["routed"], reroutes=stats["reroutes"],
-        worker_exits=exits,
+        worker_exits=exits[:FLEET_REPLICAS],
         workers={k: dict(
             backend=backends[f"replica-{k}"]["backend"],
             device_name=backends[f"replica-{k}"].get("device_name"),
@@ -6417,6 +6939,7 @@ def main() -> int:
     # (each process starts at 0), summed over the live workers and the
     # killed one's last report.
     fleet = phase_fleet(ctx)
+    elastic = fleet.pop("elastic")
     emit("fleet", **fleet)
     emit("fleet_problems_per_s", card=smi,
          fleet_mixed_stream=fleet["mixed"]["problems_per_s"],
@@ -6432,6 +6955,36 @@ def main() -> int:
          flagship_bin_s=fleet["flagship_bin"]["wall_s"],
          affinity_hit_fraction=fleet["affinity_hit_fraction"])
     new_paths["fleet"] = fleet["launches"]
+
+    # 17. The elastic slice, on the fleet phase's router: a scale-up
+    # whose prewarm runs on the card, a joined worker, a scale-down
+    # drain and the joined worker's SIGKILL.  The launches are the
+    # scaled-up and the joined workers' own counts (each process starts
+    # at 0), read from their /profile.
+    workers = elastic.pop("workers")
+    emit("fleet_elastic", card=smi, **elastic,
+         scaled_up_worker={k: workers["scaled_up"].get(k) for k in (
+             "device_name", "kernel_libraries", "compile_cache")},
+         joined_worker={k: workers["joined"].get(k) for k in (
+             "device_name", "kernel_libraries", "compile_cache")})
+    up = elastic["scale_up"]
+    emit("fleet_elastic_problems_per_s", card=smi,
+         three_workers=up["stream"]["problems_per_s"],
+         fixed_fleet=fleet["mixed"]["problems_per_s"])
+    emit("fleet_elastic_latency_ms", card=smi,
+         three_workers_p50=up["stream"]["p50_ms"],
+         three_workers_p99=up["stream"]["p99_ms"],
+         fixed_fleet_p50=fleet["mixed"]["p50_ms"],
+         fixed_fleet_p99=fleet["mixed"]["p99_ms"],
+         scaled_up_first_routed=up["first_routed_ms"])
+    emit("fleet_elastic_seconds", card=smi, legs_s=elastic["legs_s"],
+         spawn_s=up["spawn_s"], prewarm_s=up["prewarm_s"],
+         join_s=elastic["join"]["join_s"],
+         scale_down_s=elastic["scale_down"]["armed_to_retired_s"],
+         remote_verdict_s=elastic["remote_death"]["verdict_s"],
+         remote_adopted_s=elastic["remote_death"]["adopted_s"],
+         fixed_legs_s=fleet["fixed_legs_s"])
+    new_paths["elastic"] = elastic["launches"]
 
     # 7. Fixture parity: the verify oracle.
     fixture = os.path.join(HERE, "tests", "instances", "coloring_12_3.yml")
@@ -6590,6 +7143,7 @@ def main() -> int:
             for label, row in sharded["halo_sum_timing"].items()
             if label != f"flagship_S{SHARD_MAIN}"}})
     sub = sharded["subset_sum_timing"]
+    scale_sub = sharded["subset_sum_timing_scale"]
     rows.append({
         "name": "segment_sum: halo", "route": "cuda",
         "source": "pydcop_tpu_torch/csrc/segment_sum.cu",
@@ -6599,7 +7153,10 @@ def main() -> int:
         "plain_ms": sub["plain_ms"],
         "bound_ms": sub["bound_ms"], "bound_by": sub["bound_by"],
         "library_ms": sub["library_ms"],
-        "beyond_bound": sub.get("beyond_bound"), "shapes": {}})
+        "beyond_bound": sub.get("beyond_bound"),
+        "shapes": {f"scale_S{SHARD_SCALE}": {k: scale_sub[k] for k in (
+            "Eb", "B", "D", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "max_abs_err")}}})
     counter_of = {
         "halo_sum": "halo_sum", "segment_sum: halo": seg_mod.HALO,
         "binary_factor_update: lane": LANE, "lane_sum": LANE_SUM,

@@ -496,10 +496,19 @@ def serve(port: int = 8080, host: str = "127.0.0.1",
     ``heartbeat_s``, ``probe_timeout_s``, ``spill_slack`` and
     ``hosts`` (simulated host ids striped over the replicas) shape the
     fleet; ``fleet_trace`` turns its causal tracing on or off (exported
-    as ``PYDCOP_FLEET_TRACE`` so the workers inherit it).  The elastic
-    fleet's knobs — ``join``, ``min_replicas``/``max_replicas`` and
-    ``slo_p99_ms`` — raise ``NotImplementedError`` (ROADMAP.md, Queue A
-    item 5(c)); ``host_id`` only goes with ``join``.
+    as ``PYDCOP_FLEET_TRACE`` so the workers inherit it).
+
+    Elastic fleet: ``slo_p99_ms`` + ``max_replicas`` arm the SLO
+    autoscaler (the router grows the fleet toward ``max_replicas``
+    when the rolling p99 or the queue depth breaches the SLO, each new
+    worker prewarmed on ``device`` before it takes traffic, and drains
+    back toward ``min_replicas`` when quiet, migrating warm sessions
+    off).  ``join`` turns a SINGLE-replica serve into a remote fleet
+    member: after the front end binds, the worker announces its own
+    URL to the router at ``join`` via ``POST /fleet/join``
+    (``host_id`` overrides the announced host identity, default
+    :func:`pydcop_tpu_torch.engine.multihost.fleet_host_id`);
+    incompatible with ``replicas > 1`` (``ValueError``).
 
     ``port=0`` asks the OS for a free port (``port_file`` atomically
     publishes it).  ``block=True`` (the CLI) serves until
@@ -508,13 +517,11 @@ def serve(port: int = 8080, host: str = "127.0.0.1",
     :class:`FleetHandle`)."""
     import os
 
-    for name, value in (("join", join), ("min_replicas", min_replicas),
-                        ("max_replicas", max_replicas),
-                        ("slo_p99_ms", slo_p99_ms)):
-        if value is not None:
-            from pydcop_tpu_torch.serving.router import refuse_elastic
-
-            refuse_elastic(f"{name}={value!r}")
+    if join and replicas > 1:
+        raise ValueError(
+            "join= is for single-replica remote workers; a local "
+            "fleet (replicas > 1) IS the router — point the workers' "
+            "join at its URL instead")
     dev = resolve_device(device)
     if fleet_trace is not None:
         os.environ["PYDCOP_FLEET_TRACE"] = "1" if fleet_trace else "0"
@@ -539,6 +546,8 @@ def serve(port: int = 8080, host: str = "127.0.0.1",
             heartbeat_s=heartbeat_s,
             probe_timeout_s=probe_timeout_s,
             spill_slack=spill_slack, hosts=hosts,
+            slo_p99_ms=slo_p99_ms, min_replicas=min_replicas,
+            max_replicas=max_replicas,
             port_file=port_file, block=block, device=dev.type)
     if compile_cache_dir:
         # Before the service loads any kernel library.
@@ -590,6 +599,11 @@ def serve(port: int = 8080, host: str = "127.0.0.1",
           file=sys.stderr)
     if port_file:
         _write_port_file(port_file, handle.port)
+    if join:
+        # Announce AFTER the front end binds: the router health-probes
+        # the announced URL before admitting it to the fleet.
+        _announce_join(join, handle.url, host_id,
+                       journal_dir=journal_dir)
     if not block:
         return handle
     _serve_until_signal(
@@ -602,6 +616,60 @@ def serve(port: int = 8080, host: str = "127.0.0.1",
     return None
 
 
+def _announce_join(join_url: str, own_url: str,
+                   host_id: Optional[str] = None,
+                   journal_dir: Optional[str] = None) -> bool:
+    """Announce this worker to a fleet router's ``POST /fleet/join``.
+
+    Best-effort with small retries (the router may still be binding
+    during a parallel bring-up): a failed announce leaves the worker
+    serving standalone with a warning — operators re-announce by
+    restarting or posting to /fleet/join themselves — rather than
+    refusing to serve at all.
+
+    ``journal_dir`` rides along when the worker journals: a router
+    that can see the same filesystem uses it for dead-session
+    adoption (serving/migration.adopt_dead_sessions).  The socket I/O
+    routes through the netfault seam like every other fleet link, so
+    an injected partition also severs discovery."""
+    import json
+    import sys
+    import urllib.parse
+
+    from pydcop_tpu_torch.engine.multihost import fleet_host_id
+    from pydcop_tpu_torch.serving import netfault
+
+    own_host_id = host_id or fleet_host_id()
+    doc = {"url": own_url, "host_id": own_host_id}
+    if journal_dir:
+        doc["journal_dir"] = journal_dir
+    payload = json.dumps(doc).encode()
+    parsed = urllib.parse.urlsplit(join_url)
+    router_host = parsed.hostname or "127.0.0.1"
+    router_port = parsed.port or 80
+    path = (parsed.path.rstrip("/") or "") + "/fleet/join"
+    last: Optional[Exception] = None
+    for attempt in range(5):
+        if attempt:
+            time.sleep(min(0.5 * attempt, 2.0))
+        try:
+            status, _ctype, body = netfault.exchange(
+                ("worker", own_host_id), ("router", router_host),
+                router_host, router_port, "POST", path,
+                body=payload, timeout=5.0)
+            if status >= 400:
+                raise ValueError(
+                    f"join answered {status}: {body[:200]!r}")
+            print(f"pydcop serve: joined fleet at {join_url}",
+                  file=sys.stderr)
+            return True
+        except (OSError, ValueError) as exc:
+            last = exc
+    print(f"pydcop serve: fleet join at {join_url} failed ({last}); "
+          "serving standalone", file=sys.stderr)
+    return False
+
+
 def _serve_fleet(*, port, host, max_queue, batch_window_s, max_batch,
                  high_water, default_params, breaker_failures,
                  breaker_reset_s, result_keep, journal_dir,
@@ -611,7 +679,8 @@ def _serve_fleet(*, port, host, max_queue, batch_window_s, max_batch,
                  session_checkpoint_every_events,
                  session_certify_after, replicas, affinity,
                  compile_cache_dir, heartbeat_s, probe_timeout_s,
-                 spill_slack, hosts, port_file, block,
+                 spill_slack, hosts, slo_p99_ms, min_replicas,
+                 max_replicas, port_file, block,
                  device: str) -> Optional[FleetHandle]:
     """The ``replicas > 1`` serve path: build the worker CLI tail
     from the same kwargs the single-service path consumes (so the two
@@ -673,7 +742,8 @@ def _serve_fleet(*, port, host, max_queue, batch_window_s, max_batch,
         compile_cache_dir=compile_cache_dir, affinity=affinity,
         heartbeat_s=heartbeat_s, probe_timeout_s=probe_timeout_s,
         spill_slack=spill_slack, default_params=params, hosts=hosts,
-        device=device,
+        slo_p99_ms=slo_p99_ms, min_replicas=min_replicas,
+        max_replicas=max_replicas, device=device,
     ).start()
     try:
         front_end = RouterFrontEnd(router, port=port,

@@ -4,15 +4,16 @@ service.
 Port of ``pydcop_tpu/commands/serve.py`` (the same flags) on one device
 (``--device cuda|cpu``, default ``cuda``: without a card the command
 exits with an error — there is no CPU fallback).  ``--replicas N``
-(N > 1) serves a fixed-size fleet: N worker processes of this command,
-each on ``--device``, behind the router (serving/router.py).  The
-elastic fleet's flags (``--join``, ``--min_replicas``/
-``--max_replicas``, ``--slo_p99_ms``) are accepted and refused with an
-error (ROADMAP.md, Queue A item 5(c)).
+(N > 1) serves a fleet: N worker processes of this command, each on
+``--device``, behind the router (serving/router.py).  ``--slo_p99_ms``
+with ``--max_replicas`` arms the router's SLO autoscaler (between
+``--min_replicas`` and ``--max_replicas`` workers); ``--join
+ROUTER_URL`` makes a single-replica serve announce itself to a
+router as a remote member (``--host_id`` names its host; with
+``--replicas > 1`` the command exits 2).
 """
 
 import logging
-import sys
 
 logger = logging.getLogger("pydcop.cli.serve")
 
@@ -294,47 +295,41 @@ def run_cmd(args) -> int:
             logger.error("bad --params_json: %s", exc)
             return 2
         default_params.update(extra)
-    try:
-        serve(
-            port=args.port, host=args.host,
-            max_queue=args.max_queue, high_water=args.high_water,
-            batch_window_s=args.batch_window, max_batch=args.max_batch,
-            breaker_failures=args.breaker_failures,
-            breaker_reset_s=args.breaker_reset,
-            default_params=default_params,
-            result_keep=args.result_keep,
-            journal_dir=args.journal_dir,
-            journal_sync=args.journal_sync,
-            recover=args.recover,
-            envelope_packing=not args.no_envelope,
-            envelope_overhead_ms=args.envelope_overhead_ms,
-            pipeline=not args.no_pipeline,
-            speculate=not args.no_speculate,
-            session_max=args.session_max,
-            session_segment_cycles=args.session_segment_cycles,
-            session_checkpoint_every_events=args.session_checkpoint_every,
-            session_certify_after=args.session_certify_after,
-            replicas=args.replicas,
-            affinity=args.affinity,
-            compile_cache_dir=(args.compile_cache_dir
-                               or aotcache.cache_dir()),
-            heartbeat_s=args.heartbeat,
-            probe_timeout_s=args.probe_timeout_s,
-            spill_slack=args.spill_slack,
-            hosts=args.hosts,
-            slo_p99_ms=args.slo_p99_ms,
-            min_replicas=args.min_replicas,
-            max_replicas=args.max_replicas,
-            join=args.join,
-            host_id=args.host_id,
-            fleet_trace=args.fleet_trace,
-            port_file=args.port_file,
-            block=True,
-            device=args.device,
-        )
-    except NotImplementedError as exc:
-        # An elastic-fleet knob (ROADMAP.md, Queue A item 5(c)).
-        logger.error("%s", exc)
-        print(f"Error: {exc}", file=sys.stderr)
-        return 2
+    serve(
+        port=args.port, host=args.host,
+        max_queue=args.max_queue, high_water=args.high_water,
+        batch_window_s=args.batch_window, max_batch=args.max_batch,
+        breaker_failures=args.breaker_failures,
+        breaker_reset_s=args.breaker_reset,
+        default_params=default_params,
+        result_keep=args.result_keep,
+        journal_dir=args.journal_dir,
+        journal_sync=args.journal_sync,
+        recover=args.recover,
+        envelope_packing=not args.no_envelope,
+        envelope_overhead_ms=args.envelope_overhead_ms,
+        pipeline=not args.no_pipeline,
+        speculate=not args.no_speculate,
+        session_max=args.session_max,
+        session_segment_cycles=args.session_segment_cycles,
+        session_checkpoint_every_events=args.session_checkpoint_every,
+        session_certify_after=args.session_certify_after,
+        replicas=args.replicas,
+        affinity=args.affinity,
+        compile_cache_dir=(args.compile_cache_dir
+                           or aotcache.cache_dir()),
+        heartbeat_s=args.heartbeat,
+        probe_timeout_s=args.probe_timeout_s,
+        spill_slack=args.spill_slack,
+        hosts=args.hosts,
+        slo_p99_ms=args.slo_p99_ms,
+        min_replicas=args.min_replicas,
+        max_replicas=args.max_replicas,
+        join=args.join,
+        host_id=args.host_id,
+        fleet_trace=args.fleet_trace,
+        port_file=args.port_file,
+        block=True,
+        device=args.device,
+    )
     return 0

@@ -17,8 +17,10 @@ accelerator-probe outcome from ``utils.cleanenv.diag_events``.
 
 On the card the backend block also names the card and what this
 process loaded and launched (``device_name``, ``kernel_libraries``,
-``kernel_launches`` from ``ops/_build.py``): how a fleet worker's
-``/profile`` shows that its dispatches ran through the hand kernels.
+``kernel_launches`` from ``ops/_build.py``, and ``compile_cache``: the
+libraries it found built and the ones it built, engine/aotcache.py):
+how a fleet worker's ``/profile`` shows that its dispatches ran through
+the hand kernels, and a scaled-up worker that it built none.
 :func:`pooled_rollup` pools the replicas' rollups into the fleet
 router's ``GET /fleet/profile``.  ``PYDCOP_EFFICIENCY=0`` disables
 recording entirely.
@@ -117,6 +119,11 @@ def resolved_backend(refresh: bool = False) -> Dict[str, Any]:
                 torch.cuda.current_device())
             out["kernel_libraries"] = sorted(dict(_build._libs))
             out["kernel_launches"] = dict(_build.launch_counts)
+            from pydcop_tpu_torch.engine import aotcache
+
+            # Libraries found built (hits) and built here (misses):
+            # a worker warmed from the shared directory builds none.
+            out["compile_cache"] = aotcache.stats()
     except Exception as exc:  # noqa: BLE001 — must answer anyway
         out["n_devices"] = 0
         out["error"] = f"{type(exc).__name__}: {exc}"[:120]

@@ -23,10 +23,12 @@ Port of ``pydcop_tpu/serving`` (docs/serving.md), the in-process plane:
   ``/events``) alongside;
 - :mod:`.sessions` — stateful solve sessions (docs/sessions.md) on
   the port's ``DynamicMaxSumEngine``;
-- :mod:`.router` — the fixed-size fleet: :class:`FleetRouter` spawns
-  N serve-worker processes and routes over them by structure
-  affinity, :class:`RouterFrontEnd` speaks the single service's wire
-  protocol in front of them (the elastic fleet is refused);
+- :mod:`.router` — the fleet: :class:`FleetRouter` spawns N
+  serve-worker processes and routes over them by structure affinity,
+  admits remote members over ``POST /fleet/join`` and scales between
+  ``min_replicas`` and ``max_replicas`` against an SLO;
+  :class:`RouterFrontEnd` speaks the single service's wire protocol
+  in front of them;
 - :mod:`.speculate`, :mod:`.migration`, :mod:`.netfault`.
 
 The exports are the reference's.  They are resolved on first use, so

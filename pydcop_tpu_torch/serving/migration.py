@@ -54,8 +54,9 @@ acked event.  docs/serving.md "Elastic fleet".
 
 A copy of ``pydcop_tpu/serving/migration.py``: the same bundle
 document.  The fleet router (serving/router.py) drives
-``migrate_session`` (``POST /admin/migrate``) and
-``adopt_dead_sessions`` (a replica's death).
+``migrate_session`` (``POST /admin/migrate`` and the autoscaler's
+scale-down drain) and ``adopt_dead_sessions`` (the death of a
+spawned replica, or of a remote one that announced its journal).
 """
 
 import base64

@@ -45,13 +45,21 @@ worker loads the libraries its predecessor built.  A worker that
 cannot reach its device exits at startup (``_wait_ready`` raises
 "died on startup"); none falls back to the CPU.
 
-Not ported (ROADMAP.md, Queue A item 5(c)): the elastic fleet's
-membership changes at run time — remote replicas joining over
-``POST /fleet/join`` (:meth:`FleetRouter.register_remote`) and the SLO
-autoscaler (``slo_p99_ms`` / ``min_replicas`` / ``max_replicas``).
-Both raise ``NotImplementedError`` (the route answers 501); with the
-autoscaler unarmed, everything the reference runs is here, so /stats
-carries the reference router's keys.
+**Elastic fleet.**  Membership changes at run time:
+
+- *Remote membership*: a worker started with ``--join <router_url>``
+  announces its address at ``POST /fleet/join``
+  (:meth:`FleetRouter.register_remote`) and is probed and phi-scored
+  like a spawned one.  The router never restarts what it did not
+  spawn: a dead remote goes DOWN, its sessions are adopted onto
+  survivors when it announced a reachable journal, and the slot
+  revives when it answers again or re-announces.
+- *SLO autoscaling*: the monitor compares the rolling forwarded p99
+  and the queue depth against ``slo_p99_ms`` and spawns a replica
+  (prewarmed by replaying the latest admission exemplars, its kernel
+  libraries loaded from the shared directory) or drains one — its
+  sessions migrate to survivors — between ``min_replicas`` and
+  ``max_replicas``.
 """
 
 import contextlib
@@ -96,11 +104,10 @@ UP = "up"
 STARTING = "starting"
 RESTARTING = "restarting"
 DOWN = "down"
-# What a refused elastic-fleet call says.
-ELASTIC_NOT_PORTED = (
-    "is the elastic fleet, which is not ported (ROADMAP.md, Queue A "
-    "item 5(c): the SLO autoscaler and remote membership over "
-    "POST /fleet/join); the port runs a fixed-size local fleet")
+# Scale-down: out of the candidate set while its sessions migrate to
+# survivors; resolves to DOWN (retired) or back to UP on a failed
+# drain.
+DRAINING = "draining"
 
 # Fair-queue admission wait before a 429: long enough to absorb a
 # burst, short enough that a starved client learns it is being
@@ -113,11 +120,6 @@ DEFAULT_RETRY_BUDGET_S = 10.0
 # the client to retry: the journal-recovered twin usually answers
 # within a couple of heartbeats.
 RESULT_HEDGE_S = 2.0
-
-
-def refuse_elastic(what: str):
-    """Raise the refusal of one elastic-fleet knob or call."""
-    raise NotImplementedError(f"{what} {ELASTIC_NOT_PORTED}")
 
 
 class FleetUnavailable(Exception):
@@ -220,19 +222,23 @@ class Replica:
     the slot (same index, same journal segment), which is what keeps
     request pins valid across a replica death.
 
-    ``host_id`` is the (possibly simulated) host identity.  Every
-    port replica is spawned by the router (``managed``) and none is
-    ever retired: remote members and scale-down are the refused
-    elastic fleet; the summary keeps both keys of the reference's."""
+    ``managed=False`` marks a REMOTE replica that joined over the
+    wire (``POST /fleet/join``): no process handle, no journal
+    segment the router can touch — a dead remote goes DOWN and stays
+    there until it answers again or re-announces.  ``host_id`` is the
+    (possibly simulated) host identity; ``retired`` marks a slot
+    drained away by scale-down — terminal for the slot, the prober
+    must not resurrect it."""
 
     def __init__(self, index: int, journal_dir: Optional[str],
                  log_path: str, host: str = "127.0.0.1",
+                 managed: bool = True,
                  host_id: Optional[str] = None):
         self.index = index
         self.journal_dir = journal_dir
         self.log_path = log_path
         self.host = host
-        self.managed = True
+        self.managed = managed
         self.host_id = host_id
         self.retired = False
         self.proc: Optional[subprocess.Popen] = None
@@ -309,8 +315,11 @@ class FleetRouter:
     ``compile_cache_dir`` is exported to every worker as its
     kernel-library directory.  ``affinity`` is ``"structure"``
     (rendezvous on the bin key, the default) or ``"round_robin"``
-    (the A/B baseline).  ``slo_p99_ms``, ``min_replicas`` and
-    ``max_replicas`` are the refused autoscaler's."""
+    (the A/B baseline).  The autoscaler is armed only when both
+    ``slo_p99_ms`` and ``max_replicas`` are set; it keeps between
+    ``min_replicas`` (default 1) and ``max_replicas`` managed
+    replicas, checking every ``autoscale_interval_s`` and scaling down
+    after ``scale_down_quiet_checks`` quiet checks in a row."""
 
     def __init__(self, replicas: int = 2,
                  worker_args: Optional[List[str]] = None,
@@ -329,12 +338,9 @@ class FleetRouter:
                  min_replicas: Optional[int] = None,
                  max_replicas: Optional[int] = None,
                  fair_share: int = 8,
+                 autoscale_interval_s: float = 2.0,
+                 scale_down_quiet_checks: int = 10,
                  device: str = "cuda"):
-        for name, value in (("slo_p99_ms", slo_p99_ms),
-                            ("min_replicas", min_replicas),
-                            ("max_replicas", max_replicas)):
-            if value is not None:
-                refuse_elastic(f"{name}={value!r}")
         if replicas < 1:
             raise ValueError(f"replicas must be >= 1, got {replicas}")
         if affinity not in ("structure", "round_robin"):
@@ -343,6 +349,13 @@ class FleetRouter:
                 f"got {affinity!r}")
         if hosts < 1:
             raise ValueError(f"hosts must be >= 1, got {hosts}")
+        if max_replicas is not None and max_replicas < replicas:
+            raise ValueError(
+                f"max_replicas ({max_replicas}) must be >= replicas "
+                f"({replicas})")
+        if min_replicas is not None and min_replicas < 1:
+            raise ValueError(
+                f"min_replicas must be >= 1, got {min_replicas}")
         self.n_replicas = int(replicas)
         # Every worker runs on this device (``--device``); the router
         # itself places nothing on it.
@@ -389,22 +402,37 @@ class FleetRouter:
         self._stopping = threading.Event()
         self._started = False
         self._run_dir: Optional[str] = None
-        # The elastic control plane is refused (the constructor raised
-        # on its knobs above): the autoscaler stays unarmed.
+        # The elastic control plane.  Autoscaling is armed only when
+        # BOTH slo_p99_ms and max_replicas are set; no control-loop
+        # thread starts in __init__ (policy tests construct routers
+        # without start()).
         self.hosts = int(hosts)
-        self.slo_p99_ms: Optional[float] = None
-        self.min_replicas: Optional[int] = None
-        self.max_replicas: Optional[int] = None
+        self.slo_p99_ms = (float(slo_p99_ms)
+                           if slo_p99_ms else None)
+        self.min_replicas = (int(min_replicas)
+                             if min_replicas else None)
+        self.max_replicas = (int(max_replicas)
+                             if max_replicas else None)
+        self.autoscale_interval_s = float(autoscale_interval_s)
+        self.scale_down_quiet_checks = int(scale_down_quiet_checks)
         self.fair = FairScheduler(fair_share)
         self._lat: "deque[float]" = deque(maxlen=512)
-        # Admission exemplars, the most recent (dcop yaml, params) per
-        # structure digest, LRU-bounded: what the reference's
-        # autoscaler replays to prewarm a scaled-up replica.
+        self._scaling = False
+        self._quiet_checks = 0
+        self._last_autoscale = 0.0
+        # Admission exemplars for prewarming scaled-up replicas: the
+        # most recent (dcop yaml, params) per structure digest, LRU-
+        # bounded — replayed against a fresh worker before it takes
+        # traffic, so its first client request finds its kernel
+        # libraries loaded (from the shared library directory: the
+        # prewarm loads them, it builds none).
         self._exemplars: "OrderedDict[str, Tuple[str, Any]]" = (
             OrderedDict())
         self.exemplar_keep = 8
         self.migrations = 0
         self.adopted_sessions = 0
+        self.scale_ups = 0
+        self.scale_downs = 0
         # Routing ledger (all mirrored on /stats).
         self.routed = 0
         self.affinity_hits = 0
@@ -437,6 +465,10 @@ class FleetRouter:
         self._restarts_total = reg.counter(
             "pydcop_router_replica_restarts_total",
             "Worker replicas restarted after a death verdict")
+        self._burn_gauge = reg.gauge(
+            "pydcop_slo_burn_rate",
+            "Rolling forwarded p99 over the --slo_p99_ms target "
+            "(>1 means the fleet is burning error budget)")
 
     # -- lifecycle ----------------------------------------------------- #
 
@@ -573,6 +605,14 @@ class FleetRouter:
                 start_new_session=True)
         finally:
             log.close()
+        if self._stopping.is_set():
+            # A scale-up or restart thread that raced stop(): stop()'s
+            # final sweep may already have run, so nothing spawned now
+            # may outlive the fleet.
+            replica.proc.kill()
+            replica.proc.wait(timeout=10.0)
+            raise RuntimeError(
+                f"fleet stopping: worker {replica.index} not started")
         replica.port = None
         replica.status = STARTING if replica.restarts == 0 \
             else RESTARTING
@@ -641,7 +681,7 @@ class FleetRouter:
 
     def _monitor_loop(self) -> None:
         while not self._stopping.wait(self.heartbeat_s):
-            # A snapshot: restart threads run beside the prober.
+            # A snapshot: the autoscaler appends replicas concurrently.
             for replica in list(self.replicas):
                 if self._stopping.is_set():
                     return
@@ -652,6 +692,12 @@ class FleetRouter:
                     logger.exception("heartbeat probe crashed for "
                                      "replica %d", replica.index)
             self._up_gauge.set(self.up_count())
+            if self.slo_p99_ms:
+                # SLO burn rate: rolling p99 over the target.  A
+                # fleet with no recent traffic burns nothing.
+                p99 = self.rolling_p99()
+                self._burn_gauge.set(
+                    round(p99 / self.slo_p99_ms, 6) if p99 else 0.0)
             try:
                 self._maybe_autoscale()
             except Exception:  # noqa: BLE001 — the control loop must
@@ -659,8 +705,10 @@ class FleetRouter:
                 logger.exception("autoscale check crashed")
 
     def _probe(self, replica: Replica) -> None:
+        if replica.retired:
+            return  # scaled away on purpose — not a death
         if replica.status not in (UP, DOWN):
-            return  # mid-(re)start — that path owns it
+            return  # mid-(re)start/drain — that path owns it
         proc_dead = (replica.proc is not None
                      and replica.proc.poll() is not None)
         beat_ok = False
@@ -736,6 +784,21 @@ class FleetRouter:
                 replica.proc.wait(timeout=10.0)
             except (OSError, subprocess.TimeoutExpired):
                 pass
+        if not replica.managed:
+            # A remote replica is not ours to restart: route around
+            # it.  The DOWN slot revives when it answers the prober
+            # again or re-announces at /fleet/join.  If it announced
+            # a reachable journal segment (same-box remote), its warm
+            # sessions are adoptable exactly like a managed death —
+            # and the adoption's epoch bump is what fences the
+            # partitioned original when it heals.
+            replica.status = DOWN
+            if replica.journal_dir:
+                threading.Thread(
+                    target=self._adopt_from, args=(replica,),
+                    name=f"pydcop-fleet-adopt-{replica.index}",
+                    daemon=True).start()
+            return
         if not self.restart_dead:
             replica.status = DOWN
             return
@@ -1060,18 +1123,89 @@ class FleetRouter:
             return (self._request_traces.get(handle)
                     or self._session_traces.get(handle))
 
-    # -- the elastic fleet (refused) ------------------------------------ #
+    # -- multi-host membership ------------------------------------------ #
 
     def register_remote(self, url: str,
                         host_id: Optional[str] = None,
                         journal_dir: Optional[str] = None
                         ) -> Dict[str, Any]:
-        """Admit a remote replica announced at ``POST /fleet/join``:
-        refused (ROADMAP.md, Queue A item 5(c))."""
-        del host_id, journal_dir
-        refuse_elastic(f"register_remote({url!r})")
+        """Admit a remote replica that announced itself (``POST
+        /fleet/join`` — a worker started with ``--join``).  The slot
+        is probed before admission and then heartbeat-scored exactly
+        like a local one; a re-announce of the same address revives
+        its existing slot (same index → existing pins stay valid).
+        ``journal_dir`` is the worker's own journal segment when the
+        router can reach it on disk (same-box remotes, the CI
+        topology): it makes the remote's sessions adoptable after a
+        death/partition verdict.  Raises ValueError for a bad
+        address, RuntimeError when the announced endpoint doesn't
+        answer /healthz."""
+        from urllib.parse import urlparse
 
-    # -- latency window and the (unarmed) autoscale check --------------- #
+        parsed = urlparse(url if "//" in url else f"http://{url}")
+        host, port = parsed.hostname, parsed.port
+        if not host or not port:
+            raise ValueError(
+                f"bad replica url {url!r} (need host:port)")
+        with self._lock:
+            replica = next(
+                (r for r in self.replicas
+                 if not r.managed and r.host == host
+                 and r.port == port), None)
+            if replica is None:
+                import tempfile
+
+                index = len(self.replicas)
+                log_path = os.path.join(
+                    self._run_dir or tempfile.gettempdir(),
+                    f"remote-{index}.log")
+                replica = Replica(index, None, log_path, host=host,
+                                  managed=False, host_id=host_id)
+                replica.port = int(port)
+                self.replicas.append(replica)
+            if journal_dir and os.path.isdir(journal_dir):
+                replica.journal_dir = journal_dir
+        try:
+            status, _ctype, _body = self._forward(
+                replica, "GET", "/healthz", None, timeout=5.0,
+                trace=None)
+        except OSError as exc:
+            with self._lock:
+                if replica.status != UP:
+                    replica.status = DOWN
+            raise RuntimeError(
+                f"joining replica {url} failed its admission probe: "
+                f"{exc}")
+        if status not in (200, 503):
+            raise RuntimeError(
+                f"joining replica {url} answered /healthz with "
+                f"{status}")
+        from pydcop_tpu_torch.resilience.health import PhiAccrualEstimator
+
+        now = time.monotonic()
+        with self._lock:
+            replica.estimator = PhiAccrualEstimator(
+                expected=self.heartbeat_s)
+            replica.anchor = now
+            replica.estimator.beat(now)
+            replica.retired = False
+            if host_id:
+                replica.host_id = host_id
+            replica.status = UP
+            replica.death_handled = False
+        # A re-announce is a heal: stale session copies recorded
+        # against this slot get fenced before it serves.
+        self._flush_fences(replica)
+        # Joined replicas ship spans like spawned ones: hand the
+        # fresh member the collector address.
+        self.push_trace_config(replica)
+        self._up_gauge.set(self.up_count())
+        logger.info("remote replica %d joined from %s (host %s)",
+                    replica.index, replica.url, replica.host_id)
+        return {"index": replica.index, "status": UP,
+                "heartbeat_s": self.heartbeat_s}
+
+    # -- SLO autoscaling ------------------------------------------------ #
 
     def record_latency(self, ms: float) -> None:
         with self._lock:
@@ -1086,8 +1220,8 @@ class FleetRouter:
 
     def note_exemplar(self, digest: Optional[str], dcop_yaml: str,
                       params: Optional[Dict[str, Any]]) -> None:
-        """Remember one admission per structure digest (LRU over
-        ``exemplar_keep`` structures)."""
+        """Remember one admission per structure digest for replica
+        prewarming (LRU over ``exemplar_keep`` structures)."""
         if digest is None:
             return
         with self._lock:
@@ -1097,16 +1231,176 @@ class FleetRouter:
                 self._exemplars.popitem(last=False)
 
     def autoscale_decision(self) -> Optional[str]:
-        """The SLO scaling policy: refused (ROADMAP.md, Queue A item
-        5(c))."""
-        refuse_elastic("autoscale_decision()")
+        """The scaling policy, side-effect-free except for the quiet-
+        streak counter: ``"up"`` when the rolling p99 breaches the
+        SLO (or queues run deep) with headroom below max_replicas;
+        ``"down"`` after ``scale_down_quiet_checks`` consecutive
+        checks comfortably under it with an idle replica above the
+        floor; None otherwise.  Inert unless both ``slo_p99_ms`` and
+        ``max_replicas`` are configured."""
+        if not self.slo_p99_ms or not self.max_replicas:
+            return None
+        p99 = self.rolling_p99()
+        with self._lock:
+            managed = [r for r in self.replicas
+                       if r.managed and not r.retired]
+            live = [r for r in managed if r.status == UP]
+            n_active = len([r for r in managed
+                            if r.status in (UP, STARTING,
+                                            RESTARTING, DRAINING)])
+            queue_depth = sum(r.queue_depth for r in live)
+        floor = self.min_replicas or 1
+        if n_active < self.max_replicas and (
+                (p99 is not None and p99 > self.slo_p99_ms)
+                or queue_depth > 2 * max(len(live), 1)):
+            self._quiet_checks = 0
+            return "up"
+        if n_active > floor and (
+                (p99 is None or p99 < self.slo_p99_ms / 2)
+                and queue_depth == 0
+                and any(r.in_flight == 0 for r in live)):
+            self._quiet_checks += 1
+            if self._quiet_checks >= self.scale_down_quiet_checks:
+                self._quiet_checks = 0
+                return "down"
+            return None
+        self._quiet_checks = 0
+        return None
 
     def _maybe_autoscale(self) -> None:
-        # The reference's inert check: armed only with both an SLO and
-        # a ceiling, which the constructor refuses.
         if not self.slo_p99_ms or not self.max_replicas:
             return
-        self.autoscale_decision()
+        if self._scaling or self._stopping.is_set():
+            return
+        now = time.monotonic()
+        if now - self._last_autoscale < self.autoscale_interval_s:
+            return
+        decision = self.autoscale_decision()
+        if decision is None:
+            return
+        self._last_autoscale = now
+        self._scaling = True
+        # Off the monitor thread: a spawn takes seconds of import
+        # and the prober must keep watching the fleet meanwhile.
+        threading.Thread(
+            target=self._scale, args=(decision,),
+            name="pydcop-fleet-scale", daemon=True).start()
+
+    def _scale(self, decision: str) -> None:
+        try:
+            if decision == "up":
+                self._scale_up()
+            else:
+                self._scale_down()
+        except Exception:  # noqa: BLE001
+            logger.exception("autoscale %s failed", decision)
+        finally:
+            self._scaling = False
+
+    def _scale_up(self) -> None:
+        with self._lock:
+            index = len(self.replicas)
+            journal = (os.path.join(self.journal_dir,
+                                    f"replica-{index}")
+                       if self.journal_dir else None)
+            replica = Replica(
+                index, journal,
+                os.path.join(self._run_dir, f"replica-{index}.log"),
+                host_id=f"host{index % self.hosts}")
+            self.replicas.append(replica)
+            self.n_replicas += 1
+        logger.info("autoscale up: spawning replica %d", index)
+        self._spawn(replica, recover=False)
+        self._wait_ready(
+            replica, time.monotonic() + self.worker_ready_timeout_s)
+        # Prewarm BEFORE taking traffic: _wait_ready flipped the slot
+        # UP; hold it back out of the candidate set while the
+        # exemplars replay (each loads its kernel libraries from the
+        # shared library directory and builds none).
+        replica.status = STARTING
+        self._prewarm(replica)
+        replica.status = UP
+        with self._lock:
+            self.scale_ups += 1
+            # The SLO window must not keep scaling on latencies
+            # measured by the smaller fleet.
+            self._lat.clear()
+        self._up_gauge.set(self.up_count())
+        logger.info("autoscale up: replica %d serving", index)
+
+    def _prewarm(self, replica: Replica) -> None:
+        with self._lock:
+            exemplars = list(self._exemplars.items())
+        for digest, (dcop_yaml, params) in exemplars[-4:]:
+            body: Dict[str, Any] = {"dcop": dcop_yaml,
+                                    "wait": True, "timeout": 60.0}
+            if params:
+                body["params"] = params
+            try:
+                self._forward(replica, "POST", "/solve",
+                              json.dumps(body).encode(),
+                              timeout=90.0, trace=None)
+                # Unlike a crash respawn, this replica genuinely
+                # executed the structure: its libraries are loaded and
+                # its dispatch caches warm for it.
+                replica.warm.add(digest)
+            except OSError as exc:
+                logger.warning(
+                    "replica %d prewarm forward failed (%s)",
+                    replica.index, exc)
+                return
+
+    def _scale_down(self) -> None:
+        with self._lock:
+            live = [r for r in self.replicas
+                    if r.managed and not r.retired
+                    and r.status == UP]
+            floor = self.min_replicas or 1
+            if len(live) <= floor:
+                return
+            victim = next(
+                (r for r in reversed(live)
+                 if r.in_flight == 0 and r.queue_depth == 0), None)
+            if victim is None:
+                return
+            victim.status = DRAINING
+        logger.info("autoscale down: draining replica %d",
+                    victim.index)
+        with self._lock:
+            sids = [sid for sid, idx in self._session_pins.items()
+                    if idx == victim.index]
+        from pydcop_tpu_torch.serving import migration as migration_mod
+
+        for sid in sids:
+            try:
+                migration_mod.migrate_session(self, sid)
+            except Exception:  # noqa: BLE001 — a drain that can't
+                # move every session aborts: the replica goes back to
+                # serving rather than stranding a warm session.
+                logger.exception(
+                    "autoscale down aborted: session %s would not "
+                    "migrate off replica %d", sid, victim.index)
+                victim.status = UP
+                return
+        if victim.proc is not None and victim.proc.poll() is None:
+            try:
+                victim.proc.send_signal(signal.SIGTERM)
+                victim.proc.wait(timeout=60.0)
+            except (OSError, subprocess.TimeoutExpired):
+                try:
+                    victim.proc.kill()
+                    victim.proc.wait(timeout=10.0)
+                except (OSError, subprocess.TimeoutExpired):
+                    pass
+        with self._lock:
+            victim.status = DOWN
+            victim.retired = True
+            self.scale_downs += 1
+            self.n_replicas = max(self.n_replicas - 1, 1)
+            self._lat.clear()
+        self._up_gauge.set(self.up_count())
+        logger.info("autoscale down: replica %d retired",
+                    victim.index)
 
     # -- plumbing ------------------------------------------------------- #
 
@@ -1172,6 +1466,15 @@ class FleetRouter:
                 "workers": [r.summary() for r in self.replicas],
             }
         doc["fairness"] = self.fair.stats()
+        if self.slo_p99_ms:
+            doc["autoscale"] = {
+                "slo_p99_ms": self.slo_p99_ms,
+                "min_replicas": self.min_replicas,
+                "max_replicas": self.max_replicas,
+                "rolling_p99_ms": self.rolling_p99(),
+                "scale_ups": self.scale_ups,
+                "scale_downs": self.scale_downs,
+            }
         from pydcop_tpu_torch.engine import aotcache
 
         # The router loads no kernel library, so its own cache counts
@@ -1186,12 +1489,15 @@ class FleetRouter:
     def link_verdicts(self) -> List[Dict[str, Any]]:
         """Per-link router->replica health verdicts: ``ok``, ``gray``
         (slow-but-alive — answers arrive, late), ``starting``
-        (mid-(re)start) or ``dead``."""
+        (mid-(re)start/drain) or ``dead``.  Retired slots (scaled
+        away on purpose) don't count against the fleet."""
         out = []
         for r in self.replicas:
+            if r.retired:
+                continue
             if r.status == UP:
                 verdict = "gray" if r.gray else "ok"
-            elif r.status in (STARTING, RESTARTING):
+            elif r.status in (STARTING, RESTARTING, DRAINING):
                 verdict = "starting"
             else:
                 verdict = "dead"
@@ -1300,10 +1606,29 @@ class _RouterHandler(_Handler):
             self._json(404, {"error": "unknown path"}, close=True)
 
     def _fleet_join(self):
-        """Remote membership is refused: 501, naming the ROADMAP item."""
-        if self._read_body() is None:
+        raw = self._read_body()
+        if raw is None:
             return
-        self._json(501, {"error": f"POST /fleet/join {ELASTIC_NOT_PORTED}"})
+        try:
+            doc = json.loads(raw)
+            url = doc.get("url")
+            if not url or not isinstance(url, str):
+                raise ValueError("body needs a 'url' string "
+                                 "(the joining replica's address)")
+        except ValueError as exc:
+            self._json(400, {"error": f"bad join body: {exc}"})
+            return
+        try:
+            out = self.router.register_remote(
+                url, doc.get("host_id"),
+                journal_dir=doc.get("journal_dir"))
+        except ValueError as exc:
+            self._json(400, {"error": str(exc)})
+            return
+        except RuntimeError as exc:
+            self._json(503, {"error": str(exc), "retry": True})
+            return
+        self._json(200, out)
 
     def _admin_migrate(self):
         raw = self._read_body()

@@ -4,8 +4,11 @@ phase's mixed stream, a bin of flagship-shaped problems (1,500
 variables here), and a burst of acknowledged requests with SIGKILL of
 the worker that owns most of them — run to the end, every answer equal
 to its solo solve and every acknowledged request answered after the
-restart (the phase's own checks raise otherwise).  The card's name and
-the kernels' launch counts are the card's business and are not checked
+restart (the phase's own checks raise otherwise).  The elastic legs the
+phase drives next on the same router are left out here
+(``elastic=False``) and rehearsed on their own in
+``test_torch_fleet_elastic_chip_phase.py``.  The card's name and the
+kernels' launch counts are the card's business and are not checked
 here.
 
 The workers inherit a private autotune cache, flight-bundle directory
@@ -56,7 +59,7 @@ def test_fleet_phase_runs_on_the_cpu():
                                          1_500)
     out = chip_smoke.phase_fleet(dict(
         torch=torch, _build=_build, objects=objects, relations=relations,
-        dcop_mod=dcop_mod, dcop=flagship), card="cpu")
+        dcop_mod=dcop_mod, dcop=flagship), card="cpu", elastic=False)
     assert out["worker_exits"] == [0, 0]
     assert out["mixed"]["requests"] == 16
     assert out["flagship_bin"]["members"] == 2

@@ -9,9 +9,9 @@ rendezvous scores, ``pick`` sequences (affinity hits, spillover,
 breaker shedding, round robin), ``stats()`` documents, epochs and
 fences are equal between the two packages' routers built with
 synthetic UP replicas (the reference's ``_bench_router``).  Also here:
-the weighted-fair admission queue, the refused elastic fleet (naming
-ROADMAP.md Queue A item 5(c)) in the router, ``api.serve`` and the
-CLI, the device rule (no card: ``api.serve(replicas=2)`` raises before
+the weighted-fair admission queue, the elastic fleet's knobs and their
+checks in the router, ``api.serve`` and the CLI (the policy itself:
+``test_torch_fleet_elastic_policy.py``), the device rule (no card: ``api.serve(replicas=2)`` raises before
 any worker is spawned), the worker command the router spawns, the
 seam lints (no raw socket I/O in the port's ``serving/``, a trace
 context at every forwarding call site), a connect-refused forward
@@ -40,7 +40,6 @@ from pydcop_tpu_torch import dcop_cli
 from pydcop_tpu_torch.commands import serve as serve_cmd
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ITEM = r"Queue A item 5\(c\)"
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -413,36 +412,86 @@ def test_epochs_and_fences_equal_the_reference():
 
 
 # ------------------------------------------------------------------ #
-# the refused elastic fleet
+# the elastic fleet's knobs and their checks
+
+
+# What each knob's check refuses (the reference's constructor checks;
+# an SLO of 0 leaves the autoscaler unarmed).
+BAD_KNOB = {"slo_p99_ms": 0, "min_replicas": 0, "max_replicas": 1}
 
 
 @pytest.mark.parametrize("name,value", [("slo_p99_ms", 50.0),
                                         ("min_replicas", 1),
                                         ("max_replicas", 4)])
 def test_router_refuses_the_autoscaler_knobs(name, value):
-    with pytest.raises(NotImplementedError, match=ITEM):
-        port_router.FleetRouter(replicas=2, **{name: value})
+    """Each knob is taken as the reference's router takes it, and a
+    bad value is refused as the reference refuses it."""
+    ref = ref_router.FleetRouter(replicas=2, **{name: value})
+    port = port_router.FleetRouter(replicas=2, **{name: value})
+    assert getattr(port, name) == getattr(ref, name) == value
+    bad = {name: BAD_KNOB[name]}
+    if name == "slo_p99_ms":
+        assert port_router.FleetRouter(replicas=2, **bad).slo_p99_ms \
+            is ref_router.FleetRouter(replicas=2, **bad).slo_p99_ms is None
+        return
+    for mod in (ref_router, port_router):
+        with pytest.raises(ValueError, match=name):
+            mod.FleetRouter(replicas=2, **bad)
 
 
 def test_router_refuses_remote_join_and_the_armed_autoscaler():
-    router = _bench_router(port_router, n=1)
-    with pytest.raises(NotImplementedError, match=ITEM):
-        router.register_remote("http://127.0.0.1:9")
-    with pytest.raises(NotImplementedError, match=ITEM):
-        router.autoscale_decision()
+    """An unreachable remote is refused (its slot left down), and the
+    armed autoscaler refuses to grow past its ceiling — on both
+    routers."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        closed = s.getsockname()[1]
+    for mod in (ref_router, port_router):
+        router = _bench_router(mod, n=1, slo_p99_ms=10.0, max_replicas=2)
+        with pytest.raises(RuntimeError, match="admission probe"):
+            router.register_remote(f"http://127.0.0.1:{closed}")
+        assert router.replicas[1].status == mod.DOWN
+        for _ in range(20):
+            router.record_latency(500.0)
+        router.replicas[1].status = mod.UP
+        router.replicas[1].managed = True
+        assert router.autoscale_decision() is None
+        router.replicas[1].managed = False
+        assert router.autoscale_decision() == "up"
 
 
 @pytest.mark.parametrize("name,value", [("join", "http://x:1"),
                                         ("slo_p99_ms", 50.0),
                                         ("min_replicas", 1),
                                         ("max_replicas", 4)])
-def test_api_and_cli_refuse_the_elastic_knobs(name, value, capsys):
-    with pytest.raises(NotImplementedError, match=ITEM):
-        api.serve(port=0, replicas=2, device="cpu", **{name: value})
+def test_api_and_cli_refuse_the_elastic_knobs(name, value, monkeypatch):
+    """``join`` with a local fleet is refused (``ValueError``, exit 2)
+    as the reference refuses it; the autoscaler's knobs reach the
+    fleet's router from ``api.serve`` and from the CLI."""
     flag = [f"--{name}", str(value)]
-    assert dcop_cli.main(["serve", "--device", "cpu", "--port", "0",
-                          *flag]) == 2
-    assert "Queue A item 5(c)" in capsys.readouterr().err
+    if name == "join":
+        with pytest.raises(ValueError, match="join="):
+            api.serve(port=0, replicas=2, device="cpu", join=value)
+        assert dcop_cli.main(["serve", "--device", "cpu", "--port", "0",
+                              "--replicas", "2", *flag]) == 2
+        return
+    captured = []
+
+    class FakeRouter:
+        def __init__(self, **kw):
+            captured.append(kw)
+            raise RuntimeError("stop here")
+
+    monkeypatch.setattr(port_router, "FleetRouter", FakeRouter)
+    with pytest.raises(RuntimeError, match="stop here"):
+        api.serve(port=0, replicas=2, device="cpu", **{name: value})
+    with pytest.raises(RuntimeError, match="stop here"):
+        dcop_cli.main(["serve", "--device", "cpu", "--port", "0",
+                       "--replicas", "2", *flag])
+    assert [kw[name] for kw in captured] == [value, value]
+    assert all(kw["device"] == "cpu" for kw in captured)
 
 
 def _router_front_end(router):
@@ -450,12 +499,20 @@ def _router_front_end(router):
 
 
 def test_join_route_answers_501_and_an_empty_fleet_503():
+    """``POST /fleet/join`` answers as the reference's route: 400 for a
+    bad body or address, 503 (retry) for an endpoint that does not
+    answer its admission probe.  An empty fleet answers 503."""
     router = port_router.FleetRouter(replicas=2)
     front = _router_front_end(router)
     try:
         code, body = common.http(front.url + "/fleet/join", "POST",
                                  {"url": "http://127.0.0.1:9"})
-        assert code == 501 and "Queue A item 5(c)" in body["error"]
+        assert code == 503 and body["retry"] is True
+        assert "admission probe" in body["error"]
+        for bad in ({"host_id": "h"}, {"url": "no-port"}):
+            code, body = common.http(front.url + "/fleet/join", "POST",
+                                     bad)
+            assert code == 400, body
         code, body = common.http(front.url + "/solve", "POST", {
             "dcop": common.ring_yaml(6, 1), "wait": True})
         assert code == 503 and body["retry"] is True

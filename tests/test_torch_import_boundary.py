@@ -189,7 +189,8 @@ SOURCES = sorted(
        REPO / "tests" / "test_torch_gpu_batch.py",
        REPO / "tests" / "test_torch_gpu_serve.py",
        REPO / "tests" / "test_torch_gpu_sharding.py",
-       REPO / "tests" / "test_torch_gpu_fleet.py"]
+       REPO / "tests" / "test_torch_gpu_fleet.py",
+       REPO / "tests" / "test_torch_gpu_fleet_elastic.py"]
 )
 
 
@@ -233,3 +234,32 @@ def test_fleet_slice_imports_neither_jax_nor_the_reference(source):
     assert source in SOURCES
     roots = {name.split(".")[0] for name in _imported_roots(path)}
     assert not roots & {"jax", "jaxlib", "pydcop_tpu"}, (source, roots)
+
+
+# The elastic slice's modules, each scanned on its own.
+ELASTIC_SLICE = [
+    "pydcop_tpu_torch/serving/router.py",
+    "pydcop_tpu_torch/serving/migration.py",
+    "pydcop_tpu_torch/serving/netfault.py",
+    "pydcop_tpu_torch/engine/multihost.py",
+    "pydcop_tpu_torch/commands/serve.py",
+    "pydcop_tpu_torch/api.py",
+    "chip_smoke.py",
+    "tests/test_torch_gpu_fleet_elastic.py",
+]
+
+
+@pytest.mark.parametrize("source", ELASTIC_SLICE)
+def test_elastic_slice_imports_neither_jax_nor_the_reference(source):
+    """The elastic slice's modules exist and import neither JAX nor the
+    JAX package (the autoscaler, remote membership and the join
+    announcement are copies, not imports), and none still refuses the
+    elastic fleet."""
+    path = REPO / source
+    assert path.exists(), source
+    assert source in SOURCES
+    roots = {name.split(".")[0] for name in _imported_roots(path)}
+    assert not roots & {"jax", "jaxlib", "pydcop_tpu"}, (source, roots)
+    text = path.read_text(encoding="utf-8")
+    for word in ("5(c)", "ELASTIC_NOT_PORTED", "refuse_elastic"):
+        assert word not in text, (source, word)

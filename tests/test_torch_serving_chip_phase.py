@@ -41,6 +41,9 @@ def _isolated(tmp_path, monkeypatch):
                        str(tmp_path / "autotune.json"))
     monkeypatch.setenv("PYDCOP_FLIGHT_DIR", str(tmp_path / "bundles"))
     for name, value in (("SERVE_BIN_VARS", 200), ("SERVE_BIN_CYCLES", 40),
+                        # The bin's member count as the phase ran it
+                        # until the card run was cut to 8 for time.
+                        ("SERVE_BIN_MEMBERS", 16),
                         ("SERVE_MIXED_REQUESTS", 16),
                         ("SERVE_SESSION_EVENTS", 4),
                         ("SERVE_RECOVER_REQUESTS", 8),

@@ -1,6 +1,8 @@
 """The port's serving entry points and CLI on the CPU:
 ``api.serve`` and ``python -m pydcop_tpu_torch serve``, the elastic
-fleet's knobs that refuse, the device rule, and the reference's global
+fleet's knobs on a single service (as the reference: ``join``
+announces the service to a router, the autoscaler's knobs are the
+fleet's and a single service ignores them), the device rule, and the reference's global
 options and ``solve`` flags the CLI gained with them (``-t/--timeout``,
 ``--output``, ``-v/--verbosity``, ``--version``;
 ``--flight_recorder_events``, ``--profile``).
@@ -15,7 +17,9 @@ import os
 import signal
 import subprocess
 import sys
+import threading
 import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import pytest
 import torch
@@ -47,16 +51,59 @@ def _cold_dispatch_caches(monkeypatch, tmp_path):
         yield
 
 
-# The elastic fleet's knobs (``replicas`` and ``hosts`` serve a
-# fixed-size fleet since the router's port: tests/test_torch_fleet_*.py).
-FLEET_KNOBS = [("join", "http://x:1"), ("min_replicas", 1),
+# The elastic fleet's knobs (the fleet itself: tests/test_torch_fleet_*.py).
+FLEET_KNOBS = [("join", "ROUTER"), ("min_replicas", 1),
                ("max_replicas", 4), ("slo_p99_ms", 50.0)]
 
 
+class _StubRouter(BaseHTTPRequestHandler):
+    """A fleet router's ``POST /fleet/join``: records the document."""
+
+    joins: list = []
+
+    def do_POST(self):  # noqa: N802 — stdlib name
+        raw = self.rfile.read(int(self.headers["Content-Length"]))
+        type(self).joins.append((self.path, json.loads(raw)))
+        out = json.dumps({"index": 2, "status": "up"}).encode()
+        self.send_response(200)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(out)))
+        self.end_headers()
+        self.wfile.write(out)
+
+    def log_message(self, *args):
+        pass
+
+
 @pytest.mark.parametrize("name,value", FLEET_KNOBS)
-def test_fleet_knobs_raise_naming_the_roadmap_item(name, value):
-    with pytest.raises(NotImplementedError, match=r"Queue A item 5\(c\)"):
-        api.serve(port=0, device="cpu", **{name: value})
+def test_fleet_knobs_raise_naming_the_roadmap_item(name, value, tmp_path):
+    """A single service with one elastic knob serves as the reference's
+    does: ``join`` announces its URL (and journal) to the router once
+    the front end is bound; the autoscaler's knobs are the fleet's
+    router's and a single service ignores them."""
+    handler = type("Stub", (_StubRouter,), {"joins": []})
+    stub = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    threading.Thread(target=stub.serve_forever, daemon=True).start()
+    if value == "ROUTER":
+        value = f"http://127.0.0.1:{stub.server_address[1]}"
+    try:
+        handle = api.serve(port=0, device="cpu", speculate=False,
+                           journal_dir=str(tmp_path / "jnl"),
+                           host_id="rack3", **{name: value})
+        url = handle.url
+        try:
+            code, body = common.http(handle.url + "/solve", "POST", {
+                "dcop": common.ring_yaml(6, 1), "wait": True,
+                "params": {"max_cycles": 20}})
+        finally:
+            handle.stop()
+    finally:
+        stub.shutdown()
+        stub.server_close()
+    assert code == 200 and body["status"] == "FINISHED"
+    want = [("/fleet/join", {"url": url, "host_id": "rack3",
+                             "journal_dir": str(tmp_path / "jnl")})]
+    assert handler.joins == (want if name == "join" else [])
 
 
 def test_serve_refuses_without_a_card():
@@ -68,10 +115,13 @@ def test_serve_refuses_without_a_card():
         dcop_cli.main(["serve", "--port", "0"])
 
 
-def test_cli_fleet_flag_exits_2(capsys):
+def test_cli_fleet_flag_exits_2(caplog):
+    """``--join`` with a local fleet exits 2 before anything starts, as
+    the reference's ``serve`` does."""
     assert dcop_cli.main(["serve", "--device", "cpu", "--port", "0",
-                          "--replicas", "2", "--max_replicas", "4"]) == 2
-    assert "Queue A item 5(c)" in capsys.readouterr().err
+                          "--replicas", "2", "--max_replicas", "4",
+                          "--join", "http://127.0.0.1:9"]) == 2
+    assert "--join is for single-replica" in caplog.text
 
 
 def test_api_serve_handle_solves_like_the_reference():
