@@ -111,7 +111,18 @@ worker replaying its journal segment on the card); every answer equals
 its solo solve on the card and on the CPU, each worker's own
 ``/profile`` names the card and the kernel libraries it loaded and
 launched, and problems/s, p50/p99 and the start and restart seconds
-print beside the serve phase's figures.
+print beside the serve phase's figures.  The generators slice adds
+``generated``: the port's generators make six problem families in this
+process (a soft 3-colouring of 10,000 variables on a scale-free graph,
+a 100 x 100 Ising torus, PEAV meeting scheduling, a SECP of 3,600
+variables with arities 1-4, IoT and a small world of 10,000 variables,
+D = 10), each solved through ``api.solve`` with maxsum, dsa and mgm on
+the card and on the CPU (every answer equal; the MaxSum messages bit
+for bit on the problems of unary and binary factors), the launch counts
+set to 0 before each card solve; ``factor_to_var`` timed on SECP's
+arity-3 and arity-4 buckets beside the binary kernel; and the CLI's
+``generate``, ``graph`` and ``solve --device cuda`` on a small
+generated file.
 Each phase prints one JSON line (with ``t_s``, the seconds since the
 start); any failure raises and the
 script exits non-zero without the final line.  On success the last
@@ -142,9 +153,9 @@ FLAGSHIP_VARS = 10_000
 N_COLORS = 3
 SCALE_VARS = 1_000_000
 # The scale leg's cycles (30 until the portfolio and dynamic phases were
-# added, 15 until the batch and lane slice's: cut to make room for them;
-# its CPU run is 1.6 s a cycle).
-SCALE_CYCLES = 10
+# added, 15 until the batch and lane slice's, 10 until the generators
+# slice's: cut to make room for them; its CPU run is ~1 s a cycle).
+SCALE_CYCLES = 5
 FIXED_CYCLES = 200
 # binary_factor_update shapes (F, D): one factor, blocks short of and
 # past the kernel's 128-factor block, every templated D (1..8), two
@@ -2016,10 +2027,10 @@ BEST_CHOICE_DENSITIES = [0.0, 0.1, 0.4, 0.9, 1.0]
 # are most of the phase).  DBA's CSP must stop before it (at 121).
 LS_CYCLES = 130
 # ... and those of the other algorithms' solves (LS_CYCLES until the
-# partitioned slice's phase was added: cut to keep the script well
-# inside its time limit on a slow host; MGM2's and ADSA's CPU runs were
-# 70 of the phase's 129 s of CPU solves).
-LS_CHECK_CYCLES = 60
+# partitioned slice's phase was added, 60 until the generators slice's:
+# cut to keep the script well inside its time limit on a slow host;
+# their CPU runs were 33 s of the phase's 74 s at 60 cycles).
+LS_CHECK_CYCLES = 30
 # The flagship ops loop is timed over this many cycles and profiled over
 # LS_PROFILE_CYCLES (200 and 20 before the exact slice's phases were
 # added: cut to make room for them); the solves run LS_CHECK_CYCLES
@@ -2029,7 +2040,8 @@ LS_TIMED_CYCLES = 50
 LS_PROFILE_CYCLES = 10
 # 30 until the batch and lane slice, 20 until the lane kernels slice.
 LS_SCALE_CYCLES = 10
-LS_SCALE_COMPARE = 5
+# Card = CPU state by state at scale (5 until the generators slice).
+LS_SCALE_COMPARE = 2
 # (label, algorithm, params, problem) of the flagship solves; the first
 # is the slice's main path (api.solve(dcop, "dsa"), the default variant
 # B).  Problems: "flagship" (bench.py build_dcop), "csp" (its edges with
@@ -2898,8 +2910,11 @@ DPOP_WARM_REPS = 1
 DPOP_TREES = [(3_000, 3), (10_000, 8)]
 DPOP_EXACT = (300, 8, 1709)
 # The band: n variables, each tied to its previous W ones, D values: the
-# largest UTIL table holds D ** (W + 1) = 2 ** 24 elements.
-DPOP_WIDE = (20, 8, 7)
+# largest UTIL table holds D ** (W + 1) = 2 ** 24 elements (n was 20
+# until the generators slice: its CPU solve took 20.5 s, most of it the
+# 13 nodes at full width; 10 keeps 3 of them, two of which join a
+# child's message: the largest call still has 8 components).
+DPOP_WIDE = (10, 8, 7)
 TREE_SEARCH_FIXTURES = [
     "coloring_3agents_10vars.yaml", "coloring_4agents_10vars.yaml",
     "coloring_chain.yaml", "coloring_chain_func.yaml",
@@ -3907,7 +3922,8 @@ LANE_CHECK_D = [1, 2, 3, 4, 5, 6, 7, 8, 9, 33]
 LANE_CHECK_F = [1, 257, 1_000, 15_001]
 # Domains of the lane_sum and lane_var_update checks.
 LANE_SUM_D = [1, 2, 3, 4, 5, 6, 7, 8, 11, 33]
-LANE_SCALE_COMPARE = 5       # card = CPU cycles at scale, lane layout
+LANE_SCALE_COMPARE = 3       # card = CPU cycles at scale, lane layout
+                             # (5 until the generators slice)
 LANE_TRACE_CYCLES = 30
 # Stacked instances of build_dcop_small (64 until the lane kernels
 # slice, 32 until the elastic fleet's: cut to keep the script's time;
@@ -6107,6 +6123,219 @@ def fleet_elastic_legs(ctx, handle, card, flagship_yaml, mixed_dcop,
     return out
 
 
+# -- the generators slice ------------------------------------------------ #
+
+# The port's generators at these sizes (one entry each: label, module of
+# pydcop_tpu_torch.generators, function, arguments, keyword arguments).
+GENERATED_PROBLEMS = [
+    ("graph_coloring", "graphcoloring", "generate_graph_coloring",
+     (10_000, 3, "scalefree"), {"soft": True, "m_edge": 2, "seed": 0}),
+    ("ising", "ising", "generate_ising", (100,), {"seed": 0}),
+    ("meetings", "meetingscheduling", "generate_meetings",
+     (10, 500, 200, 4), {"seed": 0}),
+    ("secp", "secp", "generate_secp", (3000, 600, 600), {"seed": 0}),
+    ("iot", "iot", "generate_iot", (10_000,), {"seed": 0}),
+    ("small_world", "smallworld", "generate_small_world", (10_000,),
+     {"seed": 0}),
+]
+GENERATED_ALGOS = ("maxsum", "dsa", "mgm")
+GENERATED_CYCLES = 60
+# factor_to_var's dense n-ary update (still plain torch): calls timed
+# after the warm-up, on the SECP problem's arity-3 and arity-4 buckets.
+FACTOR_TO_VAR_REPS = 20
+# The CLI leg: a small generated file through generate, graph and solve.
+GENERATED_CLI = ["generate", "graph_coloring", "-v", "100", "-c", "3", "-g",
+                 "scalefree", "-m", "2", "--seed", "0"]
+
+
+def factor_to_var_bound(f: int, arity: int, d: int):
+    """(bound_ms, bound_by) of one bucket's dense update: the cost table
+    and the messages read once and the messages written once, against
+    the f32 operations (arity adds a table entry, then a min over it and
+    a subtract for each position)."""
+    entries = f * d ** arity
+    bytes_moved = 4 * (entries + 2 * f * arity * d)
+    ops = entries * (arity + arity) + f * arity * d
+    bytes_ms = bytes_moved / H100_BYTES_PER_S * 1e3
+    ops_ms = ops / H100_F32_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
+def time_factor_to_var(torch, ops, graph, bucket_index: int, seed: int):
+    """One bucket's f2v update through ``ops.maxsum.factor_to_var`` on
+    random messages (the binary bucket runs binary_factor_update.cu, the
+    others torch), timed with CUDA events after a warm-up: ``ms`` a call
+    replayed from a CUDA graph (device time; sorted spread of five
+    replays in ``ms_spread``) and ``eager_ms`` a call launched from the
+    host back to back (the host's launches included); the bound and the
+    bucket's shape."""
+    from types import SimpleNamespace
+
+    bucket = graph.buckets[bucket_index]
+    f = int(bucket.costs.shape[0])
+    arity = bucket.costs.dim() - 1
+    d = int(bucket.costs.shape[1])
+    rng = np.random.default_rng(seed)
+    msgs = torch.tensor(rng.normal(size=(f, arity, d)).astype(np.float32),
+                        device=bucket.costs.device)
+    one = SimpleNamespace(buckets=(bucket,))
+
+    def call():
+        return ops.factor_to_var(one, (msgs,))
+
+    eager = cuda_ms(torch, call, FACTOR_TO_VAR_REPS)
+    replays = graph_ms(torch, call, FACTOR_TO_VAR_REPS)
+    bound_ms, bound_by = factor_to_var_bound(f, arity, d)
+    return {"F": f, "arity": arity, "D": d, "ms": replays[2],
+            "ms_spread": [replays[0], replays[-1]], "eager_ms": eager,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / replays[2]}
+
+
+def phase_generated(ctx, card="cuda"):
+    """The generators slice on the card.  Each of the port's generators
+    makes its problem in this process at the sizes above; each problem
+    is solved through ``api.solve`` with maxsum, dsa and mgm (60
+    cycles) on the card and on the CPU, and every card solve equals the
+    CPU's in assignment, cost, violations, cycles and status.  On the
+    problems of unary and binary factors a fixed 60-cycle MaxSum run on
+    the card equals the CPU's in every final message.  The launch
+    counts are set to 0 before each card solve and read after it; their
+    sum over the phase is the path's.  ``factor_to_var`` is timed on
+    SECP's arity-3 and arity-4 buckets beside the binary kernel on the
+    colouring's bucket.  Then the CLI leg: ``generate`` a small
+    colouring, ``graph -a maxsum`` and ``solve --device`` on the file it
+    wrote, in this process.  ``card="cpu"`` rehearses the phase (no
+    launches counted, smaller sizes through ``problems=``)."""
+    import contextlib
+    import importlib
+    import io
+    import tempfile
+
+    torch, _build, api = ctx["torch"], ctx["_build"], ctx["api"]
+    from pydcop_tpu_torch import dcop_cli
+    from pydcop_tpu_torch.algorithms.maxsum import build_engine
+    from pydcop_tpu_torch.engine.convert import state_to_numpy
+    from pydcop_tpu_torch.ops import maxsum as ops
+
+    t_phase = time.perf_counter()
+    launches = collections.Counter()
+    rows, f2v_timing = {}, {}
+    for label, module, func, args, kwargs in ctx.get(
+            "problems", GENERATED_PROBLEMS):
+        t0 = time.perf_counter()
+        generator = getattr(importlib.import_module(
+            f"pydcop_tpu_torch.generators.{module}"), func)
+        dcop = generator(*args, **kwargs)
+        if isinstance(dcop, tuple):
+            dcop = dcop[0]
+        row = {"variables": len(dcop.variables),
+               "constraints": len(dcop.constraints),
+               "generate_s": time.perf_counter() - t0, "solves": {}}
+        for algo in GENERATED_ALGOS:
+            _build.launch_counts.clear()
+            t0 = time.perf_counter()
+            res = api.solve(dcop, algo, max_cycles=GENERATED_CYCLES,
+                            device=card)
+            card_s = time.perf_counter() - t0
+            got = dict(_build.launch_counts)
+            launches.update(got)
+            t0 = time.perf_counter()
+            cpu = api.solve(dcop, algo, max_cycles=GENERATED_CYCLES,
+                            device="cpu")
+            cpu_s = time.perf_counter() - t0
+            for key in ("assignment", "cost", "violations", "cycles",
+                        "status"):
+                if res[key] != cpu[key]:
+                    fail(f"generated {label} {algo}: card {key} "
+                         f"{res[key] if key != 'assignment' else '...'} != "
+                         f"CPU {cpu[key] if key != 'assignment' else '...'}")
+            if not np.isfinite(res["cost"]):
+                fail(f"generated {label} {algo}: cost {res['cost']}")
+            if card != "cpu" and not any(
+                    n for k, n in got.items() if k.startswith(
+                        "binary_factor_update" if algo == "maxsum"
+                        else "segment_sum:positional")):
+                fail(f"generated {label} {algo} launched {got}")
+            row["solves"][algo] = {
+                "cost": res["cost"], "violations": res["violations"],
+                "cycles": res["cycles"], "status": res["status"],
+                "card_s": card_s, "cpu_s": cpu_s, "launches": got}
+        engine = build_engine(dcop, {}, device=card)
+        arities = sorted({b.costs.dim() - 1 for b in engine.graph.buckets})
+        row["arities"] = arities
+        if max(arities) <= 2:
+            cpu_engine = build_engine(dcop, {}, device="cpu")
+            kw = dict(damping=engine.damping, damp_vars=engine.damp_vars,
+                      damp_factors=engine.damp_factors,
+                      stability=engine.stability)
+            runs = [final_run(ops, state_to_numpy, g, GENERATED_CYCLES,
+                              **kw)
+                    for g in (engine.graph, cpu_engine.graph)]
+            diff = run_differences(*runs)
+            if diff:
+                fail(f"generated {label}: card MaxSum run != CPU run in "
+                     f"{diff}")
+            row["messages_bit_equal"] = int(sum(
+                a.size for a in runs[0][0]["f2v"]))
+            del cpu_engine, runs
+        if card != "cpu" and label == "graph_coloring":
+            f2v_timing["binary_graph_coloring"] = time_factor_to_var(
+                torch, ops, engine.graph, arities.index(2), seed=1)
+        if card != "cpu" and label == "secp":
+            for i, b in enumerate(engine.graph.buckets):
+                arity = b.costs.dim() - 1
+                if arity >= 3:
+                    f2v_timing[f"secp_arity{arity}"] = time_factor_to_var(
+                        torch, ops, engine.graph, i, seed=arity)
+        del engine
+        rows[label] = row
+
+    # The CLI leg, in this process: generate, graph, solve on the card.
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_generated_")
+    path = os.path.join(tmp, "graph_coloring_100.yaml")
+
+    def cli(args):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = dcop_cli.main(args)
+        if rc != 0:
+            fail(f"generated CLI leg: {' '.join(args)} exited {rc}")
+        return out.getvalue()
+
+    try:
+        cli(["--output", path] + GENERATED_CLI)
+        graph = json.loads(cli(["graph", "-a", "maxsum", path]))
+        if (graph["graph"] != "factor_graph" or graph["nodes"]
+                != graph["variables"] + graph["constraints"]):
+            fail(f"generated CLI leg: graph printed {graph}")
+        _build.launch_counts.clear()
+        solved = json.loads(cli(["solve", "-a", "maxsum", "-c",
+                                 str(GENERATED_CYCLES), "--device", card,
+                                 path]))
+        cli_launches = dict(_build.launch_counts)
+        launches.update(cli_launches)
+        cpu_solved = json.loads(cli(["solve", "-a", "maxsum", "-c",
+                                     str(GENERATED_CYCLES), "--device",
+                                     "cpu", path]))
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    for key in ("assignment", "cost", "violation", "cycle", "status"):
+        if solved[key] != cpu_solved[key]:
+            fail(f"generated CLI leg: card {key} != CPU")
+    if card != "cpu" and not cli_launches.get("binary_factor_update"):
+        fail(f"generated CLI leg launched {cli_launches}")
+    return dict(problems=rows, factor_to_var=f2v_timing,
+                cli={"args": GENERATED_CLI, "graph": graph,
+                     "cost": solved["cost"], "cycle": solved["cycle"],
+                     "launches": cli_launches},
+                launches=dict(launches),
+                seconds=time.perf_counter() - t_phase)
+
+
 def free_port() -> int:
     """A local TCP port free now, for a process that must listen on a
     port known before it starts."""
@@ -6985,6 +7214,20 @@ def main() -> int:
          remote_adopted_s=elastic["remote_death"]["adopted_s"],
          fixed_legs_s=fleet["fixed_legs_s"])
     new_paths["elastic"] = elastic["launches"]
+
+    # 18. The generators slice: the port's generators make six problem
+    # families in this process; each is solved with maxsum, dsa and mgm
+    # on the card and on the CPU (card = CPU), with the launch counts
+    # set to 0 before each card solve and read after it;
+    # factor_to_var's n-ary buckets timed; the generate / graph / solve
+    # CLI leg on a small generated file.
+    generated = phase_generated(ctx)
+    emit("generated", card=smi, **generated)
+    emit("generated_seconds", card=smi, phase_s=generated["seconds"],
+         generate_s={k: r["generate_s"]
+                     for k, r in generated["problems"].items()})
+    emit("factor_to_var_ms", card=smi, **generated["factor_to_var"])
+    new_paths["generated"] = generated["launches"]
 
     # 7. Fixture parity: the verify oracle.
     fixture = os.path.join(HERE, "tests", "instances", "coloring_12_3.yml")

@@ -2,12 +2,14 @@
 
 Port of ``pydcop_tpu/algorithms/__init__.py`` (AlgoParameterDef,
 AlgorithmDef, check_param_value, prepare_algo_params,
-load_algorithm_module) without the agent-mode computation definitions:
-the port runs algorithms on the device only.  An algorithm module here
-declares ``algo_params`` and ``solve_on_device``.
+load_algorithm_module, list_available_algorithms) without the
+agent-mode computation definitions: the port runs algorithms on the
+device only.  An algorithm module here declares ``algo_params``,
+``GRAPH_TYPE`` and ``solve_on_device``.
 """
 
 import importlib
+import pkgutil
 from typing import Any, Dict, List, NamedTuple, Optional
 
 from pydcop_tpu_torch.utils.simple_repr import SimpleRepr
@@ -129,3 +131,14 @@ def load_algorithm_module(name: str):
     if not hasattr(module, "algo_params"):
         module.algo_params = []
     return module
+
+
+def list_available_algorithms() -> List[str]:
+    """All algorithm modules in this package (plugin discovery)."""
+    import pydcop_tpu_torch.algorithms as pkg
+
+    return sorted(
+        name
+        for _, name, ispkg in pkgutil.iter_modules(pkg.__path__)
+        if not ispkg and not name.startswith("_")
+    )

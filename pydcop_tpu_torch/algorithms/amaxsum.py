@@ -16,6 +16,8 @@ from pydcop_tpu_torch.engine.runner import DeviceRunResult
 
 algo_params = list(_maxsum.algo_params)
 
+GRAPH_TYPE = "factor_graph"
+
 # Same engine as maxsum, so partitioned sharding (shards=) comes
 # through the shared build_engine.
 SUPPORTS_SHARDS = True

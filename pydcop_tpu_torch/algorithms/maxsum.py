@@ -32,6 +32,8 @@ from pydcop_tpu_torch.engine.runner import (
     ShardedMaxSumEngine,
 )
 
+GRAPH_TYPE = "factor_graph"
+
 STABILITY_COEFF = 0.1
 
 # The partitioned engine (shards=) runs this algorithm.

@@ -12,6 +12,8 @@ from pydcop_tpu_torch.dcop.objects import ExternalVariable
 
 algo_params = _maxsum.algo_params
 
+GRAPH_TYPE = "factor_graph"
+
 # Delegates to the maxsum engine after slicing externals, so the
 # partitioned-sharding knob (shards=) flows through **kwargs.
 SUPPORTS_SHARDS = True

@@ -2,9 +2,8 @@
 
 Ported copy of ``pydcop_tpu/dcop/dcop.py``: the port imports
 nothing of the JAX package, so it keeps its own copy of the
-host-side modelling layer.  Behaviour is kept identical (the
-compiled arrays must match the reference bit for bit); only what
-the MaxSum solve path reaches is kept.
+host-side modelling layer, whole.  Behaviour is kept identical (the
+compiled arrays must match the reference bit for bit).
 
 Reference parity: pydcop/dcop/dcop.py (DCOP :41, add_agents :207, merge
 :154, solution_cost :308, filter_dcop :370).
@@ -165,3 +164,27 @@ class DCOP:
                      else v.domain[0])
             for v in self.variables.values()
         }
+
+
+def filter_dcop(dcop: DCOP, accept_unary: bool = False) -> DCOP:
+    """Drop variables that appear in no (non-unary) constraint.
+
+    Reference parity: dcop.py:370 — used to clean generated problems.
+    """
+    used = set()
+    for c in dcop.constraints.values():
+        if c.arity > 1 or accept_unary:
+            used.update(c.scope_names)
+    filtered = DCOP(dcop.name, dcop.objective, dcop.description)
+    filtered.domains = dict(dcop.domains)
+    for name, v in dcop.variables.items():
+        if name in used:
+            filtered.add_variable(v)
+    for ev in dcop.external_variables.values():
+        filtered.add_external_variable(ev)
+    for c in dcop.constraints.values():
+        if c.arity > 1 or accept_unary:
+            filtered.add_constraint(c)
+    filtered.add_agents(dcop.agents)
+    filtered.dist_hints = dcop.dist_hints
+    return filtered

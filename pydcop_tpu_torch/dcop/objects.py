@@ -2,11 +2,11 @@
 
 Ported copy of ``pydcop_tpu/dcop/objects.py``: the port imports
 nothing of the JAX package, so it keeps its own copy of the
-host-side modelling layer.  Behaviour is kept identical (the
-compiled arrays must match the reference bit for bit); only what
-the MaxSum solve path reaches is kept.
+host-side modelling layer, whole.  Behaviour is kept identical (the
+compiled arrays must match the reference bit for bit).
 
 Reference parity: pydcop/dcop/objects.py (Domain :46, Variable :175,
+create_variables :258, BinaryVariable :335, VariableWithCostDict :410,
 VariableWithCostFunc :464, VariableNoisyCostFunc :547, ExternalVariable
 :618, AgentDef :669).
 
@@ -20,7 +20,8 @@ makes cost parity between runs impossible; we fix that deliberately).
 """
 
 import hashlib
-from typing import Callable, Dict, Iterable, Optional, Tuple, Union
+import itertools
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 
@@ -107,6 +108,9 @@ class Domain(SimpleRepr):
 # Backward-compatible alias used throughout the reference's API.
 VariableDomain = Domain
 
+binary_domain = Domain("binary", "binary", [0, 1])
+
+
 class Variable(SimpleRepr):
     """A decision variable with a finite domain.
 
@@ -169,6 +173,41 @@ class Variable(SimpleRepr):
 
     def __str__(self):
         return f"Variable({self._name})"
+
+
+class BinaryVariable(Variable):
+    """A 0/1 variable (used by the repair-as-DCOP machinery)."""
+
+    def __init__(self, name: str, initial_value=0):
+        super().__init__(name, binary_domain, initial_value)
+
+    def clone(self):
+        return BinaryVariable(self._name, initial_value=self._initial_value)
+
+    def __repr__(self):
+        return f"BinaryVariable({self._name!r})"
+
+
+class VariableWithCostDict(Variable):
+    """Variable with an explicit value→cost table."""
+
+    has_cost = True
+
+    def __init__(self, name, domain, costs: Dict, initial_value=None):
+        super().__init__(name, domain, initial_value)
+        self._costs = dict(costs)
+
+    @property
+    def costs(self):
+        return dict(self._costs)
+
+    def cost_for_val(self, val) -> float:
+        return self._costs.get(val, 0.0)
+
+    def clone(self):
+        return VariableWithCostDict(
+            self._name, self._domain, self._costs, self._initial_value
+        )
 
 
 class VariableWithCostFunc(Variable):
@@ -330,6 +369,64 @@ class ExternalVariable(Variable):
         return cls(r["name"], from_repr(r["domain"]), r.get("value"))
 
 
+def _expand_indices(indexes) -> List[Tuple]:
+    """Expand index ranges into the cartesian list of index tuples."""
+    if isinstance(indexes, range):
+        return [(i,) for i in indexes]
+    dims = []
+    for dim in indexes:
+        if isinstance(dim, range):
+            dims.append(list(dim))
+        elif isinstance(dim, (list, tuple)):
+            dims.append(list(dim))
+        else:
+            return [(i,) for i in indexes]
+    return list(itertools.product(*dims))
+
+
+def create_variables(name_prefix: str, indexes, domain: Domain,
+                     separator: str = "_") -> Dict:
+    """Mass-create variables from a prefix and index ranges.
+
+    The prefix carries its own separator (reference objects.py:258:
+    ``create_variables('x_', ...)`` names variables ``x_a_0``):
+
+    >>> d = Domain('d', 'd', [0, 1])
+    >>> vs = create_variables('x_', [['a', 'b'], range(2)], d)
+    >>> sorted(vs)[0]
+    ('a', 0)
+    >>> vs[('a', 0)].name
+    'x_a_0'
+    """
+    variables = {}
+    if isinstance(indexes, range):
+        indexes = [str(i) for i in indexes]
+    if all(isinstance(i, str) for i in indexes):
+        for i in indexes:
+            name = name_prefix + i
+            variables[name] = Variable(name, domain)
+        return variables
+    for combo in _expand_indices(indexes):
+        name = name_prefix + separator.join(str(i) for i in combo)
+        variables[tuple(combo)] = Variable(name, domain)
+    return variables
+
+
+def create_binary_variables(name_prefix: str, indexes,
+                            separator: str = "_") -> Dict:
+    """Mass-create BinaryVariables (used to build repair DCOPs)."""
+    variables = {}
+    if all(isinstance(i, str) for i in indexes):
+        for i in indexes:
+            name = name_prefix + i
+            variables[name] = BinaryVariable(name)
+        return variables
+    for combo in _expand_indices(indexes):
+        name = name_prefix + separator.join(str(i) for i in combo)
+        variables[tuple(combo)] = BinaryVariable(name)
+    return variables
+
+
 DEFAULT_CAPACITY = 100
 DEFAULT_HOSTING_COST = 0
 DEFAULT_ROUTE = 1
@@ -450,3 +547,27 @@ class AgentDef(SimpleRepr):
             routes=r.get("routes"),
             **extras,
         )
+
+
+def create_agents(name_prefix: str, indexes,
+                  default_hosting_cost: float = 0,
+                  hosting_costs: Optional[Dict] = None,
+                  default_route: float = 1,
+                  routes: Optional[Dict] = None,
+                  separator: str = "_",
+                  **extra_attr) -> Dict:
+    """Mass-create AgentDefs from a prefix and index ranges."""
+    agents = {}
+    if isinstance(indexes, range):
+        for i in indexes:
+            name = f"{name_prefix}{i}"
+            agents[name] = AgentDef(
+                name, default_hosting_cost, hosting_costs,
+                default_route, routes, **extra_attr)
+        return agents
+    for combo in _expand_indices(indexes):
+        name = name_prefix + separator.join(str(i) for i in combo)
+        agents[tuple(combo)] = AgentDef(
+            name, default_hosting_cost, hosting_costs,
+            default_route, routes, **extra_attr)
+    return agents

@@ -2,25 +2,30 @@
 
 Ported copy of ``pydcop_tpu/dcop/relations.py``: the port imports
 nothing of the JAX package, so it keeps its own copy of the
-host-side modelling layer.  Behaviour is kept identical (the
-compiled arrays must match the reference bit for bit); only what
-the device solvers reach is kept, with DPOP's relation algebra
-(``find_arg_optimal``, ``join``, ``projection``) copied byte for byte.
+host-side modelling layer, whole.  Behaviour is kept identical (the
+compiled arrays must match the reference bit for bit).
 
 Reference parity: pydcop/dcop/relations.py (RelationProtocol :48,
-NAryFunctionRelation :456, NAryMatrixRelation :672, assignment_matrix
-:1155, constraint_from_str :1275, constraint_from_external_definition
-:1314, find_arg_optimal :1554, join :1672, projection :1717).
+ZeroAryRelation :218, UnaryFunctionRelation :270, UnaryBooleanRelation
+:380, NAryFunctionRelation :456, AsNAryFunctionRelation :639,
+NAryMatrixRelation :672, NeutralRelation :909, ConditionalRelation :948,
+assignment_matrix :1155, constraint_from_str :1275,
+constraint_from_external_definition :1314, find_optimum :1367,
+generate_assignment_as_dict :1452, assignment_cost :1479,
+find_arg_optimal :1554, optimal_cost_value :1641, join :1672,
+projection :1717).
 
 Every constraint — intentional (expression) or extensional (table) — can
 materialize a dense **cost hypercube** (`to_array()`: one axis per
 variable, axis length = domain size, C-order, axis order = `dimensions`
-order); the engine compiler stacks these per arity bucket.
-Materialization is capped (`MAX_MATERIALIZED_ELEMENTS`) because
-``d^arity`` explodes.
+order); the engine compiler stacks these per arity bucket, and
+`join`/`projection` (DPOP's math) are numpy broadcast-adds and
+axis-reductions over it.  Materialization is capped
+(`MAX_MATERIALIZED_ELEMENTS`) because ``d^arity`` explodes.
 """
 
 import ast
+import itertools
 import re
 from typing import (
     Any, Callable, Dict, Hashable, Iterable, List, Optional, Union,
@@ -133,6 +138,85 @@ class Constraint(SimpleRepr):
 
     def __repr__(self):
         return f"{type(self).__name__}({self._name!r}, {self.scope_names})"
+
+
+# The reference exposes the same concept under this name.
+RelationProtocol = Constraint
+
+
+class ZeroAryRelation(Constraint):
+    """A constant-cost relation with no variables."""
+
+    def __init__(self, name: str, value: float):
+        super().__init__(name)
+        self._value = value
+
+    @property
+    def dimensions(self) -> List[Variable]:
+        return []
+
+    def __call__(self, *args, **kwargs) -> float:
+        return self._value
+
+    def to_array(self) -> np.ndarray:
+        return np.array(self._value, dtype=DEFAULT_TYPE)
+
+
+class UnaryFunctionRelation(Constraint):
+    """Cost from a single-argument function of one variable."""
+
+    def __init__(self, name: str, variable: Variable,
+                 rel_function: Union[Callable, str]):
+        super().__init__(name)
+        self._variable = variable
+        if isinstance(rel_function, str):
+            rel_function = ExpressionFunction(rel_function)
+        self._rel_function = rel_function
+
+    @property
+    def dimensions(self) -> List[Variable]:
+        return [self._variable]
+
+    @property
+    def variable(self) -> Variable:
+        return self._variable
+
+    @property
+    def expression(self) -> Optional[str]:
+        if isinstance(self._rel_function, ExpressionFunction):
+            return self._rel_function.expression
+        return None
+
+    def __call__(self, *args, **kwargs) -> float:
+        if kwargs:
+            val = kwargs[self._variable.name]
+        else:
+            (val,) = args
+        if isinstance(self._rel_function, ExpressionFunction):
+            names = list(self._rel_function.variable_names)
+            if names:
+                return self._rel_function(**{names[0]: val})
+            return self._rel_function()
+        return self._rel_function(val)
+
+
+class UnaryBooleanRelation(Constraint):
+    """Cost 1 when the variable's value is truthy, else 0."""
+
+    def __init__(self, name: str, variable: Variable):
+        super().__init__(name)
+        self._variable = variable
+
+    @property
+    def dimensions(self) -> List[Variable]:
+        return [self._variable]
+
+    def __call__(self, *args, **kwargs) -> float:
+        if kwargs:
+            val = kwargs[self._variable.name]
+        else:
+            (val,) = args
+        return 1 if val else 0
 
 
 class NAryFunctionRelation(Constraint):
@@ -290,6 +374,25 @@ class NAryFunctionRelation(Constraint):
         )
 
 
+def AsNAryFunctionRelation(*variables):
+    """Decorator turning a python function into an NAryFunctionRelation.
+
+    >>> from pydcop_tpu_torch.dcop.objects import Variable, Domain
+    >>> d = Domain('d', 'd', [0, 1])
+    >>> x, y = Variable('x', d), Variable('y', d)
+    >>> @AsNAryFunctionRelation(x, y)
+    ... def my_constraint(x, y):
+    ...     return x + y
+    >>> my_constraint(1, 1)
+    2
+    """
+
+    def decorator(f):
+        return NAryFunctionRelation(f, list(variables), name=f.__name__)
+
+    return decorator
+
+
 class NAryMatrixRelation(Constraint):
     """Extensional constraint: a dense numpy cost hypercube.
 
@@ -399,6 +502,64 @@ class NAryMatrixRelation(Constraint):
         )
 
 
+class NeutralRelation(Constraint):
+    """All-zero relation, useful as a join identity."""
+
+    def __init__(self, variables: Iterable[Variable], name: str = "neutral"):
+        super().__init__(name)
+        self._variables = list(variables)
+
+    @property
+    def dimensions(self) -> List[Variable]:
+        return list(self._variables)
+
+    def __call__(self, *args, **kwargs) -> float:
+        return 0
+
+    def to_array(self) -> np.ndarray:
+        return np.zeros(self.shape, dtype=DEFAULT_TYPE)
+
+
+class ConditionalRelation(Constraint):
+    """Applies `relation` only when `condition` is truthy, else 0."""
+
+    def __init__(self, condition: Constraint, relation: Constraint,
+                 name: str = "conditional", return_default: float = 0):
+        super().__init__(name)
+        self._condition = condition
+        self._relation = relation
+        self._default = return_default
+
+    @property
+    def condition(self) -> Constraint:
+        return self._condition
+
+    @property
+    def relation(self) -> Constraint:
+        return self._relation
+
+    @property
+    def dimensions(self) -> List[Variable]:
+        dims = list(self._condition.dimensions)
+        for v in self._relation.dimensions:
+            if v not in dims:
+                dims.append(v)
+        return dims
+
+    def __call__(self, *args, **kwargs) -> float:
+        if args and not kwargs:
+            kwargs = {v.name: a for v, a in zip(self.dimensions, args)}
+        cond_args = {
+            v.name: kwargs[v.name] for v in self._condition.dimensions
+        }
+        if self._condition(**cond_args):
+            rel_args = {
+                v.name: kwargs[v.name] for v in self._relation.dimensions
+            }
+            return self._relation(**rel_args)
+        return self._default
+
+
 # Standalone identifiers (not attribute accesses): the shared scan
 # behind the _normalized_expression_key fast path.
 _IDENT_RE = re.compile(r"(?<![\w.])[A-Za-z_]\w*")
@@ -499,6 +660,73 @@ def assignment_matrix(variables: List[Variable],
     return np.full(shape, default_value, dtype=DEFAULT_TYPE)
 
 
+def generate_assignment(variables: List[Variable]):
+    """Lazily yield all assignments as value-lists (last var fastest)."""
+    domains = [list(v.domain) for v in variables]
+    for combo in itertools.product(*domains):
+        yield list(combo)
+
+
+def generate_assignment_as_dict(variables: List[Variable]):
+    """Lazily yield all assignments as {name: value} (last var fastest)."""
+    names = [v.name for v in variables]
+    domains = [list(v.domain) for v in variables]
+    for combo in itertools.product(*domains):
+        yield dict(zip(names, combo))
+
+
+def count_var_match(variables: Iterable[str], constraint: Constraint) -> int:
+    scope = set(constraint.scope_names)
+    return sum(1 for v in variables if v in scope)
+
+
+def assignment_cost(assignment: Dict[str, Any],
+                    constraints: Iterable[Constraint],
+                    infinity: float = float("inf")) -> float:
+    """Total cost of `assignment` over `constraints`.
+
+    Raises ValueError if any constraint yields `infinity` (hard violation),
+    matching the reference's hard-constraint detection convention.
+    """
+    cost = 0
+    for c in constraints:
+        c_cost = c(**{v.name: assignment[v.name] for v in c.dimensions})
+        if abs(c_cost) == infinity:
+            raise ValueError(
+                f"Hard constraint {c.name} violated by assignment"
+            )
+        cost += c_cost
+    return cost
+
+
+def find_optimum(constraint: Constraint, mode: str) -> float:
+    """Min (or max) cost over all assignments of the constraint."""
+    arr = constraint.to_array()
+    return float(arr.min() if mode == "min" else arr.max())
+
+
+def find_optimal(variable: Variable, assignment: Dict[str, Any],
+                 constraints: Iterable[Constraint], mode: str):
+    """Best value(s) for `variable` given a partial assignment of the
+    other variables in the constraints' scopes.
+
+    Returns (list-of-optimal-values-in-domain-order, optimal_cost).
+    """
+    best_cost, best_vals = None, []
+    better = (lambda a, b: a < b) if mode == "min" else (lambda a, b: a > b)
+    for val in variable.domain:
+        asst = dict(assignment)
+        asst[variable.name] = val
+        cost = 0
+        for c in constraints:
+            cost += c(**{v.name: asst[v.name] for v in c.dimensions})
+        if best_cost is None or better(cost, best_cost):
+            best_cost, best_vals = cost, [val]
+        elif cost == best_cost:
+            best_vals.append(val)
+    return best_vals, best_cost
+
+
 def find_arg_optimal(variable: Variable, relation: Constraint, mode: str):
     """Optimal value(s) of `variable` for a unary relation over it.
 
@@ -516,6 +744,14 @@ def find_arg_optimal(variable: Variable, relation: Constraint, mode: str):
     opt = arr.min() if mode == "min" else arr.max()
     vals = [v for v, c in zip(variable.domain, arr) if c == opt]
     return vals, float(opt)
+
+
+def optimal_cost_value(variable: Variable, mode: str = "min"):
+    """(value, cost) minimizing (or maximizing) the variable's own cost."""
+    costs = [variable.cost_for_val(v) for v in variable.domain]
+    arr = np.asarray(costs, dtype=DEFAULT_TYPE)
+    i = int(arr.argmin() if mode == "min" else arr.argmax())
+    return variable.domain[i], float(arr[i])
 
 
 def join(r1: Constraint, r2: Constraint) -> NAryMatrixRelation:
@@ -568,3 +804,17 @@ def projection(relation: Constraint, variable: Variable,
     reduced = arr.min(axis=axis) if mode == "min" else arr.max(axis=axis)
     remaining = [v for v in dims if v != variable]
     return NAryMatrixRelation(remaining, reduced, name=relation.name)
+
+
+def add_var_to_rel(name: str, relation: Constraint, variable: Variable,
+                   f: Callable) -> Constraint:
+    """Extend a relation with an extra variable combined via ``f(rel, v)``."""
+    dims = relation.dimensions + [variable]
+
+    def extended(**kwargs):
+        rel_args = {
+            v.name: kwargs[v.name] for v in relation.dimensions
+        }
+        return f(relation(**rel_args), kwargs[variable.name])
+
+    return NAryFunctionRelation(extended, dims, name=name, f_kwargs=True)

@@ -1,12 +1,10 @@
-"""YAML (de)serialization for DCOPs, agents and scenarios.
+"""YAML (de)serialization for DCOPs, agents, distributions and scenarios.
 
 Ported copy of ``pydcop_tpu/dcop/yamldcop.py``: the port imports
 nothing of the JAX package, so it keeps its own copy of the
 host-side modelling layer.  Behaviour is kept identical (the
 compiled arrays must match the reference bit for bit; the writers
-give the reference's text).  Not copied yet: the distribution files
-(``load_dist*``, ``yaml_dist``), which need the agent runtime's
-``Distribution``.
+give the reference's text).
 
 Reference parity: pydcop/dcop/yamldcop.py (load_dcop_from_file :63,
 load_dcop :96, dcop_yaml :119, _build_constraints :217, _build_agents
@@ -39,7 +37,10 @@ from pydcop_tpu_torch.dcop.relations import (
     constraint_from_str,
 )
 from pydcop_tpu_torch.dcop.scenario import DcopEvent, EventAction, Scenario
-from pydcop_tpu_torch.distribution.objects import DistributionHints
+from pydcop_tpu_torch.distribution.objects import (
+    Distribution,
+    DistributionHints,
+)
 
 _RANGE_RE = re.compile(r"^\s*(-?\d+)\s*\.\.\s*(-?\d+)\s*$")
 
@@ -478,3 +479,29 @@ def yaml_scenario(scenario: Scenario) -> str:
                 ],
             })
     return yaml.safe_dump({"events": events}, sort_keys=False)
+
+
+# --------------------------------------------------------------------- #
+# Distribution files (dist_format.yml)
+
+
+def load_dist_from_file(filename: str) -> Distribution:
+    with open(filename, encoding="utf-8") as f:
+        return load_dist(f.read())
+
+
+def load_dist(yaml_str: str) -> Distribution:
+    data = _safe_load(yaml_str) or {}
+    mapping = data.get("distribution", {})
+    return Distribution({a: list(cs or []) for a, cs in mapping.items()})
+
+
+def yaml_dist(dist: Distribution, inputs: Optional[Dict] = None,
+              cost: Optional[float] = None) -> str:
+    data: Dict[str, Any] = {}
+    if inputs:
+        data["inputs"] = inputs
+    data["distribution"] = dist.mapping
+    if cost is not None:
+        data["cost"] = cost
+    return yaml.safe_dump(data, sort_keys=False)

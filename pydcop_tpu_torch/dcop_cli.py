@@ -41,7 +41,14 @@ forensics ID --url URL | --trace FILE...`` prints one request's causal
 tree across the router and its replicas (``commands/fleet.py``).
 ``python -m pydcop_tpu_torch debug bundle [--url URL] [--out
 PATH]`` cuts a flight-recorder postmortem bundle
-(``commands/debug.py``).
+(``commands/debug.py``).  ``python -m pydcop_tpu_torch generate
+graph_coloring|ising|meetings|secp|agents|scenario|iot|small_world
+... [--seed N]`` writes a generated problem (or agents, or a scenario)
+as the reference's YAML (``commands/generate.py`` over
+``generators/``), and ``python -m pydcop_tpu_torch graph -g MODEL | -a
+ALGO FILE.yaml`` prints a problem's computation-graph metrics as JSON
+(``commands/graph.py``); neither touches a device, and their errors
+are the reference's one-line messages.
 
 The global options are the reference's: ``-t/--timeout`` (accepted; a
 device solve runs to its cycle budget, as the reference's device solve
@@ -61,11 +68,12 @@ then gets the final summary row.
 
 import argparse
 import contextlib
-import json
 import logging
 import os
 import sys
-from typing import Dict, List, Optional
+from typing import List, Optional
+
+from pydcop_tpu_torch.commands._utils import emit_result, parse_algo_params
 
 
 def _configure_logs(level: int):
@@ -82,19 +90,6 @@ def _configure_logs(level: int):
         format="%(asctime)s %(levelname)s %(name)s %(message)s",
         stream=sys.stderr,
     )
-
-
-def parse_algo_params(param_strs: Optional[List[str]]) -> Dict[str, str]:
-    """Parse repeated ``name:value`` CLI parameters."""
-    params: Dict[str, str] = {}
-    for p in param_strs or []:
-        if ":" not in p:
-            raise ValueError(
-                f"Invalid algo parameter {p!r}: expected name:value"
-            )
-        name, value = p.split(":", 1)
-        params[name.strip()] = value.strip()
-    return params
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -235,6 +230,11 @@ def make_parser() -> argparse.ArgumentParser:
     serve_cmd.set_parser(sub)
     debug_cmd.set_parser(sub)
     fleet_cmd.set_parser(sub)
+    from pydcop_tpu_torch.commands import generate as generate_cmd
+    from pydcop_tpu_torch.commands import graph as graph_cmd
+
+    graph_cmd.set_parser(sub)
+    generate_cmd.set_parser(sub)
     return parser
 
 
@@ -301,7 +301,7 @@ def run_solve(args) -> int:
         "backend": "device",
     }
     _write_metrics(args, dcop, algo_def, res, result)
-    _emit(result, args.output)
+    emit_result(result, args.output)
     return 0
 
 
@@ -320,15 +320,6 @@ def _torch_profile(directory: str, device: str):
     os.makedirs(directory, exist_ok=True)
     return profile(activities=activities,
                    on_trace_ready=tensorboard_trace_handler(directory))
-
-
-def _emit(result: dict, output_file: Optional[str]) -> None:
-    """Print the result JSON (and write it to ``output_file``)."""
-    text = json.dumps(result, sort_keys=True, indent="  ")
-    if output_file:
-        with open(output_file, "w", encoding="utf-8") as f:
-            f.write(text)
-    print(text)
 
 
 def _run_solve(args, dcop, algo_def, auto_params, recovery):
@@ -419,7 +410,7 @@ def _run_scenario_cmd(args, dcop, algo_def) -> int:
             "events": out["events"],
         },
     }
-    _emit(result, args.output)
+    emit_result(result, args.output)
     return 0
 
 
@@ -436,9 +427,71 @@ def main(argv: Optional[List[str]] = None) -> int:
         parser.print_help()
         return 2
     _guard_backend(args)
+    if args.command in _REPORTED_COMMANDS:
+        return _run_reported(args)
     if args.command != "solve":
         return args.func(args)
     return run_solve(args)
+
+
+# Commands whose failures print the reference CLI's one-line errors
+# (``pydcop_tpu/dcop_cli.py`` main) instead of a traceback.
+_REPORTED_COMMANDS = ("generate", "graph")
+
+
+def _run_reported(args) -> int:
+    """Run ``args.func`` as the reference's ``main`` does: an unknown
+    algorithm or graph model names the valid ones (exit 2), a missing
+    file exits 2, any other error prints one line (exit 1; ``-v 3``
+    re-raises)."""
+    try:
+        return args.func(args) or 0
+    except ModuleNotFoundError as e:
+        name = str(e).rsplit(".", 1)[-1].rstrip("'")
+        if "pydcop_tpu_torch.algorithms." in str(e):
+            from pydcop_tpu_torch.algorithms import list_available_algorithms
+
+            print(
+                f"Error: unknown algorithm {name!r}; available: "
+                f"{', '.join(list_available_algorithms())}",
+                file=sys.stderr,
+            )
+            return 2
+        if "pydcop_tpu_torch.computations_graph." in str(e):
+            import pkgutil
+
+            import pydcop_tpu_torch.computations_graph as cg_pkg
+
+            models = sorted(
+                n for _, n, ispkg in pkgutil.iter_modules(cg_pkg.__path__)
+                if not ispkg and not n.startswith("_") and n != "objects"
+            )
+            print(
+                f"Error: unknown graph model {name!r}; available: "
+                f"{', '.join(models)}",
+                file=sys.stderr,
+            )
+            return 2
+        if args.verbosity >= 3:
+            raise
+        if "pydcop_tpu_torch" not in str(e):
+            print(
+                f"Error: missing dependency: {e}. This looks like a "
+                "broken installation; rerun with -vvv for the full "
+                "traceback.",
+                file=sys.stderr,
+            )
+            return 3
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
+    except FileNotFoundError as e:
+        print(f"Error: file not found: {e.filename}", file=sys.stderr)
+        return 2
+    except Exception as e:
+        if args.verbosity >= 3:
+            raise
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
 
 
 if __name__ == "__main__":

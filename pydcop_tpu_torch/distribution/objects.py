@@ -1,13 +1,103 @@
-"""Placement hints read from a DCOP YAML file.
+"""Distribution data objects.
 
-Ported copy of ``DistributionHints`` from
-``pydcop_tpu/distribution/objects.py`` — the one class of that module
-the YAML load path reaches.
+Ported copy of ``pydcop_tpu/distribution/objects.py`` (itself
+pyDCOP's distribution/objects.py: Distribution :36,
+DistributionHints :223, ImpossibleDistributionException :269): a
+distribution maps agents to the computations they host, and the
+hints read from a DCOP YAML file constrain it.
 """
 
-from typing import Dict, List, Optional
+from typing import Dict, Iterable, List, Optional
 
 from pydcop_tpu_torch.utils.simple_repr import SimpleRepr
+
+
+class ImpossibleDistributionException(Exception):
+    pass
+
+
+class Distribution(SimpleRepr):
+    """A mapping agent-name -> list of computation names hosted there.
+
+    >>> d = Distribution({'a1': ['c1', 'c2'], 'a2': ['c3']})
+    >>> d.agent_for('c3')
+    'a2'
+    >>> d.computations_hosted('a1')
+    ['c1', 'c2']
+    """
+
+    def __init__(self, mapping: Dict[str, List[str]]):
+        self._mapping: Dict[str, List[str]] = {
+            a: list(cs) for a, cs in mapping.items()
+        }
+
+    @property
+    def mapping(self) -> Dict[str, List[str]]:
+        return {a: list(cs) for a, cs in self._mapping.items()}
+
+    @property
+    def agents(self) -> List[str]:
+        return list(self._mapping)
+
+    @property
+    def computations(self) -> List[str]:
+        return [c for cs in self._mapping.values() for c in cs]
+
+    def agent_for(self, computation: str) -> str:
+        for a, cs in self._mapping.items():
+            if computation in cs:
+                return a
+        raise KeyError(f"No agent hosts computation {computation}")
+
+    def computations_hosted(self, agent: str) -> List[str]:
+        return list(self._mapping.get(agent, []))
+
+    def host_on_agent(self, agent: str, computations: List[str]):
+        """Add computations to an agent's hosting list.
+
+        Hosting an already-hosted computation raises (reference
+        objects.py:156-175) — a silent duplicate would corrupt
+        ``agent_for``; move a computation by rebuilding the mapping.
+        """
+        hosted = set(self.computations)
+        for c in computations:
+            if c in hosted:
+                raise ValueError(
+                    f"Computation {c} is already hosted"
+                    + (f" on agent {self.agent_for(c)}"
+                       if self.is_hosted(c) else " (duplicate in call)")
+                )
+            hosted.add(c)
+        self._mapping.setdefault(agent, []).extend(computations)
+
+    def is_hosted(self, computations) -> bool:
+        if isinstance(computations, str):
+            computations = [computations]
+        hosted = set(self.computations)
+        return all(c in hosted for c in computations)
+
+    def has_computation(self, computation: str) -> bool:
+        return computation in set(self.computations)
+
+    def __eq__(self, other):
+        return (
+            isinstance(other, Distribution)
+            and self._mapping == other._mapping
+        )
+
+    def __repr__(self):
+        return f"Distribution({self._mapping})"
+
+    def _simple_repr(self):
+        return {
+            "__module__": self.__class__.__module__,
+            "__qualname__": self.__class__.__qualname__,
+            "mapping": self.mapping,
+        }
+
+    @classmethod
+    def _from_repr(cls, r):
+        return cls(r["mapping"])
 
 
 class DistributionHints(SimpleRepr):

@@ -17,13 +17,16 @@ HTTP front end, library cache and the serve and debug commands, and
 the partitioned slice: the partitioner, the sharded engine's device
 side, the multihost join and the halo reduction's wrapper, and the
 fleet slice: the router, the phi-accrual estimator and the fleet
-command), then
+command, and the generators slice: the problem generators, the factor
+graph, the rest of the graph helpers and the generate and graph
+commands), then
 ``sys.modules`` must hold no ``jax*``
 module and no ``pydcop_tpu``/``pydcop_tpu.*`` module.  The sources of
 the package, of chip_smoke.py, chip_compare.py,
 chip_var_update_compare.py and of the card-only test files of the local
 search, the exact slice, the dynamic slice, the batch slice, the
-serving slice, the partitioned slice and the fleet slice are also
+serving slice, the partitioned slice, the fleet slice and the generated
+problems are also
 scanned for such
 imports (the scan reads the imports inside functions too, such as the
 portfolio racer's).
@@ -143,6 +146,22 @@ REQUIRED = [
     "pydcop_tpu_torch.serving.router",
     "pydcop_tpu_torch.resilience.health",
     "pydcop_tpu_torch.commands.fleet",
+    "pydcop_tpu_torch.utils.various",
+    "pydcop_tpu_torch.distribution.objects",
+    "pydcop_tpu_torch.computations_graph.factor_graph",
+    "pydcop_tpu_torch.generators",
+    "pydcop_tpu_torch.generators.graphs",
+    "pydcop_tpu_torch.generators.graphcoloring",
+    "pydcop_tpu_torch.generators.ising",
+    "pydcop_tpu_torch.generators.iot",
+    "pydcop_tpu_torch.generators.smallworld",
+    "pydcop_tpu_torch.generators.meetingscheduling",
+    "pydcop_tpu_torch.generators.secp",
+    "pydcop_tpu_torch.generators.agents_gen",
+    "pydcop_tpu_torch.generators.scenario_gen",
+    "pydcop_tpu_torch.commands._utils",
+    "pydcop_tpu_torch.commands.generate",
+    "pydcop_tpu_torch.commands.graph",
 ]
 
 # The partitioned slice's modules, each scanned on its own below.
@@ -190,7 +209,8 @@ SOURCES = sorted(
        REPO / "tests" / "test_torch_gpu_serve.py",
        REPO / "tests" / "test_torch_gpu_sharding.py",
        REPO / "tests" / "test_torch_gpu_fleet.py",
-       REPO / "tests" / "test_torch_gpu_fleet_elastic.py"]
+       REPO / "tests" / "test_torch_gpu_fleet_elastic.py",
+       REPO / "tests" / "test_torch_gpu_generated.py"]
 )
 
 
@@ -263,3 +283,39 @@ def test_elastic_slice_imports_neither_jax_nor_the_reference(source):
     text = path.read_text(encoding="utf-8")
     for word in ("5(c)", "ELASTIC_NOT_PORTED", "refuse_elastic"):
         assert word not in text, (source, word)
+
+
+# The generators and graph tooling slice's modules, each scanned on its
+# own: no JAX, no JAX package, and no networkx outside the two bridge
+# functions of utils/graphs.py, which import it inside themselves.
+GENERATORS_SLICE = sorted(
+    str(p.relative_to(REPO))
+    for p in (REPO / "pydcop_tpu_torch" / "generators").glob("*.py")
+) + [
+    "pydcop_tpu_torch/utils/graphs.py",
+    "pydcop_tpu_torch/utils/various.py",
+    "pydcop_tpu_torch/computations_graph/factor_graph.py",
+    "pydcop_tpu_torch/commands/_utils.py",
+    "pydcop_tpu_torch/commands/generate.py",
+    "pydcop_tpu_torch/commands/graph.py",
+    "pydcop_tpu_torch/dcop_cli.py",
+    "chip_smoke.py",
+    "tests/test_torch_gpu_generated.py",
+]
+
+
+@pytest.mark.parametrize("source", GENERATORS_SLICE)
+def test_generators_slice_imports_neither_jax_nor_networkx(source):
+    """The generators and graph tooling exist, import neither JAX nor
+    the JAX package, and import networkx only inside a function."""
+    path = REPO / source
+    assert path.exists(), source
+    assert source in SOURCES
+    roots = {name.split(".")[0] for name in _imported_roots(path)}
+    assert not roots & {"jax", "jaxlib", "pydcop_tpu"}, (source, roots)
+    tree = ast.parse(path.read_text(encoding="utf-8"))
+    for node in tree.body:
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module or ""] if isinstance(node, ast.ImportFrom)
+                 else [])
+        assert not any(n.split(".")[0] == "networkx" for n in names), source

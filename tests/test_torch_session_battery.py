@@ -100,19 +100,30 @@ PARITY_PARAMS = {"noise": 0.01, "stability": 0.001,
 
 
 def _generated_factor_scenario(dcop, n_events, seed):
-    """The reference's scenario generator (``generators/`` is not
-    ported: the scenario is test input) run on this DCOP, its events
-    read back through the port's ``load_scenario``."""
+    """The reference's scenario generator and the port's copy
+    (``generators/scenario_gen.py``) run on this DCOP with the same
+    seed; their scenarios must write the same YAML, whose events are
+    then read back through the port's ``load_scenario``."""
     from pydcop_tpu.dcop.yamldcop import load_dcop as reference_load
     from pydcop_tpu.dcop.yamldcop import yaml_scenario as reference_yaml
     from pydcop_tpu.generators.scenario_gen import (
         generate_factor_scenario,
     )
-    from pydcop_tpu_torch.dcop.yamldcop import dcop_yaml, load_scenario
+    from pydcop_tpu_torch.dcop.yamldcop import (
+        dcop_yaml,
+        load_scenario,
+        yaml_scenario,
+    )
+    from pydcop_tpu_torch.generators.scenario_gen import (
+        generate_factor_scenario as port_generate_factor_scenario,
+    )
 
-    scenario = generate_factor_scenario(
-        reference_load(dcop_yaml(dcop)), n_events, seed=seed)
-    return load_scenario(reference_yaml(scenario))
+    text = reference_yaml(generate_factor_scenario(
+        reference_load(dcop_yaml(dcop)), n_events, seed=seed))
+    port_text = yaml_scenario(port_generate_factor_scenario(
+        dcop, n_events, seed=seed))
+    assert port_text == text
+    return load_scenario(text)
 
 
 def _ring(n: int, seed: int, name: str = "ring") -> DCOP:
